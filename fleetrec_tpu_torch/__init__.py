@@ -5,8 +5,13 @@ Index-mode scoring and serving on one device: config-order ids and dense
 features go through the packed-table lookup (the hand-written row-gather
 kernel, ``ops/csrc/gather_rows.cu``) and the bias-free MLP tower (the
 fused-MLP kernel, ``ops/csrc/fused_mlp.cu``) to [B] scores, served over the
-native ingest tier.  The package imports torch and never jax or
-``fleetrec_tpu``; its tests hold it equal to the JAX package.
+native ingest tier; feature mode serves the tower alone.  ``io.py`` reads
+and writes the JAX package's npz checkpoints, and the CLI's ``bench``,
+``gatherbench`` (with the grouped gather kernel,
+``ops/csrc/gather_grouped.cu``), ``autotune``, ``servebench``,
+``netbench`` and ``export`` measure the port on the card.  The package
+imports torch and never jax or ``fleetrec_tpu``; its tests hold it equal
+to the JAX package.
 """
 
 from . import config, reference

@@ -1,7 +1,9 @@
 """Build native sources at first use and load them with ctypes.
 
-The CUDA kernels (``ops/csrc/*.cu``) are compiled by ``nvcc`` into one
-shared library with a plain C interface, and the native ingest tier
+Every library is built the same way: each source compiles to an object
+in its own compiler process, all started together, and one link joins
+them.  The CUDA kernels (``ops/csrc/*.cu``) are compiled by ``nvcc`` into
+one shared library with a plain C interface; the native ingest tier
 (``fleetrec_tpu/native/*.cpp``, read by path) by ``g++``.  Each library
 lands in ``fleetrec_tpu_torch/_build/`` (ignored by git) under a name keyed
 by a hash of its sources and its command line, so an edited source builds
@@ -28,20 +30,25 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 CSRC_DIR = os.path.join(_PKG_DIR, "ops", "csrc")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class BuildError(RuntimeError):
     """A native source did not compile, or its compiler is missing."""
 
 
-def build_shared(name: str, sources: Sequence[str], cmd: Sequence[str]) -> str:
-    """Compile ``sources`` with ``cmd`` (compiler and flags, without ``-o``
-    and the sources) into ``BUILD_DIR/<name>-<hash>.so``; return its path.
+def build_shared(name: str, sources: Sequence[str], cmd: Sequence[str],
+                 link: Sequence[str]) -> str:
+    """Build ``sources`` into ``BUILD_DIR/<name>-<hash>.so``; return its path.
 
-    Concurrent builders (test workers) each write a private temporary file
-    and rename it into place, so a reader never sees a partial library."""
-    h = hashlib.sha256("\0".join(cmd).encode())
+    Each source compiles to an object with ``cmd -c`` (``cmd`` is the
+    compiler and its flags), all in parallel; ``link`` (the linker and its
+    flags, without ``-o`` and the objects) joins the objects.
+
+    Concurrent builds (test workers) each write private temporary files
+    and rename the library into place, so a reader never sees a partial
+    library."""
+    h = hashlib.sha256("\0".join([*cmd, "|", *link]).encode())
     for src in sources:
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
@@ -50,15 +57,27 @@ def build_shared(name: str, sources: Sequence[str], cmd: Sequence[str]) -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([*cmd, "-o", tmp, *sources], capture_output=True,
-                          text=True)
-    with open(os.path.join(BUILD_DIR, f"{name}.log"), "w") as f:
-        f.write(" ".join([*cmd, "-o", tmp, *sources]) + "\n")
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise BuildError(f"building {name} failed (exit {proc.returncode}):\n"
-                         f"{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
+    objs = [f"{tmp}.{i}.o" for i in range(len(sources))]
+    steps = [[[*cmd, "-c", "-o", o, s] for o, s in zip(objs, sources)],
+             [[*link, "-o", tmp, *objs]]]
+    try:
+        with open(os.path.join(BUILD_DIR, f"{name}.log"), "w") as log:
+            for step in steps:
+                procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True)
+                         for c in step]
+                texts = [p.communicate()[0] for p in procs]
+                for c, text in zip(step, texts):
+                    log.write(" ".join(c) + "\n" + text)
+                for c, p, text in zip(step, procs, texts):
+                    if p.returncode != 0:
+                        raise BuildError(f"building {name} failed (exit "
+                                         f"{p.returncode}):\n{' '.join(c)}\n"
+                                         f"{text[-4000:]}")
+        os.replace(tmp, out)
+    finally:
+        for f in glob.glob(f"{glob.escape(tmp)}*"):
+            os.remove(f)
     return out
 
 
@@ -78,14 +97,19 @@ def nvcc() -> str:
     raise BuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def kernel_sources() -> list:
+    """The CUDA sources of the port's kernels."""
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
 @functools.cache
 def kernels() -> ctypes.CDLL:
     """The port's CUDA kernels, built for sm_90a at first use.  Callers
     (ops/gather.py, ops/mlp_fused.py) declare their entry points'
     argtypes."""
-    sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
-    return ctypes.CDLL(build_shared("fleetrec_kernels", sources,
-                                    [nvcc(), *NVCC_FLAGS]))
+    cc = nvcc()
+    return ctypes.CDLL(build_shared("fleetrec_kernels", kernel_sources(),
+                                    [cc, *NVCC_FLAGS], [cc, "-shared"]))
 
 
 def check(rc: int, what: str) -> None:

@@ -4,11 +4,16 @@ receive->H2D->matmul loop (cuda_server.c:495-627) and its end-of-run
 latency post-processing (:704-744: per-batch max over senders, skip the
 first batch, average).
 
-Batches of table ids (+ the dense slice) are scored by the whole forward
-(lookup + concat + MLP) on the device.  The JAX engine's feature mode
-(``mlp_only``), pooled bags (``bag_L``), sharded serving
-(``from_sharded``) and the ``PeerWatchdog`` are not ported yet (ROADMAP.md
-queue 1).
+Two modes, as in the JAX engine:
+
+* index mode (``from_model``): batches of table ids (+ the dense slice) are
+  scored by the whole forward (lookup + concat + MLP) on the device;
+* feature mode (``mlp_only``): batches arrive as pre-gathered feature
+  vectors, the reference's wire, and only the MLP tower runs (the
+  ``fused_mlp`` kernel on CUDA).
+
+Pooled bags (``bag_L``), sharded serving (``from_sharded``) and the
+``PeerWatchdog`` are not ported yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..models.mlp import mlp_apply
 
 
 @dataclasses.dataclass
@@ -136,10 +143,29 @@ class ServingEngine:
         eng.fuse = fuse
         return eng
 
+    @classmethod
+    def mlp_only(cls, model, batch_size: int, max_in_flight: int = 2,
+                 background_drain: bool = False):
+        """Feature mode: score pre-gathered float32 feature vectors
+        [B, feature_dim] with the model's MLP tower only (the reference's
+        wire semantics: its server runs just the matmul chain)."""
+        dev = model.device
+        weights = model.mlp_weights
+        activation = model.cfg.mlp.activation
+
+        def score(feats_np, _dense):
+            x = torch.from_numpy(np.ascontiguousarray(feats_np)).to(dev)
+            with torch.inference_mode():
+                return mlp_apply(weights, x, activation)[:, 0]
+
+        return cls(score, 0, 0, batch_size, max_in_flight, background_drain)
+
     def warmup(self):
         """Run the scoring path once on dummy data before the first real
         batch, so that building the kernels (first use) stays out of the
-        latency records."""
+        latency records.  Index-mode engines only."""
+        if self.num_tables == 0:
+            raise ValueError("warmup is for index-mode engines")
         lead = (self.fuse, self.batch_size) if self.fuse > 1 else (self.batch_size,)
         idx = np.zeros(lead + (self.num_tables,), np.int32)
         dense = (np.zeros(lead + (self.dense_dim,), np.float32)
@@ -247,19 +273,24 @@ class ServingEngine:
             self._check_drain_error()
 
     # -- ingest loop -----------------------------------------------------
-    def run_from_ingest(self, ingest, n_batches: int,
+    def run_from_ingest(self, ingest, n_batches: int, mode: str = "index",
+                        feature_dim: Optional[int] = None,
                         on_done: Optional[Callable] = None,
                         timeout_ms: int = 20_000,
                         row_limits: Optional[Sequence[int]] = None,
                         reply_to: Optional[int] = None,
                         scatter=None, wire=None) -> dict:
-        """Consume n_batches of index-mode slots from an IngestServer and
-        score them.
+        """Consume n_batches of slots from an IngestServer and score them.
 
-        Single sender (wire=None): slot floats are bit-cast int32
-        [B, num_tables] ids followed by [B, dense_dim] floats.
-        Multi-sender: pass an IndexWireFormat (serving/wire.py) describing
-        the per-sender slot layout — the reference's 3-node topology.
+        Feature mode (mode="feature", an ``mlp_only`` engine): slot floats
+        are [B, feature_dim] features; with several senders, each sender's
+        block is its [B, width] slice, so the slot is their concatenation
+        only when the features are all equal (the parity data).
+        Index mode, single sender (wire=None): slot floats are bit-cast
+        int32 [B, num_tables] ids followed by [B, dense_dim] floats.
+        Index mode, multi-sender: pass an IndexWireFormat (serving/wire.py)
+        describing the per-sender slot layout — the reference's 3-node
+        topology.
 
         reply_to: sender index to stream the fp32 scores back to after each
         batch; the client must read replies or TCP backpressure stalls the
@@ -273,6 +304,13 @@ class ServingEngine:
         tier's monotonic clock, so time a slot waits in the ring counts."""
         B = self.batch_size
         fuse = self.fuse
+        if mode not in ("index", "feature"):
+            raise ValueError(f"mode {mode!r} not in ('index', 'feature')")
+        if mode == "feature":
+            if fuse > 1:
+                raise ValueError("fused dispatch is index-mode only")
+            if not feature_dim:
+                raise ValueError("feature mode needs feature_dim")
         if n_batches % fuse:
             raise ValueError(f"n_batches={n_batches} must divide by fuse={fuse}")
         if reply_to is not None or scatter is not None:
@@ -306,9 +344,12 @@ class ServingEngine:
                 if got is None:
                     raise TimeoutError(f"ingest timeout at batch {i + k}")
                 slot, view, t_first, _ = got
-                idx, dense = parse_index_slot(view)
+                if mode == "feature":
+                    idx, dense = view.reshape(B, feature_dim).copy(), None
+                else:
+                    idx, dense = parse_index_slot(view)
                 ingest.release(slot)
-                if row_limits is not None:
+                if row_limits is not None and mode == "index":
                     # reject bad row ids at the wire (otherwise they surface
                     # as NaN scores)
                     self.validate_indices(idx, row_limits)

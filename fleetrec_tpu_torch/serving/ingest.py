@@ -23,14 +23,15 @@ from ..ops._build import build_shared
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            os.pardir, os.pardir, "fleetrec_tpu", "native")
-_CXX = ("g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
+_CXX = ("g++", "-O2", "-std=c++17", "-fPIC", "-pthread")
+_LINK = ("g++", "-shared", "-pthread")
 
 
 def build_native() -> str:
     """Compile the native ingest library (once per source change)."""
     srcs = [os.path.normpath(os.path.join(_NATIVE_DIR, f))
             for f in ("ingest.cpp", "scatter.cpp")]
-    return build_shared("fleetrec_ingest", srcs, list(_CXX))
+    return build_shared("fleetrec_ingest", srcs, _CXX, _LINK)
 
 
 @functools.cache

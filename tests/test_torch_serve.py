@@ -1,8 +1,9 @@
 """The port's serving path (serving/engine.py, compose.py, ingest.py,
 cli.py) end to end over loopback on the CPU, scores held against the
 float64 oracle — twins of the loopback tests of test_compose.py and
-test_multisender.py.  Ports 21380-21450 are used by no other test file
-(xdist runs files in parallel)."""
+test_multisender.py — and the engine's feature mode and servebench,
+twins of test_ingest.py's.  Ports 21380-21480 are used by no other test
+file (xdist runs files in parallel)."""
 
 import socket
 import threading
@@ -15,14 +16,17 @@ from fleetrec_tpu_torch import config as C
 from fleetrec_tpu_torch import reference as ref
 from fleetrec_tpu_torch.cli import main
 from fleetrec_tpu_torch.models import init_model
+from fleetrec_tpu.serving.servebench import _run_simulated as j_run_simulated
 from fleetrec_tpu_torch.serving import (
     IndexWireFormat,
     IngestServer,
+    Loadgen,
     ServeSpec,
     ServingEngine,
     build_engine,
     serve,
 )
+from fleetrec_tpu_torch.serving.servebench import _run_simulated, run_servebench
 
 PORT = 21380
 
@@ -237,3 +241,127 @@ def test_build_engine_follows_the_spec():
         assert eng.score_fn(*[np.stack([a, a]) for a in _batches(cfg, 4, 1, 3)[0]]).shape == (2, 4)
     finally:
         eng.close()
+
+
+# ---- feature mode (ServingEngine.mlp_only) ----------------------------------
+
+def test_engine_feature_mode_end_to_end():
+    """Twin of test_ingest.py::test_engine_feature_mode_end_to_end: loadgen
+    -> ingest -> mlp_only engine reproduces the closed-form all-ones
+    score."""
+    B, width = 16, 512
+    cfg = C.parity_synthetic(width, batch_size=B)
+    eng = ServingEngine.mlp_only(init_model(cfg), batch_size=B)
+    outs = {}
+    nbytes = B * width * 4
+    with IngestServer([nbytes], n_slots=4, port_base=PORT + 60) as ing:
+        Loadgen("127.0.0.1", PORT + 60, [nbytes], n_batches=6, fill=1.0).start()
+        summary = eng.run_from_ingest(
+            ing, 6, mode="feature", feature_dim=width,
+            on_done=lambda bid, scores: outs.__setitem__(bid, scores))
+    assert summary["batches"] == 6 and summary["latency_ms_p99"] > 0
+    assert sorted(outs) == list(range(6))
+    for scores in outs.values():
+        np.testing.assert_array_equal(scores, np.full(B, 68719476736.0, np.float32))
+
+
+def test_engine_feature_mode_three_sender_model3_wire():
+    """Twin of test_ingest.py::test_engine_feature_mode_three_sender_model3_
+    wire: 64 + 1952 + 1952 floats a query from three senders at fixed
+    offsets, all-ones, scored to the closed form for width 3968."""
+    B = 4
+    widths = [64, 1952, 1952]
+    F = sum(widths)
+    cfg = C.parity_synthetic(F, batch_size=B)
+    eng = ServingEngine.mlp_only(init_model(cfg), batch_size=B)
+    nbytes = [B * w * 4 for w in widths]
+    outs = {}
+    with IngestServer(nbytes, n_slots=2, port_base=PORT + 70) as ing:
+        Loadgen("127.0.0.1", PORT + 70, nbytes, n_batches=3, fill=1.0).start()
+        summary = eng.run_from_ingest(
+            ing, 3, mode="feature", feature_dim=F,
+            on_done=lambda bid, s: outs.__setitem__(bid, s))
+    assert summary["batches"] == 3 and len(outs) == 3
+    want = ref.closed_form_all_ones_score(F)
+    for scores in outs.values():
+        np.testing.assert_array_equal(scores, np.full(B, want, np.float32))
+
+
+def test_feature_mode_refuses_fuse_and_warmup():
+    cfg = C.parity_synthetic(512, batch_size=4)
+    eng = ServingEngine.mlp_only(init_model(cfg), batch_size=4)
+    with pytest.raises(ValueError, match="index-mode"):
+        eng.warmup()
+    eng.fuse = 2
+    with pytest.raises(ValueError, match="index-mode only"):
+        eng.run_from_ingest(None, 2, mode="feature", feature_dim=512)
+    eng.fuse = 1
+    with pytest.raises(ValueError, match="feature_dim"):
+        eng.run_from_ingest(None, 2, mode="feature")
+    with pytest.raises(ValueError, match="mode"):
+        eng.run_from_ingest(None, 2, mode="bags")
+
+
+def test_mlp_only_scores_the_tower_of_a_table_model():
+    """Feature mode runs the model's MLP tower alone: its scores on a
+    feature batch equal the float64 oracle's chain within rtol 1e-5 (fp32
+    sums)."""
+    cfg = C.get_config("micro_test", batch_size=8)
+    model = init_model(cfg, mlp_scheme="uniform")
+    eng = ServingEngine.mlp_only(model, batch_size=8)
+    x = np.random.default_rng(4).uniform(-1, 1, (8, cfg.feature_dim)).astype(np.float32)
+    want = ref.mlp_chain(x.astype(np.float64), ref.init_mlp_weights(cfg, "uniform"))
+    np.testing.assert_allclose(eng.score_fn(x, None).numpy(), want[:, 0],
+                               rtol=1e-5, atol=1e-6)
+
+
+# ---- servebench ---------------------------------------------------------------
+
+@pytest.mark.parametrize("qps,fuse,max_in_flight,service_ms", [
+    (1000, 1, 2, 0.5), (50_000, 4, 1, 3.0), (200_000, 1, 3, 0.7), (20_000, 2, 2, 12.0),
+])
+def test_simulated_servebench_equals_jax(qps, fuse, max_in_flight, service_ms):
+    """The event-driven recurrence, field by field against the JAX
+    package's on the same seeded arrivals (exact: the same numpy code)."""
+    kw = dict(batch_size=64, offered_qps=qps, duration_s=1.0, max_wait_ms=2.0,
+              max_in_flight=max_in_flight, fuse=fuse, service_ms=service_ms)
+    got = _run_simulated(rng=np.random.default_rng(3), **kw).to_json()
+    want = j_run_simulated(rng=np.random.default_rng(3), **kw).to_json()
+    assert got == want
+    assert run_servebench(None, 64, qps, duration_s=1.0, seed=3,
+                          max_in_flight=max_in_flight, fuse=fuse,
+                          simulate_service_ms=service_ms).to_json() == want
+
+
+def test_servebench_device_pool_and_fuse():
+    """Twin of test_ingest.py::test_servebench_device_pool_and_fuse."""
+    cfg = C.get_config("micro_test", batch_size=16)
+    model = init_model(cfg, table_scheme="uniform", mlp_scheme="uniform")
+    for kw in ({"device_pool": True}, {"fuse": 4}):
+        r = run_servebench(model, batch_size=16, offered_qps=4000,
+                           duration_s=0.5, max_wait_ms=2.0, **kw)
+        assert r.n_queries > 500
+        assert r.achieved_qps > 1000
+        assert r.latency_ms_p99 < 5000
+
+
+def test_servebench_reads_each_dispatch_back_when_it_completes():
+    """At low load a dispatch is read back once its forward is done, not
+    after max_in_flight later dispatches (the JAX loop's deferral, which
+    adds two 5 ms batch-formation windows to its service time here)."""
+    cfg = C.get_config("micro_test", batch_size=32)
+    r = run_servebench(init_model(cfg), batch_size=32, offered_qps=500,
+                       duration_s=1.0, max_wait_ms=5.0, max_in_flight=2)
+    assert r.n_dispatches > 50
+    assert r.service_ms_p50 < 5.0
+    assert r.latency_ms_p50 < r.wait_ms_p50 + 5.0
+
+
+def test_servebench_cpu_smoke():
+    """Twin of test_ingest.py::test_servebench_cpu_smoke."""
+    cfg = C.get_config("micro_test", batch_size=32)
+    r = run_servebench(init_model(cfg), batch_size=32, offered_qps=1000,
+                       duration_s=1.0, max_wait_ms=2.0)
+    assert r.n_queries > 500
+    assert 0.5 * r.offered_qps < r.achieved_qps < 2 * r.offered_qps
+    assert 0 < r.latency_ms_p50 <= r.latency_ms_p99 <= r.latency_ms_max

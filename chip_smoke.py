@@ -18,10 +18,17 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
    table, 122880 int64 ids with -1 and out-of-range ids among them, chunk
    512 -> 440, group 8, window 8: 280 blocks of 55 groups on 8 barrier
    slots) as well as the kernel's defaults;
-3. fused MLP: the ``fused_mlp`` kernel against its plain version at the
-   model1 widths (float32 rtol/atol 1e-5; bfloat16 rtol 2e-2 with atol
-   2e-2 * max|plain|), the all-ones closed form 68719476736 exactly, and
-   ReLU on all-positive data equal to no ReLU;
+3. fused MLP: bf16 ``wgmma`` tiles (m64n128k16, widths 16-128 at
+   B = 8192) equal to ``torch.matmul``, then the ``fused_mlp`` kernels
+   (one launch a layer) against their plain version at the model1,
+   model2, model3, criteo (input padded 845 -> 848) and two ragged towers
+   (45-40-24-1, and 45-40-10, which ends in a product), B in 1, 77, 700,
+   1000, 1024, 4000, 4096, float32 and bfloat16, ReLU off and on, every
+   block tile planned on a ragged batch among them (float32 rtol/atol
+   1e-5; bfloat16 rtol 2e-2 with atol 2e-2 * max|plain|); the all-ones
+   closed forms 68719476736
+   (512 wide) and 532575944704 (3968 wide) exactly in both dtypes; ReLU on
+   all-positive data equal to no ReLU;
 4. fleetrec_model1 at full rows (47 tables, 1.41 GB of float32 tables on
    the device): pm1 tables + all-ones MLP bit-equal to the numpy oracle at
    B = 4096, uniform tables + weights within rtol 1e-3 / atol 2e-3, bad
@@ -41,10 +48,12 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
    by three senders over loopback, every score the closed form;
 8. report: the card's name and power limit, each kernel's median time
    against its plain version at the model1 shapes and at gatherbench's
-   shape and flags (CUDA events over CUDA-graph replays, so host dispatch is out of
-   the kernel-against-plain comparison; eager back-to-back calls and the
-   profiler's device time beside them), and the model1 forward's
-   ms/batch, eager and replayed from a CUDA graph.
+   shape and flags, ``fused_mlp`` in both dtypes at model1 and model3
+   widths, B = 4096 and 1024 (CUDA events over CUDA-graph replays, so host
+   dispatch is out of the kernel-against-plain comparison; eager
+   back-to-back calls and the profiler's device time beside them), and the
+   model1 forward's ms/batch, eager and replayed from a CUDA graph, with
+   the fused-MLP kernels' share of its device time.
 
 In phases 5-7 the kernels' launch counters are zeroed just before each
 path runs and read just after; each kernel of the path must have launched.
@@ -85,7 +94,9 @@ from fleetrec_tpu_torch.models.embedding import tier_gathers
 from fleetrec_tpu_torch.ops import _build
 from fleetrec_tpu_torch.ops.gather import (gather_rows, gather_rows_grouped,
                                           gather_rows_plain)
-from fleetrec_tpu_torch.ops.mlp_fused import fused_mlp, fused_mlp_plain
+from fleetrec_tpu_torch.models.mlp import init_mlp_params
+from fleetrec_tpu_torch.ops.mlp_fused import (PRODUCT, TILES, fused_mlp,
+                                             fused_mlp_plain, mlp_plan)
 from fleetrec_tpu_torch.serving import (IngestServer, Loadgen, ServeSpec,
                                         ServingEngine, serve)
 
@@ -219,43 +230,104 @@ def phase_grouped(dev, gb) -> float:
     return worst
 
 
-def phase_mlp(dev) -> float:
-    """fused_mlp kernel == plain version within the stated tolerances."""
-    cfg = C.fleetrec_model1()
-    ws32 = [torch.from_numpy(w).to(dev) for w in ref.init_mlp_weights(cfg, "uniform", seed=3)]
+# the towers of the repo's configs and two ragged ones (every width padded;
+# ragged_wide ends in a 10-wide product, not a row-dot)
+MLP_WIDTHS = {"model1": (352, 1024, 512, 256, 1), "model2": (880, 1024, 512, 256, 1),
+              "model3": (3968, 2048, 512, 256, 1),
+              "criteo": (845, 1024, 1024, 512, 256, 1), "ragged": (45, 40, 24, 1),
+              "ragged_wide": (45, 40, 10)}
+# 1000 and 4000 reach every block tile on a ragged batch (model1 plans
+# 64 x 128, then 128 x 128 and 64 x 64)
+MLP_BATCHES = (1, 77, 700, 1000, 1024, 4000, 4096)
+
+
+def _mlp_weights(widths, dev, seed=3):
+    spec = C.MLPSpec(input_dim=widths[0], hidden=widths[1:-1], out_dim=widths[-1])
+    return init_mlp_params(spec, "uniform", seed=seed, device=dev)
+
+
+def _check_mlp(ws, x, activation, what) -> float:
+    """fused_mlp == fused_mlp_plain within the dtype's tolerance: float32
+    rtol/atol 1e-5 (fp32 sums in another order); bfloat16 rtol 2e-2 with
+    atol 2e-2 * max|plain| (one bf16 ulp at a layer boundary may round the
+    other way).  Returns the max abs error."""
+    got = fused_mlp(ws, x, activation)
+    want = fused_mlp_plain(ws, x, activation)
+    torch.cuda.synchronize()
+    if x.dtype == torch.float32:
+        tol = {"rtol": 1e-5, "atol": 1e-5}
+    else:
+        tol = {"rtol": 2e-2, "atol": 2e-2 * want.abs().max().item()}
+    torch.testing.assert_close(got, want, **tol, msg=lambda m: f"fused_mlp {what}: {m}")
+    return (got - want).abs().max().item()
+
+
+def phase_mlp(dev):
+    """fused_mlp kernels == plain version: one bf16 wgmma tile shape
+    (m64n128k16: widths 16-128, which B=8192 plans to 128 blocks of 64 x
+    128, one k16 step each) against torch.matmul; every tower of
+    MLP_WIDTHS at every B of MLP_BATCHES, float32 and bfloat16, ReLU off
+    and on, which between them plan every block tile; the all-ones closed
+    forms exactly in both dtypes; ReLU on positive data equal to no ReLU.
+    Returns the worst float32 and bfloat16 errors."""
     rng = np.random.default_rng(1)
-    worst = 0.0
-    for B in (700, 4096):
-        x = torch.from_numpy(rng.uniform(-1, 1, (B, 352)).astype(np.float32)).to(dev)
-        got = fused_mlp(ws32, x)
-        want = fused_mlp_plain(ws32, x)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-        worst = max(worst, (got - want).abs().max().item())
-        xb = x.to(torch.bfloat16)
-        wsb = [w.to(torch.bfloat16) for w in ws32]
-        got_b = fused_mlp(wsb, xb)
-        want_b = fused_mlp_plain(wsb, xb)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got_b, want_b, rtol=2e-2,
-                                   atol=2e-2 * want_b.abs().max().item())
-    # closed form: all-ones 512-wide input through all-ones 1024-512-256-1
-    ones = [torch.ones(a, b, device=dev) for a, b in ((512, 1024), (1024, 512), (512, 256), (256, 1))]
-    for dtype in (torch.float32, torch.bfloat16):
-        x1 = torch.ones(700, 512, device=dev, dtype=dtype)
-        got = fused_mlp([w.to(dtype) for w in ones], x1)
-        torch.cuda.synchronize()
-        if not bool((got == 68719476736.0).all()):
-            raise AssertionError(f"closed form broken in {dtype}: {got[:3, 0].tolist()}")
+    bf = torch.bfloat16
+    # the m64n128k16 tile: integer data is exact in any order of the 16 terms
+    if [(lp.bm, lp.bn) for lp in mlp_plan((16, 128), bf, 8192).layers] != [(64, 128)]:
+        raise AssertionError("widths 16-128 at B=8192 no longer plan 64 x 128 tiles")
+    a = torch.from_numpy(rng.integers(-8, 9, (8192, 16)).astype(np.float32)).to(dev, bf)
+    w = torch.from_numpy(rng.integers(-8, 9, (16, 128)).astype(np.float32)).to(dev, bf)
+    got = fused_mlp([w], a)
+    if not torch.equal(got, torch.matmul(a.float(), w.float())):
+        raise AssertionError("m64n128k16 wgmma tiles differ from torch.matmul")
+    worst = {torch.float32: 0.0, bf: 0.0}
+    a, w = a.float().normal_(), w.float().normal_()
+    worst[bf] = _check_mlp([w.to(bf)], a.to(bf), None, "m64n128k16 wgmma tiles")
+    n_cases = 0
+    tiles = set()
+    for name, widths in MLP_WIDTHS.items():
+        ws32 = _mlp_weights(widths, dev)
+        x32 = torch.from_numpy(rng.uniform(-1, 1, (max(MLP_BATCHES), widths[0]))
+                               .astype(np.float32)).to(dev)
+        for dtype in (torch.float32, bf):
+            ws = [w.to(dtype) for w in ws32]
+            for B in MLP_BATCHES:
+                if B % 64:  # a ragged batch: the last row tile is partly empty
+                    tiles.update((lp.bm, lp.bn) for lp in mlp_plan(widths, dtype, B).layers
+                                 if lp.kind == PRODUCT)
+                for act in (None, "relu"):
+                    err = _check_mlp(ws, x32[:B].to(dtype), act, f"{name} {dtype} B={B} {act}")
+                    worst[dtype] = max(worst[dtype], err)
+                    n_cases += 1
+    if tiles != set(TILES):
+        raise AssertionError(f"ragged batches planned tiles {sorted(tiles)}, not all of {TILES}")
+    # closed forms: all-ones input through all-ones F-1024-512-256-1
+    for F in (512, 3968):
+        widths = (F, 1024, 512, 256, 1)
+        want = ref.closed_form_all_ones_score(F)
+        ones = [torch.ones(a, b, device=dev) for a, b in zip(widths[:-1], widths[1:])]
+        for dtype in (torch.float32, bf):
+            for B in (700, 4096):
+                got = fused_mlp([w.to(dtype) for w in ones],
+                                torch.ones(B, F, device=dev, dtype=dtype))
+                torch.cuda.synchronize()
+                if not bool((got == want).all()):
+                    raise AssertionError(f"closed form {want:.0f} broken in {dtype} "
+                                         f"B={B}: {got[:3, 0].tolist()}")
     # ReLU on all-positive data changes nothing
+    ws32 = [w.abs() for w in _mlp_weights(MLP_WIDTHS["model1"], dev)]
     xp = torch.from_numpy(rng.uniform(0, 1, (700, 352)).astype(np.float32)).to(dev)
-    wp = [w.abs() for w in ws32]
-    if not torch.equal(fused_mlp(wp, xp, "relu"), fused_mlp(wp, xp)):
+    if not torch.equal(fused_mlp(ws32, xp, "relu"), fused_mlp(ws32, xp)):
         raise AssertionError("relu on positive data differs from no relu")
-    log(f"phase 3 fused MLP: fp32 max_abs_err {worst} (rtol/atol 1e-5), bf16 "
-        f"within rtol 2e-2, closed form 68719476736 exact, relu == none on "
-        f"positive data")
-    return worst
+    log(f"phase 3 fused MLP: bf16 m64n128k16 wgmma tiles (16-128, B=8192) == "
+        f"torch.matmul; "
+        f"{n_cases} cases ({', '.join(MLP_WIDTHS)} x B {MLP_BATCHES} x "
+        f"fp32/bf16 x relu off/on, every tile on a ragged batch) within "
+        f"tolerance: fp32 max_abs_err {worst[torch.float32]} (rtol/atol 1e-5), "
+        f"bf16 max_abs_err {worst[bf]} (rtol 2e-2, atol 2e-2 * max|plain|); "
+        f"closed forms 68719476736 and 532575944704 exact in both dtypes; "
+        f"relu == none on positive data")
+    return worst[torch.float32], worst[bf]
 
 
 def check_tier_gathers(model, idx_t):
@@ -623,6 +695,10 @@ def _fmt(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
+# the kernels of one fused_mlp call, by the names the profiler gives them
+MLP_KERNELS = ("ffma_product<", "wgmma_product<", "rowdot<")
+
+
 def phase_report(cfg, model, dev, gb):
     """Kernel-against-plain and forward times; kernel (b) and kernel (a) at
     gatherbench's table and ids ``gb``, (b) with gatherbench's flags.
@@ -636,11 +712,6 @@ def phase_report(cfg, model, dev, gb):
     log(f"card: {card}")
     rng = np.random.default_rng(4)
     idx = torch.from_numpy(_rand_ids(cfg, B_TIME, rng)).to(dev)
-    x = torch.from_numpy(np.random.default_rng(5).uniform(
-        -1, 1, (B_TIME, cfg.feature_dim)).astype(np.float32)).to(dev)
-    ws = model.mlp_weights
-    xb, wsb = x.to(torch.bfloat16), [w.to(torch.bfloat16) for w in ws]
-    flops = cfg.mlp.flops_per_query * B_TIME
     with torch.inference_mode():
         cases = []  # (label, kernel, plain, note)
         for t in tier_gathers(model.packed, model.plan_indices(idx)):
@@ -658,10 +729,22 @@ def phase_report(cfg, model, dev, gb):
                           functools.partial(gather_rows_plain, table_gb, idx_gb),
                           f"{GB_N} rows of 128 x float32 from a [{GB_ROWS}, 128] "
                           f"table, {2 * GB_N * 128 * 4} B read+written {kw}"))
-        for tag, w_, x_ in (("fp32", ws, x), ("bf16", wsb, xb)):
-            cases.append((f"fused_mlp {tag}", functools.partial(fused_mlp, w_, x_),
-                          functools.partial(fused_mlp_plain, w_, x_),
-                          f"widths {cfg.mlp.widths}, {flops} FLOP"))
+        flops = {}
+        for name in ("model1", "model3"):
+            widths = MLP_WIDTHS[name]
+            ws = model.mlp_weights if name == "model1" else _mlp_weights(widths, dev)
+            x = torch.from_numpy(np.random.default_rng(5).uniform(
+                -1, 1, (B_TIME, widths[0])).astype(np.float32)).to(dev)
+            for B in (B_TIME, 1024):
+                for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+                    w_ = [w.to(dtype) for w in ws]
+                    x_ = x[:B].to(dtype)
+                    label = f"fused_mlp {tag} {name} B={B}"
+                    flops[label] = 2 * B * sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+                    cases.append((label, functools.partial(fused_mlp, w_, x_),
+                                  functools.partial(fused_mlp_plain, w_, x_),
+                                  f"widths {widths}, {flops[label]} FLOP, "
+                                  f"{len(widths) - 1} launches"))
         fwds = {B: functools.partial(model, idx[:B].contiguous()) for B in (1024, B_TIME)}
 
         events = {label: _pair(k, p) for label, k, p, _ in cases}
@@ -676,17 +759,22 @@ def phase_report(cfg, model, dev, gb):
             fwd_graph_ms[B] = float(np.median([_ms(g.replay, 1) / 10 for _ in range(5)]))
 
         for label, k, p, note in cases:
-            kd, pd = _profile(k)[0], _profile(p)[0]
+            kd, _, krows = _profile(k)
+            pd = _profile(p)[0]
             ke, pe = events[label]
             kg, pg = graphed[label]
             rate = ""
-            if label.startswith("fused_mlp"):
-                rate = f" = {flops / kg / 1e9:.2f} TFLOP/s"
-            log(f"time {label} B={B_TIME}: kernel {kg:.4f} ms{rate}, plain "
+            if label in flops:
+                rate = f" = {flops[label] / kg / 1e9:.2f} TFLOP/s"
+            log(f"time {label if label in flops else f'{label} B={B_TIME}'}: "
+                f"kernel {kg:.4f} ms{rate}, plain "
                 f"{pg:.4f} ms (CUDA events over graph replays); eager "
                 f"back-to-back calls incl. host dispatch: kernel {ke:.4f} ms, "
                 f"plain {pe:.4f} ms; device time kernel {_fmt(kd)}, plain "
                 f"{_fmt(pd)} (profiler); {note}")
+            if label in flops:  # one row per kernel name (layers of one tile add up)
+                for name, ms in krows:
+                    log(f"  device time per call: {ms:.4f} ms  {name[:70]}")
         g_ms = sum(graphed[k][0] for k in tier_labels)
         g_plain = sum(graphed[k][1] for k in tier_labels)
         log(f"time gather_rows all tiers B={B_TIME}: kernel {g_ms:.4f} ms, plain "
@@ -703,7 +791,12 @@ def phase_report(cfg, model, dev, gb):
                 f"{len(rows)} kernels")
             for name, ms in rows[:6]:
                 log(f"  device time per forward B={B}: {ms:.4f} ms  {name[:80]}")
-    return {"gather_rows": (g_ms, g_plain), "fused_mlp": graphed["fused_mlp fp32"],
+            mlp_ms = sum(ms for name, ms in rows if any(k in name for k in MLP_KERNELS))
+            log(f"  fused_mlp kernels per forward B={B}: {mlp_ms:.4f} ms (profiler; "
+                f"alone over graph replays: {graphed[f'fused_mlp fp32 model1 B={B}'][0]:.4f} ms)")
+    return {"gather_rows": (g_ms, g_plain),
+            "fused_mlp": graphed[f"fused_mlp fp32 model1 B={B_TIME}"],
+            "fused_mlp_bf16": graphed[f"fused_mlp bf16 model1 B={B_TIME}"],
             "gather_rows_grouped": graphed["gather_rows_grouped gatherbench shape"]}
 
 
@@ -726,7 +819,7 @@ def main() -> int:
     gb = gatherbench_inputs(dev)
     err_g = phase_gather(dev)
     err_gg = phase_grouped(dev, gb)
-    err_m = phase_mlp(dev)
+    err_m, err_mb = phase_mlp(dev)
     cfg, model, tabs, ws, err_tiers, err_tiers_gg = phase_model1(dev)
     err_g = max(err_g, err_tiers)
     err_gg = max(err_gg, err_tiers_gg)
@@ -744,7 +837,9 @@ def main() -> int:
          "source": "fleetrec_tpu_torch/ops/csrc/fused_mlp.cu",
          "replaces": "fleetrec_tpu/ops/mlp_fused.py:84",
          "launches": launches["fused_mlp"], "max_abs_err": err_m,
-         "ms": times["fused_mlp"][0], "plain_ms": times["fused_mlp"][1]},
+         "ms": times["fused_mlp"][0], "plain_ms": times["fused_mlp"][1],
+         "max_abs_err_bf16": err_mb, "ms_bf16": times["fused_mlp_bf16"][0],
+         "plain_ms_bf16": times["fused_mlp_bf16"][1]},
         {"name": "gather_rows_grouped", "route": "cuda",
          "source": "fleetrec_tpu_torch/ops/csrc/gather_grouped.cu",
          "replaces": "fleetrec_tpu/ops/gather_pallas.py:139",

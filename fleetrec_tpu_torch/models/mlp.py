@@ -1,8 +1,9 @@
 """Dense scoring tower, the port of ``fleetrec_tpu/models/mlp.py``: the
 reference's chain of four cublasLtMatmul calls, bias-free by default.
 
-On a CUDA tensor ``mlp_apply`` runs the ``fused_mlp`` kernel (one launch
-for the whole chain); on a CPU tensor it runs the plain chain.  Both keep
+On a CUDA tensor ``mlp_apply`` runs the ``fused_mlp`` kernels (one
+launch a layer, the activations between them in an L2-resident scratch);
+on a CPU tensor it runs the plain chain.  Both keep
 the JAX package's compute-dtype rule: the compute dtype is ``x.dtype`` on
 entry, weights are cast to it per layer, sums are fp32, and activations
 re-narrow to it between layers."""

@@ -27,23 +27,27 @@ from fleetrec_tpu_torch.ops.gather import (
     grouped_launch_params,
     grouped_params,
 )
+from fleetrec_tpu_torch.config import parity_synthetic
 from fleetrec_tpu_torch.ops.mlp_fused import (
+    PRODUCT,
+    ROWDOT,
+    TILES,
     fused_mlp,
     fused_mlp_available,
     fused_mlp_plain,
-    tile_rows,
+    mlp_plan,
+    pad_operands,
 )
 
 MODEL1 = (352, 1024, 512, 256, 1)
+# the towers of the repo's configs (fleetrec_model1/2/3, criteo_terabyte,
+# parity_synthetic(3968)) and a ragged one
+TOWERS = {"model1": MODEL1, "model2": (880, 1024, 512, 256, 1),
+          "model3": (3968, 2048, 512, 256, 1),
+          "criteo": (845, 1024, 1024, 512, 256, 1),
+          "parity3968": parity_synthetic(3968).mlp.widths}
+RAGGED = (45, 40, 24, 1)
 DTYPES = [torch.float32, torch.bfloat16, torch.int8]
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode "
-                    "(chip_smoke.py runs them on the card)")
-    return torch.device("cuda:0")
 
 
 # ---- gather ---------------------------------------------------------------
@@ -260,19 +264,124 @@ def test_mlp_apply_bf16_matches_jax():
                                atol=2e-2 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("widths,dtype,tile", [
-    (MODEL1, torch.float32, 16), (MODEL1, torch.bfloat16, 32),
-    ((3968, 2048, 512, 256, 1), torch.float32, 4), ((8, 4, 1), torch.float32, 32),
-])
-def test_tile_rows_fits_shared_memory(widths, dtype, tile):
-    assert tile_rows(widths, dtype) == tile
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(TOWERS))
+def test_mlp_plan_products_fit_and_the_score_is_a_row_dot(name, dtype):
+    """Every layer but the score is a product on one of the kernels' tiles
+    (fused_mlp.cu asserts at compile time that each tile's ring of stages
+    fits 227 KB), with 16-byte widths; the score is the row-dot."""
+    widths = TOWERS[name]
+    plan = mlp_plan(widths, dtype, 4096)
     assert fused_mlp_available(widths, dtype)
+    assert len(plan.layers) == len(widths) - 1
+    for lp, n in zip(plan.layers[:-1], widths[1:-1]):
+        assert n >= 8 and lp.kind == PRODUCT
+        assert (lp.bm, lp.bn) in TILES
+        assert lp.k % (16 // dtype.itemsize) == 0 and lp.n % (16 // dtype.itemsize) == 0
+    assert plan.layers[-1].kind == ROWDOT and plan.layers[-1].n == widths[-1] == 1
+    # the padded input width: only criteo's 845 is not a 16-byte multiple
+    assert plan.k0 == (848 if name == "criteo" else widths[0])
+    assert plan.padded[1:-1] == widths[1:-1]
 
 
-def test_fused_mlp_unavailable_when_a_row_does_not_fit():
-    assert tile_rows((40000, 1), torch.float32) == 0
-    assert not fused_mlp_available((40000, 1), torch.float32)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1024, 4096])
+def test_mlp_plan_fills_the_card_at_model1(B, dtype):
+    """At B=4096 every product layer of model1 gets at least 128 blocks
+    (about one per SM of the H100's 132): 64 x 128 where 128 x 128 gives
+    fewer.  At B=1024 the tiles shrink to 64 x 64, which layer 3 (N=256)
+    fills only half-way."""
+    plan = mlp_plan(MODEL1, dtype, B)
+    for lp in plan.layers[:-1]:
+        blocks = -(-B // lp.bm) * -(-lp.n // lp.bn)
+        assert blocks >= (128 if B == 4096 or lp.n > 256 else 64)
+    assert plan.layers[-1].kind == ROWDOT  # one warp a row
+    want = {4096: [(128, 128), (128, 128), (64, 128)],
+            1024: [(64, 128), (64, 64), (64, 64)]}[B]
+    assert [(lp.bm, lp.bn) for lp in plan.layers[:-1]] == want
+
+
+@pytest.mark.parametrize("dtype,B,want", [
+    (torch.float32, 4096, 4096 * (1024 + 512) * 4),  # 24 MB
+    (torch.bfloat16, 4096, 4096 * (1024 + 512) * 2),
+    (torch.float32, 77, 77 * (1024 + 512) * 4),
+])
+def test_mlp_plan_scratch_is_the_ping_pong(dtype, B, want):
+    """Layers 1 and 3 write buffer 0 (1024 and 256 wide), layer 2 buffer 1
+    (512 wide): the scratch holds the widest of each."""
+    plan = mlp_plan(MODEL1, dtype, B)
+    assert plan.scratch_rows == (1024, 512)
+    assert plan.scratch_bytes == want
+    assert mlp_plan((8, 1), dtype, B).scratch_bytes == 0  # the score alone
+
+
+def test_mlp_plan_refuses_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="layers"):
+        mlp_plan((8,) * 10 + (1,), torch.float32, 16)
+    with pytest.raises(ValueError, match="width below 1"):
+        mlp_plan((8, 0, 1), torch.float32, 16)
     assert not fused_mlp_available((8,) * 10 + (1,), torch.float32)
+    assert not fused_mlp_available((8, 0, 1), torch.float32)
+    assert not fused_mlp_available(MODEL1, torch.float16)
+    assert fused_mlp_available((40000, 1), torch.float32)  # no longer bound by a row tile
+    assert mlp_plan((8,) * 8 + (1,), torch.float32, 16).layers[-1].kind == ROWDOT
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("widths", [RAGGED, (845, 64, 30, 12)])
+def test_zero_padding_leaves_the_plain_chain_bit_equal(widths, dtype):
+    """x and the weights zero-padded to the plan's widths give the very
+    same sums: the padded chain, cut back to the real output, is
+    bit-equal to the unpadded one.  Values in {-1, 0, 1}, so every sum is
+    exact in any order (the CPU's BLAS blocks K = 845 and 848 apart)."""
+    rng = np.random.default_rng(11)
+    B = 77
+    ws = [torch.from_numpy(rng.integers(-1, 2, (a, b)).astype(np.float32)).to(dtype)
+          for a, b in zip(widths[:-1], widths[1:])]
+    x = torch.from_numpy(rng.integers(-1, 2, (B, widths[0])).astype(np.float32)).to(dtype)
+    plan = mlp_plan(widths, dtype, B)
+    xp, wp = pad_operands(plan, ws, x)
+    assert xp.shape == (B, plan.k0)
+    assert [tuple(w.shape) for w in wp] == [(lp.k, lp.n) for lp in plan.layers]
+    assert all(w.is_contiguous() and w.dtype == dtype for w in wp)
+    for act in (None, "relu"):
+        want = fused_mlp_plain(ws, x, act)
+        got = fused_mlp_plain(wp, xp, act)[:, :widths[-1]]
+        assert torch.equal(got, want)
+    if widths == RAGGED:
+        assert plan.padded[:3] == (48, 40, 24)
+
+
+def test_fused_mlp_matches_pallas_fused_mlp_on_ragged_widths():
+    """Twin of the padding case: widths 45-40-24-1 (input padded to 48 on
+    the card), B=77, through the Pallas kernel (interpret) and the port.
+    rtol/atol 1e-5: fp32 sums in another order."""
+    spec = JMLPSpec(input_dim=45, hidden=(40, 24))
+    ws = j_init_mlp(spec, scheme="uniform", seed=4)
+    x = np.random.default_rng(12).uniform(-1, 1, (77, 45)).astype(np.float32)
+    for act in (None, "relu"):
+        want = np.asarray(jax.jit(lambda w, x: j_fused_mlp(w, x, activation=act))(
+            ws, jnp.asarray(x)))
+        got = fused_mlp([torch.from_numpy(np.array(w)) for w in ws],
+                        torch.from_numpy(x), activation=act).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlp_plan_is_made_once_per_widths_dtype_and_batch(dtype):
+    """The wrapper asks for the plan at every call: the same widths (as a
+    list or a tuple), dtype and batch give the same plan object; another
+    batch or dtype another plan.  The kernels take it as 6 ints a layer."""
+    plan = mlp_plan(MODEL1, dtype, 4000)
+    assert mlp_plan(list(MODEL1), dtype, 4000) is plan
+    assert mlp_plan(MODEL1, dtype, 1000) is not plan
+    other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+    assert mlp_plan(MODEL1, other, 4000) is not plan
+    assert len(plan.ints) == 6 * len(plan.layers)
+    assert plan.ints[:6] == (PRODUCT, 128, 128, 352, 1024, 1024)
+    # B=4000: layer 3 (N=256) on 64 x 64, the first ragged batch of every tile
+    assert [(lp.bm, lp.bn) for lp in plan.layers[:-1]] == [(128, 128), (128, 128), (64, 64)]
+    assert [(lp.bm, lp.bn) for lp in mlp_plan(MODEL1, dtype, 1000).layers[:1]] == [(64, 128)]
 
 
 # ---- build ----------------------------------------------------------------
@@ -309,50 +418,3 @@ def test_build_shared_compiles_each_source_then_links(tmp_path):
     b.write_text("int fr_b(void) { return }\n")
     with pytest.raises(_build.BuildError, match="b.c"):
         _build.build_shared("probe_link", [str(a), str(b)], cc, link)
-
-
-# ---- on the card ------------------------------------------------------------
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_gather_kernel_matches_plain_on_card(cuda, dtype):
-    rng = np.random.default_rng(4)
-    for L in (4, 8, 16, 32, 128):
-        table = torch.from_numpy(rng.integers(-100, 100, (999, L)).astype(np.float32)).to(cuda, dtype)
-        ids = rng.integers(0, 999, 700)
-        ids[:3] = (-1, 999, -5)
-        idx = torch.from_numpy(ids).to(cuda)
-        before = gather_rows.launches
-        got = gather_rows(table, idx)
-        assert gather_rows.launches == before + 1
-        assert torch.equal(got, gather_rows_plain(table, idx))
-
-
-@pytest.mark.cuda
-def test_fused_mlp_kernel_matches_plain_on_card(cuda):
-    ws = [w.to(cuda) for w in init_mlp_params(
-        MLPSpec(input_dim=352, hidden=(1024, 512, 256)), "uniform", seed=3)]
-    x = torch.from_numpy(np.random.default_rng(5).uniform(
-        -1, 1, (700, 352)).astype(np.float32)).to(cuda)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.testing.assert_close(fused_mlp(ws, x), fused_mlp_plain(ws, x),
-                               rtol=1e-5, atol=1e-5)
-    ones = [torch.ones(a, b, device=cuda) for a, b in ((512, 1024), (1024, 512), (512, 256), (256, 1))]
-    out = fused_mlp(ones, torch.ones(100, 512, device=cuda))
-    assert bool((out == 68719476736.0).all())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_grouped_kernel_matches_plain_on_card(cuda, dtype):
-    rng = np.random.default_rng(6)
-    for L in (3, 4, 5, 8, 16, 32, 128):
-        table = torch.from_numpy(rng.integers(-100, 100, (999, L)).astype(np.float32)).to(cuda, dtype)
-        ids = rng.integers(0, 999, 700)
-        ids[:3] = (-1, 999, -5)
-        idx = torch.from_numpy(ids).to(cuda)
-        for chunk, group, window in ((1024, 8, 4), (64, 5, 2)):
-            before = gather_rows_grouped.launches
-            got = gather_rows_grouped(table, idx, chunk=chunk, group=group, window=window)
-            assert gather_rows_grouped.launches == before + 1
-            assert torch.equal(got, gather_rows_plain(table, idx))

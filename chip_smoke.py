@@ -36,41 +36,55 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
 4. fleetrec_model1 at full rows (47 tables, 1.41 GB of float32 tables on
    the device): pm1 tables + all-ones MLP bit-equal to the numpy oracle at
    B = 4096, uniform tables + weights within rtol 1e-3 / atol 2e-3, bad
-   take ids NaN-poisoned, 7 gather launches and 1 fused-MLP launch per
-   forward; both gather kernels bit-equal to the plain version on each of
-   the 7 tiers' real inputs (packed-buffer views and flat ids at B = 4096,
-   with a few -1 and out-of-range ids added), the grouped kernel at its
-   defaults and at gatherbench's flags;
-5. serve: ``serving.compose.serve`` for model1 (B = 1024, replies on) in a
+   take ids NaN-poisoned (rows [5, 9]), launches per forward: 1
+   ``lookup_fused``, 0 ``gather_rows``, 1 fused-MLP; both gather kernels
+   bit-equal to the plain version on each of the 7 tiers' real inputs
+   (packed-buffer views and flat ids at B = 4096, with a few -1 and
+   out-of-range ids added), the grouped kernel at its defaults and at
+   gatherbench's flags;
+5. fused lookup: the ``lookup_fused`` kernel (one launch a call) bit-equal
+   to its plain version, features and flags, int32 and int64 ids with -1,
+   rows, 2^31 - 1 and -rows - 5 among them, and to the tier-by-tier path
+   (``lookup_concat(plan_indices(ids))`` and ``bad_take_rows``) on: phase
+   4's model1 at B = 1024 (the served batch: 2 rows a tile) and 4096 (10
+   rows a tile); fleetrec_model3 (int8 tables, dense 64, 3968
+   wide) with its take tables capped at 1M rows (every tier kept: a plain
+   class, four factored classes, two take groups), B = 4096; a
+   criteo-shaped config (bf16, 16 stripes, 845 wide, dense 13) with rows
+   capped at 100000; the QR variant of micro_test;
+6. serve: ``serving.compose.serve`` for model1 (B = 1024, replies on) in a
    thread, 4 index batches sent over loopback, the replied scores equal to
-   the oracle;
-6. tools, through ``cli.main`` at model1's full rows: ``gatherbench`` at
+   the oracle, one ``lookup_fused`` and one ``fused_mlp`` launch a batch;
+7. tools, through ``cli.main`` at model1's full rows: ``gatherbench`` at
    its defaults, ``export`` -> ``io.load_npz`` (buffers and scores
    bit-equal to phase 4's model), ``bench --stage e2e|lookup|mlp --ckpt``
    at B = 4096, ``servebench`` at B = 1024 for 2 s;
-7. feature mode: ``ServingEngine.mlp_only`` on parity_synthetic(3968) fed
+8. feature mode: ``ServingEngine.mlp_only`` on parity_synthetic(3968) fed
    by three senders over loopback, every score the closed form;
-8. report: the card's name and power limit, each kernel's median time
+9. report: the card's name and power limit, each kernel's median time
    against its plain version at the model1 shapes and at gatherbench's
    shape and flags, ``fused_mlp`` in both dtypes at model1 and model3
-   widths, B = 4096 and 1024 (CUDA events over CUDA-graph replays, so host
+   widths, B = 4096 and 1024, ``lookup_fused`` at model1 B = 1024 and 4096
+   and model3 B = 4096 beside the path it replaced (CUDA events over
+   CUDA-graph replays, so host
    dispatch is out of the kernel-against-plain comparison; eager
    back-to-back calls and the profiler's device time beside them), each
    beside its bound (the larger of its bytes, each counted once, over 3.35
    TB/s and its FLOPs over the dtype's peak: the H100 SXM data sheet) and
    one PyTorch call computing the same function, timed as a yardstick only
    (``index_select`` for the gathers, ``torch.linalg.multi_dot`` for the
-   towers, which run with no activation, as model1's does), and the model1
-   forward's ms/batch, eager and replayed from a CUDA graph,
-   with the fused-MLP kernels' share of its device time.
+   towers, which run with no activation, as model1's does; none computes
+   the fused lookup), and the model1 forward's ms/batch, eager and
+   replayed from a CUDA graph, with its kernel launches and the fused-MLP
+   kernels' share of its device time.
 
-In phases 5-7 the kernels' launch counters are zeroed just before each
+In phases 6-8 the kernels' launch counters are zeroed just before each
 path runs and read just after; each kernel of the path must have launched.
 A counter counts wrapper calls that launched a kernel: eager calls, and
 the calls recorded while a CUDA graph is captured.  Replays of a graph
-add nothing, so ``gather_rows_grouped``'s count from ``gatherbench``
-(one graph of 16 steps: 16 warm-up calls plus 16 captured) says nothing of
-the replays it timed.
+add nothing, so ``gather_rows``' and ``gather_rows_grouped``'s counts from
+``gatherbench`` (one graph of 16 steps: 16 warm-up calls plus 16 captured)
+say nothing of the replays it timed.
 Every phase raises on failure.  The second-to-last line is the kernels'
 JSON record, the last line ``{"ok": true, "device": {...}}``.  Exits
 nonzero, printing no result, when no CUDA device is present.
@@ -79,6 +93,7 @@ nonzero, printing no result, when no CUDA device is present.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -99,11 +114,14 @@ from fleetrec_tpu_torch import config as C
 from fleetrec_tpu_torch import io as fio
 from fleetrec_tpu_torch import reference as ref
 from fleetrec_tpu_torch.models import init_model
-from fleetrec_tpu_torch.models.embedding import tier_gathers
+from fleetrec_tpu_torch.models.embedding import lookup_concat, tier_gathers
 from fleetrec_tpu_torch.ops import _build
 from fleetrec_tpu_torch.ops.gather import (gather_rows, gather_rows_grouped,
                                           gather_rows_plain)
 from fleetrec_tpu_torch.models.mlp import init_mlp_params
+from fleetrec_tpu_torch.ops.lookup import (LOOKUP_COL_FIELDS, lookup_fused,
+                                          lookup_fused_plain, lookup_offsets_plain,
+                                          lookup_out_dtype)
 from fleetrec_tpu_torch.ops.mlp_fused import (PRODUCT, TILES, fused_mlp,
                                              fused_mlp_plain, mlp_plan)
 from fleetrec_tpu_torch.serving import (IngestServer, Loadgen, ServeSpec,
@@ -119,6 +137,9 @@ SERVE_SHARE = 0.02
 # and its default flags for the grouped kernel
 GB_ROWS, GB_N = 1 << 20, 4096 * 30
 GB_FLAGS = {"chunk": 512, "group": 8, "window": 8}
+# row caps of the fused-lookup phase: model3's take tables at bench.py's
+# model3 operating point (its class tables stay whole), criteo's tables
+LOOKUP_CAPS = {"fleetrec_model3": 1_000_000, "criteo_terabyte": 100_000}
 
 
 def log(msg: str) -> None:
@@ -430,12 +451,13 @@ def phase_model1(dev):
     packed = model.packed
     table_bytes = sum(b.numel() * b.element_size()
                       for b in packed.onehot_buffers + [packed.take_buffer])
-    gather_rows.launches = fused_mlp.launches = 0
+    gather_rows.launches = fused_mlp.launches = lookup_fused.launches = 0
     with torch.inference_mode():
         s = model(idx_t).cpu().numpy()
-    per_fwd = (gather_rows.launches, fused_mlp.launches)
-    if per_fwd != (7, 1):
-        raise AssertionError(f"launches per forward {per_fwd}, want (7, 1)")
+    per_fwd = (lookup_fused.launches, gather_rows.launches, fused_mlp.launches)
+    if per_fwd != (1, 0, 1):
+        raise AssertionError(f"launches per forward (lookup_fused, gather_rows, "
+                             f"fused_mlp) {per_fwd}, want (1, 0, 1)")
     golden = ref.forward(cfg, tabs, ws, idx)
     if not np.array_equal(s, golden.astype(np.float32)):
         raise AssertionError("model1 pm1/ones scores are not bit-equal to the oracle")
@@ -453,13 +475,103 @@ def phase_model1(dev):
         f"{table_bytes / 1e9:.3f} GB of packed buffers on {dev}; pm1/ones "
         f"B={B_TIME} bit-equal to the oracle; uniform within rtol 1e-3 / "
         f"atol 2e-3 (max abs err {err_u:.3g}); launches per forward: "
-        f"gather_rows {per_fwd[0]}, fused_mlp {per_fwd[1]}; bad ids -> NaN "
+        f"lookup_fused {per_fwd[0]}, gather_rows {per_fwd[1]}, fused_mlp "
+        f"{per_fwd[2]}; bad ids -> NaN "
         f"rows {nan_rows}; gather_rows and gather_rows_grouped (defaults and "
         f"{GB_FLAGS}) kernels bit-equal to the plain version on the 7 tiers' "
         f"inputs (uniform tables, with -1 / out-of-range ids; max_abs_err "
         f"{err_g} / {err_gg}) "
         f"({time.time() - t0:.1f}s)")
     return cfg, model, tabs, ws, err_g, err_gg
+
+
+def _cap(cfg, rows):
+    return dataclasses.replace(cfg, tables=tuple(
+        dataclasses.replace(t, rows=min(t.rows, rows)) for t in cfg.tables))
+
+
+def ids_with_bad(cfg, B, rng):
+    """Uniform in-range ids [B, T] (int32) with bad ones at rows 1-4: -1,
+    the table's rows and 2^31 - 1 each in every third column, -rows - 5 in
+    every column of row 4."""
+    ids = np.stack([rng.integers(0, t.rows, B) for t in cfg.tables], 1)
+    for j, t in enumerate(cfg.tables):
+        ids[1 + j % 3, j] = (-1, t.rows, 2**31 - 1)[j % 3]
+        ids[4, j] = -t.rows - 5
+    return ids.astype(np.int32)
+
+
+def _dense(cfg, B, rng, dev):
+    if not cfg.dense_dim:
+        return None
+    return torch.from_numpy(rng.uniform(-1, 1, (B, cfg.dense_dim)).astype(np.float32)).to(dev)
+
+
+def bits(t):
+    """A tensor's bits, for bit-for-bit comparison (NaN and -0 included)."""
+    return t.view({4: torch.int32, 2: torch.int16, 1: torch.int8}[t.element_size()])
+
+
+def check_lookup(model, idx, dense, what) -> float:
+    """model.lookup (one lookup_fused launch) == lookup_fused_plain on the
+    same operands and == the tier-by-tier path (lookup_concat(plan_indices)
+    through gather_rows, and bad_take_rows), bit for bit: features and
+    flags.  Returns the max abs error of the features (0)."""
+    before = lookup_fused.launches
+    got, bad = model.lookup(idx, dense)
+    if lookup_fused.launches != before + 1:
+        raise AssertionError(f"lookup_fused did not launch once: {what}")
+    want, want_bad = lookup_fused_plain(idx, dense, **model.lookup_operands())
+    gi = model.plan_indices(idx)
+    tiers, tiers_bad = lookup_concat(model.packed, gi, dense), model.bad_take_rows(gi)
+    torch.cuda.synchronize()
+    for name, f, b in (("plain", want, want_bad), ("tiers", tiers, tiers_bad)):
+        if got.dtype != f.dtype or not torch.equal(bits(got), bits(f)):
+            raise AssertionError(f"lookup_fused features differ from the {name} path: {what}")
+        if (bad is None) != (b is None) or (bad is not None and not torch.equal(bad, b)):
+            raise AssertionError(f"lookup_fused flags differ from the {name} path: {what}")
+    return (got.float() - want.float()).abs().max().item()
+
+
+def lookup_models(dev):
+    """{name: (cfg, model)} of the fused-lookup phase besides model1:
+    model3 (int8, dense 64) and criteo (bf16, 16 stripes) at LOOKUP_CAPS,
+    and the QR variant of micro_test; uniform tables."""
+    cfgs = {name: _cap(C.get_config(name, batch_size=B_TIME), rows)
+            for name, rows in LOOKUP_CAPS.items()}
+    cfgs["qr"] = dataclasses.replace(C.micro_test(batch_size=B_TIME), onehot_max=8,
+                                     qr_threshold=80, qr_rem=16)
+    return {name: (cfg, init_model(cfg, table_scheme="uniform", mlp_scheme="uniform",
+                                   device=dev))
+            for name, cfg in cfgs.items()}
+
+
+def phase_lookup(dev, model1):
+    """lookup_fused == plain == the tier-by-tier path on phase 4's model1 at
+    B = 1024 (the served batch) and 4096, and on lookup_models at B = 4096,
+    int32 and int64 ids with bad ones.  Returns the worst error and model1's
+    and model3's (cfg, model), which the report times."""
+    t0 = time.time()
+    rng = np.random.default_rng(10)
+    models = {"fleetrec_model1": (model1.cfg, model1), **lookup_models(dev)}
+    worst, notes = 0.0, []
+    with torch.inference_mode():
+        for name, (cfg, model) in models.items():
+            for B in (B_SERVE, B_TIME) if name == "fleetrec_model1" else (B_TIME,):
+                ids = ids_with_bad(cfg, B, rng)
+                dense = _dense(cfg, B, rng, dev)
+                for idt in (torch.int32, torch.int64):
+                    idx = torch.from_numpy(ids).to(dev, idt)
+                    worst = max(worst, check_lookup(model, idx, dense, f"{name} B={B} {idt}"))
+            lay = model.layout
+            notes.append(f"{name} ({cfg.table_dtype}, {cfg.feature_dim} wide, "
+                         f"{len(lay.onehot_classes)} classes, {len(lay.take_groups)} "
+                         f"take groups, {lay.take_stripes} stripes, dense {cfg.dense_dim})")
+    log(f"phase 5 fused lookup: lookup_fused bit-equal to its plain version and to "
+        f"the tier-by-tier path, features and flags, int32 and int64 ids with bad "
+        f"ones, B={B_TIME} (model1 also B={B_SERVE}): {'; '.join(notes)} (max_abs_err {worst}; "
+        f"{time.time() - t0:.1f}s)")
+    return worst, {k: models[k] for k in ("fleetrec_model1", "fleetrec_model3")}
 
 
 def _free_port() -> int:
@@ -481,7 +593,7 @@ def phase_serve(model, tabs, ws):
     def run():
         out["summary"] = serve(cfg, model, spec)
 
-    gather_rows.launches = fused_mlp.launches = 0
+    gather_rows.launches = fused_mlp.launches = lookup_fused.launches = 0
     th = threading.Thread(target=run, daemon=True)
     th.start()
     sock = None
@@ -506,7 +618,8 @@ def phase_serve(model, tabs, ws):
     th.join(120)
     if th.is_alive() or "summary" not in out:
         raise AssertionError("serve() did not finish")
-    launches = {"gather_rows": gather_rows.launches, "fused_mlp": fused_mlp.launches}
+    launches = {"lookup_fused": lookup_fused.launches, "gather_rows": gather_rows.launches,
+                "fused_mlp": fused_mlp.launches}
     if len(buf) != want:
         raise AssertionError(f"got {len(buf)} reply bytes, want {want}")
     scores = np.frombuffer(buf, np.float32).reshape(N_SERVE, B_SERVE)
@@ -514,19 +627,19 @@ def phase_serve(model, tabs, ws):
         golden = ref.forward(cfg, tabs, ws, idx).astype(np.float32)
         if not np.array_equal(scores[k], golden):
             raise AssertionError(f"served batch {k} differs from the oracle")
-    if min(launches.values()) < 1:
+    if launches["lookup_fused"] < 1 or launches["fused_mlp"] < 1:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
-    if launches != {"gather_rows": 7 * N_SERVE, "fused_mlp": N_SERVE}:
+    if launches != {"lookup_fused": N_SERVE, "gather_rows": 0, "fused_mlp": N_SERVE}:
         raise AssertionError(f"unexpected launch counts {launches}")
     s = out["summary"]
-    log(f"phase 5 serve: {s['wire_batches']} batches x {B_SERVE} served over "
+    log(f"phase 6 serve: {s['wire_batches']} batches x {B_SERVE} served over "
         f"loopback, replies bit-equal to the oracle; launches in the run: "
         f"{launches}; latency_ms_p50 {s.get('latency_ms_p50')} (host clock, "
         f"first batch excluded)")
     return launches
 
 
-KERNELS = (gather_rows, gather_rows_grouped, fused_mlp)
+KERNELS = (gather_rows, gather_rows_grouped, fused_mlp, lookup_fused)
 
 
 def _counted(fn):
@@ -563,7 +676,7 @@ def phase_tools(model, dev):
     """The measurement and checkpoint entry points on the card, through
     ``cli.main`` as a user calls them, at model1's full rows: gatherbench
     at its defaults; export of the pm1 model1 -> load_npz, whose buffers
-    and scores must equal the phase-3 model's (which was built from the
+    and scores must equal the phase-4 model's (which was built from the
     same tables and weights); bench e2e / lookup / mlp at B = 4096 from
     that checkpoint (--ckpt); servebench at B = 1024 for 2 s.  Returns the
     gatherbench launch counts and the bench results."""
@@ -589,8 +702,8 @@ def phase_tools(model, dev):
                 raise AssertionError("scores from the checkpoint differ from the model's")
         del loaded
         benches = {}
-        for stage, need in (("e2e", ("gather_rows", "fused_mlp")),
-                            ("lookup", ("gather_rows",)), ("mlp", ("fused_mlp",))):
+        for stage, need in (("e2e", ("lookup_fused", "fused_mlp")),
+                            ("lookup", ("lookup_fused",)), ("mlp", ("fused_mlp",))):
             r, _ = _cli(["bench", *common, "--ckpt", path, "--stage", stage], need)
             if not _finite_pos(r["ms_per_batch"], r["inferences_per_sec"]):
                 raise AssertionError(f"bench {stage}: bad times {r}")
@@ -603,11 +716,11 @@ def phase_tools(model, dev):
         f"bench's device rate at B={B_TIME}")
     sb, _ = _cli(["servebench", "--config", cfg.name, "--batch", str(B_SERVE),
                   "--device", "cuda", "--qps", f"{qps:.0f}", "--duration", "2",
-                  "--device-pool"], ("gather_rows", "fused_mlp"))
+                  "--device-pool"], ("lookup_fused", "fused_mlp"))
     if not (sb["n_queries"] > 0 and 0.5 * qps < sb["achieved_qps"] < 2 * qps
             and 0 < sb["latency_ms_p50"] <= sb["latency_ms_p99"] <= sb["latency_ms_max"]):
         raise AssertionError(f"servebench: {sb}")
-    log(f"phase 6 tools: gatherbench, export -> load_npz (buffers and scores "
+    log(f"phase 7 tools: gatherbench, export -> load_npz (buffers and scores "
         f"bit-equal, {ex['bytes']} B), bench e2e/lookup/mlp --ckpt, "
         f"servebench ({time.time() - t0:.1f}s)")
     return gb_launches, benches
@@ -642,9 +755,10 @@ def phase_feature(dev):
     if sorted(outs) != list(range(NB)) or not all(np.array_equal(v, want)
                                                   for v in outs.values()):
         raise AssertionError("feature-mode scores differ from the closed form")
-    if launches != {"gather_rows": 0, "gather_rows_grouped": 0, "fused_mlp": NB}:
+    if launches != {"gather_rows": 0, "gather_rows_grouped": 0, "fused_mlp": NB,
+                    "lookup_fused": 0}:
         raise AssertionError(f"feature mode launches {launches}, want fused_mlp {NB}")
-    log(f"phase 7 feature mode: {summary['batches']} batches x {B} of "
+    log(f"phase 8 feature mode: {summary['batches']} batches x {B} of "
         f"{widths} floats over loopback, scores == closed form "
         f"{ref.closed_form_all_ones_score(F):.0f}; launches {launches}")
 
@@ -712,8 +826,8 @@ def _pair_graph(kernel, plain, iters: int = 20, reps: int = 5):
 def _profile(fn, iters: int = 20):
     """torch.profiler over ``iters`` calls: (device ms per call summed over
     the device-side kernel events, host wall ms per call, [(kernel, device
-    ms per call)]).  Device ms is None when the profiler reports no device
-    time."""
+    ms per call)], device kernel launches per call).  Device ms is None when
+    the profiler reports no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -725,12 +839,12 @@ def _profile(fn, iters: int = 20):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / iters
-    rows = [(e.key, e.self_device_time_total / 1e3 / iters)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows = sorted(((e.key, e.self_device_time_total / 1e3 / iters) for e in events),
+                  key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    return (busy if rows else None), wall, rows
+    return (busy if rows else None), wall, rows, sum(e.count for e in events) / iters
 
 
 def _fmt(ms):
@@ -759,6 +873,25 @@ def gather_bytes(table, idx) -> int:
     return idx.numel() * idx.element_size() + (torch.unique(ok).numel() + idx.numel()) * row
 
 
+def lookup_bytes(model, idx, dense) -> int:
+    """Bytes the fused lookup must move, each counted once: its ids and
+    descriptors, the distinct table rows these ids read (a (buffer, row)
+    pair once), the dense features, the features and the flags it writes."""
+    ops = model.lookup_operands()
+    cols = ops["cols"]
+    off, _ = lookup_offsets_plain(idx, cols, ops["stripes"], ops["stripe_height"])
+    read = off >= 0
+    buf = cols[:, LOOKUP_COL_FIELDS.index("buf")].expand_as(off)[read]
+    dim = cols[:, LOOKUP_COL_FIELDS.index("dim")].expand_as(off)[read]
+    rows = torch.unique(torch.stack([buf, off[read], dim], 1), dim=0)
+    B, F = idx.shape[0], ops["pos"].shape[0]
+    out = torch.empty((), dtype=lookup_out_dtype(ops["bufs"])).element_size()
+    return (idx.numel() * idx.element_size() + cols.numel() * 8 + ops["pos"].numel() * 4
+            + int(rows[:, 2].sum()) * ops["bufs"][0].element_size()
+            + (0 if dense is None else dense.numel() * 4)
+            + B * F * out + (B if ops["with_bad"] else 0))
+
+
 def index_select_call(table, ids):
     """("index_select", ``table.index_select(0, ids)``): the one PyTorch
     call that computes a gather whose ids are all in range (checked here:
@@ -785,10 +918,13 @@ def bound(nbytes: int, flops: int = 0, dtype=torch.float32):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_report(cfg, model, dev, gb):
+def phase_report(cfg, model, dev, gb, lookups):
     """Kernel-against-plain and forward times, each kernel beside its bound
-    and one library call (index_select, multi_dot); kernel (b) and kernel (a) at
-    gatherbench's table and ids ``gb``, (b) with gatherbench's flags.
+    and one library call (index_select, multi_dot; none computes the fused
+    lookup, which is timed beside the path it replaced: lookup_concat of
+    plan_indices through gather_rows, and bad_take_rows); kernel (b) and
+    kernel (a) at gatherbench's table and ids ``gb``, (b) with gatherbench's
+    flags; ``lookup_fused`` on model1 and on ``lookups``' model3.
     CUDA-event timings come first: once
     torch.profiler has attached to the device it adds host cost to every
     later launch, so the profiled pass runs last.  Returns each label's
@@ -801,8 +937,9 @@ def phase_report(cfg, model, dev, gb):
     rng = np.random.default_rng(4)
     idx = torch.from_numpy(_rand_ids(cfg, B_TIME, rng)).to(dev)
     with torch.inference_mode():
-        # (label, kernel, plain, note, (library name, call), (ms, bound_by));
-        # the towers are timed with no activation, as model1 runs them
+        # (label, kernel, plain, note, (library name, call) or None, (ms,
+        # bound_by), replaced path or None); the towers are timed with no
+        # activation, as model1 runs them
         cases = []
         for t in tier_gathers(model.packed, model.plan_indices(idx)):
             nbytes = gather_bytes(t.table, t.ids)
@@ -811,7 +948,7 @@ def phase_report(cfg, model, dev, gb):
                           functools.partial(gather_rows_plain, t.table, t.ids),
                           f"{t.ids.numel()} rows of {t.dim} x {t.table.dtype}, "
                           f"{nbytes} B counted once",
-                          index_select_call(t.table, t.ids), bound(nbytes)))
+                          index_select_call(t.table, t.ids), bound(nbytes), None))
         tier_labels = [c[0] for c in cases]
         table_gb, idx_gb = gb
         nbytes = gather_bytes(table_gb, idx_gb)
@@ -823,7 +960,7 @@ def phase_report(cfg, model, dev, gb):
                           functools.partial(gather_rows_plain, table_gb, idx_gb),
                           f"{GB_N} rows of 128 x float32 from a [{GB_ROWS}, 128] "
                           f"table, {nbytes} B counted once",
-                          index_select_call(table_gb, idx_gb), bound(nbytes)))
+                          index_select_call(table_gb, idx_gb), bound(nbytes), None))
         flops = {}
         for name in ("model1", "model3"):
             widths = MLP_WIDTHS[name]
@@ -843,12 +980,37 @@ def phase_report(cfg, model, dev, gb):
                                   functools.partial(fused_mlp_plain, w_, x_),
                                   f"widths {widths}, {flops[label]} FLOP, "
                                   f"{len(widths) - 1} launches", multi_dot_call(w_, x_),
-                                  bound(nbytes, flops[label], dtype)))
+                                  bound(nbytes, flops[label], dtype), None))
+        # the lookups at B_TIME again with every id 0: every row a cached one,
+        # so the gap to random ids is what the random row reads cost
+        ids0 = {}
+        for name, B in (("fleetrec_model1", 1024), ("fleetrec_model1", B_TIME),
+                        ("fleetrec_model3", B_TIME)):
+            lcfg, m = lookups[name]
+            ids = torch.from_numpy(_rand_ids(lcfg, B, rng)).to(dev)  # int32, as served
+            dense = _dense(lcfg, B, rng, dev)
+            nbytes = lookup_bytes(m, ids, dense)
+
+            def replaced(m=m, ids=ids, dense=dense):
+                gi = m.plan_indices(ids)
+                return lookup_concat(m.packed, gi, dense), m.bad_take_rows(gi)
+
+            if B == B_TIME:
+                ids0[f"lookup_fused {name} B={B}"] = functools.partial(
+                    m.lookup, torch.zeros_like(ids), dense)
+            cases.append((f"lookup_fused {name} B={B}", functools.partial(m.lookup, ids, dense),
+                          functools.partial(lookup_fused_plain, ids, dense,
+                                            **m.lookup_operands()),
+                          f"{lcfg.num_tables} tables ({lcfg.table_dtype}), "
+                          f"{lcfg.feature_dim} wide, dense {lcfg.dense_dim}, int32 ids, "
+                          f"{nbytes} B counted once", None, bound(nbytes), replaced))
         fwds = {B: functools.partial(model, idx[:B].contiguous()) for B in (1024, B_TIME)}
 
         events = {c[0]: _pair(c[1], c[2]) for c in cases}
         graphed = {c[0]: _pair_graph(c[1], c[2]) for c in cases}
-        library = {c[0]: _graph_ms(c[4][1]) for c in cases}
+        library = {c[0]: None if c[4] is None else _graph_ms(c[4][1]) for c in cases}
+        replaced_ms = {c[0]: _graph_ms(c[6]) for c in cases if c[6] is not None}
+        ids0_ms = {label: _graph_ms(fn) for label, fn in ids0.items()}
         fwd_ms, fwd_graph_ms = {}, {}
         for B, fwd in fwds.items():
             for _ in range(5):
@@ -858,8 +1020,8 @@ def phase_report(cfg, model, dev, gb):
             fwd_graph_ms[B] = _graph_ms(fwd, 10)
 
         stats = {}
-        for label, k, p, note, (lib_name, _), (bound_ms, bound_by) in cases:
-            kd, _, krows = _profile(k)
+        for label, k, p, note, lib, (bound_ms, bound_by), _ in cases:
+            kd, _, krows, _ = _profile(k)
             pd = _profile(p)[0]
             ke, pe = events[label]
             kg, pg = graphed[label]
@@ -868,10 +1030,18 @@ def phase_report(cfg, model, dev, gb):
             rate = ""
             if label in flops:
                 rate = f" = {flops[label] / kg / 1e9:.2f} TFLOP/s"
-            log(f"time {label if label in flops else f'{label} B={B_TIME}'}: "
-                f"kernel {kg:.4f} ms{rate}, plain {pg:.4f} ms, {lib_name} "
-                f"{library[label]:.4f} ms (CUDA events over "
-                f"graph replays); bound {bound_ms:.4f} ms ({bound_by}), kernel at "
+            if lib is None:
+                stats[label]["replaced_ms"] = replaced_ms[label]
+                yardstick = (f"no one PyTorch call computes it; the path it replaced "
+                             f"{replaced_ms[label]:.4f} ms")
+                if label in ids0_ms:
+                    stats[label]["ms_ids0"] = ids0_ms[label]
+                    yardstick += f"; the kernel with every id 0 {ids0_ms[label]:.4f} ms"
+            else:
+                yardstick = f"{lib[0]} {library[label]:.4f} ms"
+            log(f"time {label if ' B=' in label else f'{label} B={B_TIME}'}: "
+                f"kernel {kg:.4f} ms{rate}, plain {pg:.4f} ms, {yardstick} "
+                f"(CUDA events over graph replays); bound {bound_ms:.4f} ms ({bound_by}), kernel at "
                 f"{bound_ms / kg:.3f} of it; eager "
                 f"back-to-back calls incl. host dispatch: kernel {ke:.4f} ms, "
                 f"plain {pe:.4f} ms; device time kernel {_fmt(kd)}, plain "
@@ -888,7 +1058,7 @@ def phase_report(cfg, model, dev, gb):
             f"{tiers['bound_ms'] / tiers['ms']:.3f} of it (CUDA events over graph "
             f"replays, summed)")
         for B, fwd in fwds.items():
-            busy, wall, rows = _profile(fwd)
+            busy, wall, rows, n_launch = _profile(fwd)
             idle = "not measured" if busy is None else f"{max(0.0, 1 - busy / wall):.3f}"
             log(f"time model1 forward B={B}: {fwd_ms[B]:.4f} ms/batch (CUDA "
                 f"events, back-to-back), {B / fwd_ms[B] * 1e3:.0f} inf/s; "
@@ -896,7 +1066,7 @@ def phase_report(cfg, model, dev, gb):
                 f"{B / fwd_graph_ms[B] * 1e3:.0f} inf/s; "
                 f"profiled: host wall {wall:.4f} ms/batch, device busy "
                 f"{_fmt(busy)}/batch, device idle share {idle}, "
-                f"{len(rows)} kernels")
+                f"{n_launch:g} kernel launches of {len(rows)} kernels")
             for name, ms in rows[:6]:
                 log(f"  device time per forward B={B}: {ms:.4f} ms  {name[:80]}")
             mlp_ms = sum(ms for name, ms in rows if any(k in name for k in MLP_KERNELS))
@@ -928,17 +1098,19 @@ def main() -> int:
     cfg, model, tabs, ws, err_tiers, err_tiers_gg = phase_model1(dev)
     err_g = max(err_g, err_tiers)
     err_gg = max(err_gg, err_tiers_gg)
+    err_lk, lookups = phase_lookup(dev, model)
     launches = phase_serve(model, tabs, ws)
     gb_launches, _ = phase_tools(model, dev)
     phase_feature(dev)
-    stats = phase_report(cfg, model, dev, gb)
+    stats = phase_report(cfg, model, dev, gb, lookups)
     tiers, gb_a = stats["gather_rows all tiers"], stats["gather_rows gatherbench shape"]
     mlp, mlp_bf = stats[f"fused_mlp fp32 model1 B={B_TIME}"], stats[f"fused_mlp bf16 model1 B={B_TIME}"]
+    lk = stats[f"lookup_fused fleetrec_model1 B={B_TIME}"]
     record = {"kernels": [
         {"name": "gather_rows", "route": "cuda",
          "source": "fleetrec_tpu_torch/ops/csrc/gather_rows.cu",
          "replaces": "fleetrec_tpu/ops/gather_pallas.py:182",
-         "launches": launches["gather_rows"], "max_abs_err": err_g, **tiers,
+         "launches": gb_launches["gather_rows"], "max_abs_err": err_g, **tiers,
          **{f"{k}_gatherbench": gb_a[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}},
         {"name": "fused_mlp", "route": "cuda",
          "source": "fleetrec_tpu_torch/ops/csrc/fused_mlp.cu",
@@ -952,6 +1124,15 @@ def main() -> int:
          "replaces": "fleetrec_tpu/ops/gather_pallas.py:139",
          "launches": gb_launches["gather_rows_grouped"], "max_abs_err": err_gg,
          **stats["gather_rows_grouped gatherbench shape"]},
+        {"name": "lookup_fused", "route": "cuda",
+         "source": "fleetrec_tpu_torch/ops/csrc/lookup_fused.cu",
+         "replaces": "fleetrec_tpu/ops/gather_pallas.py:182",
+         "launches": launches["lookup_fused"], "max_abs_err": err_lk, **lk,
+         **{f"{k}_{tag}": stats[label][k]
+            for tag, label in (("b1024", "lookup_fused fleetrec_model1 B=1024"),
+                               ("model3", f"lookup_fused fleetrec_model3 B={B_TIME}"))
+            for k in ("ms", "plain_ms", "bound_ms", "replaced_ms")},
+         "ms_ids0_model3": stats[f"lookup_fused fleetrec_model3 B={B_TIME}"]["ms_ids0"]},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

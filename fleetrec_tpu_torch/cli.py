@@ -246,14 +246,15 @@ def cmd_bench(args):
 
     --stage picks the slice of the pipeline, the analog of the reference's
     measurement variants that disable the matmuls to isolate the data
-    path: e2e (default) | lookup (gather + concat only) | mlp (the tower
-    only).  ms_per_batch and inferences_per_sec come from the K-step
+    path: e2e (default) | lookup (``FleetRecModel.lookup``: features and
+    bad-row flags) | mlp (the tower only, with the config's activation).
+    ms_per_batch and inferences_per_sec come from the K-step
     graph.  ms_per_batch_two_k and percall_const_ms are the two-K split
     (a second graph of 4K steps), side fields that no metric reads: on the
     H100 the split is noise (PERF.md)."""
     import torch
 
-    from .models.embedding import TORCH_DTYPES, lookup_concat
+    from .models.embedding import TORCH_DTYPES
     from .models.mlp import mlp_apply
     from .utils.timing import DeviceBench
 
@@ -263,12 +264,13 @@ def cmd_bench(args):
     if args.stage == "mlp":
         x = np.random.default_rng(0).uniform(-1, 1, (K, B, cfg.feature_dim))
         xs = torch.from_numpy(x.astype(np.float32)).to(dev, TORCH_DTYPES[cfg.dtype])
-        bench = DeviceBench(lambda m, xb: mlp_apply(m.mlp_weights, xb))
+        bench = DeviceBench(lambda m, xb: mlp_apply(
+            m.mlp_weights, xb, activation=cfg.mlp.activation))
     else:
         xs = _index_inputs(cfg, K, B, dev)
         if args.stage == "lookup":
-            def step(m, x):
-                return lookup_concat(m.packed, m.plan_indices(x[0]), x[1])
+            def step(m, x):  # the features (the same launch writes the flags)
+                return m.lookup(x[0], x[1])[0]
         else:
             step = _forward_step
         bench = DeviceBench(step)

@@ -15,12 +15,14 @@ both equal to the originals.  The storage tiers are:
 
 The JAX package selects from the classes with one-hot matmuls and from the
 take buffer with ``jnp.take`` plus a mask-einsum.  Each of those selects
-exactly one row per (query, table), so here every tier is a row read:
-``lookup_concat`` views each buffer as ``[rows, dim]`` (the same memory)
-and calls the ``gather_rows`` kernel once per class and once per take
-group.  What follows the gathers stays in torch ops: int8 dequant,
-``apply_qr_sums``, the dense tail and the ``feature_perm`` gather into the
-VECTOR_START_IDX layout.
+exactly one row per (query, table), so here every tier is a row read.
+``lookup_concat`` is the tier-by-tier port: it views each buffer as
+``[rows, dim]`` (the same memory) and calls the ``gather_rows`` kernel once
+per class and once per take group; int8 dequant, ``apply_qr_sums``, the
+dense tail and the ``feature_perm`` gather into the VECTOR_START_IDX layout
+follow in torch ops.  The forward runs all of it, with ``plan_indices`` and
+``take_bad_rows``, in one ``ops/lookup.py::lookup_fused`` launch, which
+reads the descriptors ``lookup_tensors`` builds.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ import torch
 
 from ..config import LANES, TableSpec
 from ..ops.gather import gather_rows
+from ..ops.lookup import (KIND_CLASS, KIND_TAKE, LOOKUP_COL_FIELDS, OP_DIV,
+                          OP_MOD, OP_NONE, POS_DENSE, POS_ZERO, VEC4, VEC8)
 
 DEFAULT_ONEHOT_MAX = 2048
 
@@ -304,6 +308,106 @@ def plan_tensors(layout: PackedLayout, device) -> Dict[str, torch.Tensor]:
     return {"take_base": t(bases), "take_s": t(ss),
             "take_lim": t(layout.take_rows),
             "feature_perm": t(layout.feature_perm)}
+
+
+def lookup_tensors(layout: PackedLayout, index_perm: Sequence[int],
+                   qr_positions: Sequence[Tuple[int, int]],
+                   device) -> Dict[str, torch.Tensor]:
+    """The descriptors of ``ops/lookup.py::lookup_fused``, which computes
+    ``lookup_concat(packed, plan_indices(ids), dense)`` and
+    ``take_bad_rows`` from config-order ids in one pass.  Offsets and kinds
+    only: the buffers' pointers are passed at every call.
+
+    ``cols``, int64 [n_plan, len(LOOKUP_COL_FIELDS)], one row a plan-order
+    index column k:
+
+    * ``src``: the config-order id column it reads; ``op`` / ``rem``: the
+      QR split (``plan_indices``): none, floor(id / rem) or id mod rem;
+    * ``kind``: a class column (plain or factored) or a take column;
+      ``buf``: its buffer, class i or the take buffer (after the classes);
+    * a class column reads row ``base + id`` (``base = j * rows_pad``) of
+      its buffer's [n * rows_pad, dim] view, for ``0 <= id < lim =
+      rows_pad``;
+    * a take column reads row ``phys * s + sub`` of the take buffer's
+      [-1, dim] view (``take_phys_sub``, ``base`` the physical base, ``s``
+      the rows per physical row), for ``0 <= id < lim``, the table's rows
+      clamped to int32 max (``take_bad_ids``); another id flags its row;
+    * every other id reads a zero row; ``scale``: the column's index in its
+      buffer's int8 scales.
+
+    ``pos``, int32 [feature_dim, 2], one row an output column p (the
+    ``feature_perm`` and ``qr_sum_pairs`` of the layout): ``[0]`` holds the
+    source column (a plan column k, ``POS_ZERO`` or ``POS_DENSE``) in its
+    low 16 bits and the plan column whose row is added to it (the QR
+    remainder table's, or -1) in its high 16; ``[1]`` the offset within
+    the row, or the dense column, with ``VEC4`` (``VEC8``) set on the first
+    of 4 (8) output columns, at a multiple of 4 (8), that are one run of
+    one row at an offset that is a multiple of 4 (8) in a row whose width
+    is one too (or all zeros): the kernel moves them as one word."""
+    n_cfg = len(index_perm) - len(qr_positions)
+    qr_rem = dict(qr_positions)
+    rows = []  # one dict of LOOKUP_COL_FIELDS a plan column
+    for i, c in enumerate(layout.onehot_classes):
+        rows += [dict(kind=KIND_CLASS, buf=i, base=j * c.rows_pad, lim=c.rows_pad,
+                      s=1, dim=c.dim, scale=j) for j in range(c.num_tables)]
+    int32_max = np.iinfo(np.int32).max
+    take_bases = [(g, b) for g in layout.take_groups for b in g.base_phys]
+    rows += [dict(kind=KIND_TAKE, buf=len(layout.onehot_classes), base=b,
+                  lim=min(layout.take_rows[kk], int32_max), s=g.rows_per_phys,
+                  dim=g.dim, scale=kk) for kk, (g, b) in enumerate(take_bases)]
+    for row, j in zip(rows, index_perm):
+        if j >= n_cfg:  # a QR remainder column, appended after the config's
+            src, rem = qr_positions[j - n_cfg]
+            row.update(src=src, op=OP_MOD, rem=rem)
+        else:
+            row.update(src=j, op=OP_DIV if j in qr_rem else OP_NONE,
+                       rem=qr_rem.get(j, 0))
+    n_plan = len(rows)
+    if n_plan >= 1 << 15:
+        raise NotImplementedError(f"{n_plan} index columns: at most 32767")
+    cols = np.asarray([[r[f] for f in LOOKUP_COL_FIELDS] for r in rows],
+                      np.int64).reshape(n_plan, len(LOOKUP_COL_FIELDS))
+    dims = np.asarray([r["dim"] for r in rows], np.int64)
+    cursor = np.concatenate([[0], np.cumsum(dims)])  # each column's source offset
+
+    col_at = {int(off): k for k, off in enumerate(cursor[:-1])}
+    add_of = {}
+    for dst, src, d in layout.qr_sum_pairs:
+        kd, ks = col_at.get(dst), col_at.get(src)
+        if (kd is None or ks is None or dims[kd] != d or dims[ks] != d
+                or kd in add_of or ks in add_of or kd in add_of.values()):
+            raise NotImplementedError(
+                f"QR pair {(dst, src, d)}: the fused lookup adds one whole "
+                f"remainder column to one whole quotient column")
+        add_of[kd] = ks
+
+    emb_total = int(cursor[-1])
+    perm = np.asarray(layout.feature_perm, np.int64)
+    col = np.full(perm.shape, POS_ZERO, np.int64)
+    add = np.full(perm.shape, -1, np.int64)
+    off = np.zeros(perm.shape, np.int64)
+    emb = perm < emb_total
+    col[emb] = np.searchsorted(cursor, perm[emb], side="right") - 1
+    off[emb] = perm[emb] - cursor[col[emb]]
+    add[emb] = [add_of.get(int(k), -1) for k in col[emb]]
+    dense = (perm >= emb_total) & (perm < emb_total + layout.dense_dim)
+    col[dense] = POS_DENSE
+    off[dense] = perm[dense] - emb_total
+    # chunks of n output columns that are one run of one source, aligned to
+    # n in a row of n-multiple width (or zeros): their first column's VEC bit
+    widths = np.append(dims, layout.dense_dim)  # a plan column's, the dense row's
+    vec = np.zeros_like(off)
+    for bit, n in ((VEC4, 4), (VEC8, 8)):
+        m = len(perm) // n * n
+        c, a, o = (x[:m].reshape(-1, n) for x in (col, add, off))
+        one = (c == c[:, :1]).all(1) & (a == a[:, :1]).all(1)
+        run = (((o - o[:, :1]) == np.arange(n)).all(1) & (o[:, 0] % n == 0)
+               & (widths[np.where(c[:, 0] >= 0, c[:, 0], n_plan)] % n == 0))
+        vec[:m:n] |= np.where(one & ((c[:, 0] == POS_ZERO) | run), bit, 0)
+    pos = np.stack([(col & 0xFFFF) | ((add & 0xFFFF) << 16), off | vec], 1)
+    pos = pos.astype(np.uint32).view(np.int32)
+    return {"cols": torch.as_tensor(cols, device=device),
+            "pos": torch.as_tensor(pos, device=device)}
 
 
 @dataclasses.dataclass

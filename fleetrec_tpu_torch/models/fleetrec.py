@@ -4,16 +4,19 @@ multi-table embedding lookup -> fixed-offset concat -> bias-free MLP ->
 
 ``ModelPlan`` is the static half (the JAX package's frozen
 ``FleetRecModel``: layout, index permutation, QR plan).  ``FleetRecModel``
-is an ``nn.Module`` that owns the packed tables and the MLP weights as
-buffers (inference only) and runs the forward: ``plan_indices``,
-``bad_take_rows``, ``lookup_concat`` (the gather kernel, once per tier),
-``mlp_apply`` (the fused-MLP kernel) and the NaN poison.
+is an ``nn.Module`` that owns the packed tables, the MLP weights and the
+lookup descriptors as buffers (inference only) and runs the forward:
+``lookup`` (the fused lookup kernel: ``plan_indices``, every tier,
+``take_bad_rows`` and the feature layout in one launch), ``mlp_apply``
+(the fused-MLP kernel) and the NaN poison.  ``plan_indices``,
+``bad_take_rows`` and ``lookup_concat`` (one gather a tier) stay as the
+ports of the JAX functions that ``lookup`` computes.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,11 +30,12 @@ from .embedding import (
     PackedTables,
     build_layout,
     index_columns,
-    lookup_concat,
+    lookup_tensors,
     pack_tables,
     take_bad_rows,
 )
 from .mlp import init_mlp_params, mlp_apply
+from ..ops.lookup import lookup_fused
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,8 +96,12 @@ class FleetRecModel(nn.Module):
             self.register_buffer(f"plan_{k}", v)
         for i, w in enumerate(mlp):
             self.register_buffer(f"mlp_{i}", w)
+        dev = packed.plan["feature_perm"].device
         self.register_buffer("index_perm", torch.as_tensor(
-            np.asarray(plan.index_perm, np.int64), device=packed.plan["feature_perm"].device))
+            np.asarray(plan.index_perm, np.int64), device=dev))
+        for k, v in lookup_tensors(plan.layout, plan.index_perm, plan.qr_positions,
+                                   dev).items():
+            self.register_buffer(f"lookup_{k}", v)
 
     @property
     def device(self) -> torch.device:
@@ -143,17 +151,39 @@ class FleetRecModel(nn.Module):
 
     @staticmethod
     def poison_scores(scores: torch.Tensor, bad: Optional[torch.Tensor]) -> torch.Tensor:
-        if bad is None:
-            return scores
-        return scores.masked_fill(bad, float("nan"))
+        """NaN into the scores of the rows ``bad`` flags, in place: the
+        forward passes its own fresh scores, so this is one kernel and no
+        copy."""
+        if bad is not None:
+            scores.masked_fill_(bad, float("nan"))
+        return scores
 
-    def forward(self, indices: torch.Tensor,
-                dense: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """indices: [B, num_tables] in config table order; dense:
-        [B, dense_dim].  Returns scores [B] (float32).
+    def lookup_operands(self) -> dict:
+        """``lookup_fused``'s operands after the ids and the dense features,
+        from this module's buffers as they are now: the packed buffers
+        (classes, then the take buffer), their int8 scales, the descriptors,
+        the stripes and the width of the dense tail they read."""
+        n = self._n_onehot
+        bufs = [getattr(self, f"onehot_{i}") for i in range(n)]
+        scales = ([getattr(self, f"onehot_scale_{i}") for i in range(n)]
+                  if self._quant else None)
+        if self.take is not None:
+            bufs.append(self.take)
+            if scales is not None:
+                scales.append(self.take_scales)
+        lay = self.layout
+        return dict(bufs=bufs, scales=scales, cols=self.lookup_cols,
+                    pos=self.lookup_pos, stripes=lay.take_stripes,
+                    stripe_height=lay.stripe_height, dense_dim=lay.dense_dim,
+                    with_bad=bool(lay.take_groups))
 
-        A take id outside its table's [0, rows) range, negative included,
-        poisons its row's score with NaN, as in the JAX package."""
+    def lookup(self, indices: torch.Tensor, dense: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Config-order ids [B, num_tables] (int32 or int64) and dense
+        [B, dense_dim] -> (features [B, feature_dim], bad [B] bool or None):
+        ``lookup_concat(packed, plan_indices(indices), dense)`` and
+        ``bad_take_rows``, by one ``lookup_fused`` call.  The features are
+        in the table storage dtype (float32 for int8 storage)."""
         cfg = self.cfg
         if indices.dim() != 2 or indices.shape[1] != cfg.num_tables:
             raise ValueError(
@@ -163,11 +193,20 @@ class FleetRecModel(nn.Module):
                 raise ValueError(
                     f"dense must be [{indices.shape[0]}, {cfg.dense_dim}], got "
                     f"{None if dense is None else tuple(dense.shape)}")
-        indices = self.plan_indices(indices)
-        bad = self.bad_take_rows(indices)
-        feats = lookup_concat(self.packed, indices, dense)
-        x = feats.to(TORCH_DTYPES[cfg.dtype])
-        scores = mlp_apply(self.mlp_weights, x, activation=cfg.mlp.activation)
+        else:
+            dense = None
+        return lookup_fused(indices, dense, **self.lookup_operands())
+
+    def forward(self, indices: torch.Tensor,
+                dense: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """indices: [B, num_tables] in config table order; dense:
+        [B, dense_dim].  Returns scores [B] (float32).
+
+        A take id outside its table's [0, rows) range, negative included,
+        poisons its row's score with NaN, as in the JAX package."""
+        feats, bad = self.lookup(indices, dense)
+        x = feats.to(TORCH_DTYPES[self.cfg.dtype])
+        scores = mlp_apply(self.mlp_weights, x, activation=self.cfg.mlp.activation)
         return self.poison_scores(scores[:, 0], bad)
 
 

@@ -1,0 +1,498 @@
+// The whole index-mode lookup in one launch: config-order ids [B, T] -> the
+// features [B, F] of lookup_concat(packed, plan_indices(ids), dense) and the
+// [B] bad-row flags of take_bad_rows.
+//
+// Replaces, on the main path, the TPU kernel
+// fleetrec_tpu/ops/gather_pallas.py::gather_rows (kernel (a), one row DMA a
+// lookup; the port's gather_rows.cu, once a tier) together with the XLA ops
+// the JAX package runs around its lookups: FleetRecModel.plan_indices
+// (fleetrec_tpu/models/fleetrec.py:86, the QR split and the column
+// permutation), take_phys_sub and take_bad_rows
+// (fleetrec_tpu/models/embedding.py:453, :475), and lookup_concat's int8
+// dequant, concat, apply_qr_sums, dense tail and feature_perm take
+// (fleetrec_tpu/models/embedding.py:531-628).  models/embedding.py::
+// lookup_tensors lays out what it reads: one descriptor row a plan column
+// (which id column and QR split, which buffer, base row, row limit, rows per
+// physical row, width, scale) and 8 bytes an output column (its plan column
+// and offset within the row, the QR remainder column added to it, or the
+// dense tail, or a zero; and whether the 4 or 8 output columns it starts can
+// move as one 16-byte word).  The buffers' pointers arrive by value at every
+// launch, so a model whose buffers move keeps working.
+//
+// What bounds it: bytes from device memory, once the work per output element
+// is small.  Each output element is one element of a randomly placed table
+// row (16-128 bytes on the paper geometries' rows) and one coalesced store;
+// the ids are read once.  The model1 forward used to spend ~0.13 ms in 15
+// torch kernels around seven ~2 us gathers; here the id arithmetic, the row
+// offsets, the dequant, the QR sums and the layout are register work inside
+// the one launch.  Moved an element at a time, the instructions around each
+// element and not the bytes set the time (model3's 16.3M int8 elements took
+// nearly as long with every id 0 as with random ids), so the output moves in
+// 16-byte chunks where it can.  Then random rows set it: model3's 1.5M
+// reads of 16-32 bytes cost about as much again as the same kernel with
+// every id 0 (PERF.md).
+//
+// Design.  A block walks tiles of `rows` batch rows (grid-stride).  It stages
+// the output columns' descriptors and the plan columns in shared memory once.
+// Per tile, pass 1 gives one thread each (row, plan column): it reads the id,
+// splits it for QR, range-checks it, computes the row's address (int64: a
+// take buffer can pass 2^31 elements) and keeps it in shared memory, null
+// for a zero row; a take id out of range sets its row's flag.  Pass 2 walks
+// the tile's output in order.  Where every row of the output is 16-byte
+// aligned (F a multiple of kV, the 4 float32 or 8 bfloat16 columns of 16
+// bytes, and every buffer aligned), it moves chunks of kV columns: a chunk
+// that is one aligned run of one table row (or of the dense row, or zeros)
+// is one vector load (16 bytes; 4 for int8 rows) and one 16-byte store, so a
+// warp stores 512 neighbouring bytes; another chunk goes element by element.
+// A thread loads kUnroll chunks before it stores them.  Otherwise (criteo's
+// 845 bfloat16 columns) pass 2 goes element by element, kUnrollOne loads in
+// flight a thread.  int8 dequantizes as float(q) * scale (a power of two:
+// exact); a QR sum adds in float and rounds once to the output type, as
+// `emb += ...` does; the dense tail rounds to the output type to nearest
+// even.  No atomics, no memset: every output element and flag is written
+// once.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// ops/lookup.py::LOOKUP_COL_FIELDS
+enum { kSrc, kOp, kRem, kKind, kBuf, kBase, kLim, kS, kDim, kScale, kColFields };
+enum { kOpNone = 0, kOpDiv = 1, kOpMod = 2 };
+enum { kClass = 0, kTake = 1 };
+constexpr int kPosDense = -2;  // ops/lookup.py::POS_DENSE (POS_ZERO is -1)
+// ops/lookup.py::VEC4 / VEC8 / OFF_MASK: an output column's offset word
+// holds whether the 4 (8) columns it starts move as one word
+constexpr int kVec4 = 1 << 30, kVec8 = 1 << 29, kOffMask = (1 << 29) - 1;
+constexpr int kMaxBufs = 16;   // ops/lookup.py::MAX_BUFS
+constexpr int kThreads = 256;
+constexpr int kUnroll = 2;     // 16-byte chunks a thread loads before it stores
+constexpr int kUnrollOne = 4;  // elements, when the output moves element by element
+// ops/lookup.py::SMEM_BYTES: a block's 227 KB less 1 KB for the static
+// s_buf / s_sc (the two limits are summed)
+constexpr int kSmemMax = 232448 - 1024;
+
+struct Buffers {
+  const void* ptr[kMaxBufs];
+  const float* scale[kMaxBufs];
+};
+
+__device__ __forceinline__ int64_t floor_div(int64_t a, int64_t b) {
+  const int64_t q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+__device__ __forceinline__ int64_t floor_mod(int64_t a, int64_t b) {
+  const int64_t r = a % b;
+  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+
+template <int Bytes>
+struct Word;
+template <>
+struct Word<16> {
+  using T = int4;
+};
+template <>
+struct Word<8> {
+  using T = int2;
+};
+template <>
+struct Word<4> {
+  using T = int;
+};
+
+// N values of T that move as one word.
+template <typename T, int N>
+struct Vec {
+  using W = typename Word<sizeof(T) * N>::T;
+  union {
+    W w;
+    T v[N];
+  };
+};
+
+// Storage type -> how an element is read (Raw), summed and written (Out,
+// as its bits: bfloat16 output is written as unsigned short).
+template <typename TS>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  using Raw = float;
+  using Out = float;
+  __device__ static Out value(Raw r, float) { return r; }
+  __device__ static Out add(Raw a, Raw b, float, float) { return __fadd_rn(a, b); }
+  __device__ static Out dense(float d) { return d; }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  using Raw = unsigned short;
+  using Out = unsigned short;
+  __device__ static Out value(Raw r, float) { return r; }
+  __device__ static Out add(Raw a, Raw b, float, float) {
+    return __bfloat16_as_ushort(
+        __float2bfloat16_rn(__fadd_rn(__bfloat162float(__ushort_as_bfloat16(a)),
+                                      __bfloat162float(__ushort_as_bfloat16(b)))));
+  }
+  __device__ static Out dense(float d) { return __bfloat16_as_ushort(__float2bfloat16_rn(d)); }
+};
+
+template <>
+struct Elem<int8_t> {
+  using Raw = signed char;
+  using Out = float;
+  __device__ static Out value(Raw r, float s) { return __fmul_rn((float)r, s); }
+  __device__ static Out add(Raw a, Raw b, float sa, float sb) {
+    return __fadd_rn(__fmul_rn((float)a, sa), __fmul_rn((float)b, sb));
+  }
+  __device__ static Out dense(float d) { return d; }
+};
+
+// element o of a row, or 0 for a zero row (null)
+template <typename Raw>
+__device__ __forceinline__ Raw load1(const void* row, int o) {
+  return row ? __ldg(static_cast<const Raw*>(row) + o) : Raw(0);
+}
+
+// elements o .. o + N - 1 of a row as one word, or zeros for a zero row
+template <typename Raw, int N>
+__device__ __forceinline__ Vec<Raw, N> loadn(const void* row, int o) {
+  using W = typename Vec<Raw, N>::W;
+  Vec<Raw, N> x;
+  x.w = row ? __ldg(reinterpret_cast<const W*>(static_cast<const Raw*>(row) + o)) : W{};
+  return x;
+}
+
+// A plan column as pass 1 reads it, staged in shared memory once a block.
+struct Col {
+  int64_t base;    // first row of the table (class) or its physical base (take)
+  int32_t lim;     // ids in [0, lim) read a row
+  int32_t src;     // the config-order id column
+  int32_t rem;     // the QR split's divisor (op != kOpNone)
+  int32_t s;       // logical rows per physical row (take)
+  int32_t dim;     // the row's width
+  float scale;     // int8 dequant scale (1 for float storage)
+  int16_t op, take;
+  int16_t buf, pad;
+};
+static_assert(sizeof(Col) == 40, "Col is 40 bytes (ops/lookup.py::smem_bytes)");
+
+__host__ __device__ constexpr int smem_bytes(int F, int n_plan, int rows) {
+  // ops/lookup.py::smem_bytes: the output columns' descriptors (8 B), the
+  // plan columns (Col), a row address a (row, plan column), a flag a row
+  return 8 * F + (int)sizeof(Col) * n_plan + 8 * rows * n_plan + 4 * rows;
+}
+
+// output column e of one batch row: its plan column's element (dequantized,
+// with the QR remainder's added), its dense element, or 0
+template <typename E>
+__device__ __forceinline__ typename E::Out element(const void* const* rp, const Col* s_col,
+                                                   int2 e, const float* dense_row) {
+  using Raw = typename E::Raw;
+  const int col = (short)(e.x & 0xFFFF), add = e.x >> 16;  // low half sign-extended
+  const int o = e.y & kOffMask;
+  if (col >= 0) {
+    const Raw a = load1<Raw>(rp[col], o);
+    return add >= 0 ? E::add(a, load1<Raw>(rp[add], o), s_col[col].scale, s_col[add].scale)
+                    : E::value(a, s_col[col].scale);
+  }
+  if (col == kPosDense) return E::dense(__ldg(dense_row + o));
+  return typename E::Out(0);
+}
+
+// VEC: pass 2 moves 16-byte chunks (every output row 16-byte aligned)
+template <typename TS, typename I, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    lookup_fused_kernel(Buffers bufs, const I* __restrict__ ids,
+                        const float* __restrict__ dense, const int64_t* __restrict__ cols,
+                        const int2* __restrict__ pos, typename Elem<TS>::Out* __restrict__ out,
+                        bool* __restrict__ bad, int B, int T, int n_plan, int F, int dense_dim,
+                        int rows, int64_t stripes, int64_t stripe_height) {
+  using E = Elem<TS>;
+  using Out = typename E::Out;
+  using Raw = typename E::Raw;
+  constexpr int kV = 16 / sizeof(Out);  // output columns a 16-byte chunk
+  constexpr int kVecBit = kV == 4 ? kVec4 : kVec8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int2* s_pos = reinterpret_cast<int2*>(smem);
+  Col* s_col = reinterpret_cast<Col*>(s_pos + F);
+  const void** s_row = reinterpret_cast<const void**>(s_col + n_plan);
+  int* s_bad = reinterpret_cast<int*>(s_row + rows * n_plan);
+  __shared__ const void* s_buf[kMaxBufs];
+  __shared__ const float* s_sc[kMaxBufs];
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < kMaxBufs; ++i) {
+      s_buf[i] = bufs.ptr[i];
+      s_sc[i] = bufs.scale[i];
+    }
+  }
+#pragma unroll 4
+  for (int p = threadIdx.x; p < F; p += kThreads) s_pos[p] = __ldg(pos + p);
+  __syncthreads();
+  for (int k = threadIdx.x; k < n_plan; k += kThreads) {
+    const int64_t* c = cols + (int64_t)k * kColFields;
+    const float* sc = s_sc[c[kBuf]];
+    Col col;
+    col.base = c[kBase];
+    col.lim = (int32_t)c[kLim];
+    col.src = (int32_t)c[kSrc];
+    col.rem = (int32_t)c[kRem];
+    col.s = (int32_t)c[kS];
+    col.dim = (int32_t)c[kDim];
+    col.scale = sc ? sc[c[kScale]] : 1.f;
+    col.op = (int16_t)c[kOp];
+    col.take = c[kKind] == kTake;
+    col.buf = (int16_t)c[kBuf];
+    col.pad = 0;
+    s_col[k] = col;
+  }
+  const uint32_t S = (uint32_t)stripes;
+  const int tiles = (B + rows - 1) / rows;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int b0 = tile * rows;
+    const int nr = min(rows, B - b0);
+    __syncthreads();  // s_col is staged; the last tile is done with s_row, s_bad
+    for (int r = threadIdx.x; r < nr; r += kThreads) s_bad[r] = 0;
+    __syncthreads();
+
+    // pass 1: a row address a (row, plan column); flags of bad take ids
+    const I* tile_ids = ids + (int64_t)b0 * T;
+#pragma unroll 2
+    for (int u = threadIdx.x; u < nr * n_plan; u += kThreads) {
+      const int r = u / n_plan;
+      const Col& c = s_col[u - r * n_plan];
+      int64_t id = (int64_t)tile_ids[(int64_t)r * T + c.src];
+      if (c.op == kOpDiv) id = floor_div(id, c.rem);
+      else if (c.op == kOpMod) id = floor_mod(id, c.rem);
+      const void* row = nullptr;
+      if (id >= 0 && id < c.lim) {  // then 0 <= id < 2^31
+        int64_t flat;
+        if (c.take) {
+          const uint32_t x = (uint32_t)id, s = (uint32_t)c.s;
+          const uint32_t p = x / s, sub = x - p * s;
+          const int64_t phys =
+              c.base + (S > 1 ? (int64_t)(p % S) * stripe_height + p / S : (int64_t)p);
+          flat = phys * s + sub;
+        } else {
+          flat = c.base + id;
+        }
+        row = static_cast<const TS*>(s_buf[c.buf]) + flat * c.dim;
+      } else if (c.take) {
+        s_bad[r] = 1;
+      }
+      s_row[u] = row;
+    }
+    __syncthreads();
+    if (bad != nullptr)
+      for (int r = threadIdx.x; r < nr; r += kThreads) bad[b0 + r] = s_bad[r] != 0;
+
+    // pass 2: the tile's output in order, a few loads in flight a thread
+    Out* tile_out = out + (int64_t)b0 * F;
+    const float* tile_dense = dense + (int64_t)b0 * dense_dim;
+    if constexpr (VEC) {  // chunks of kV columns, kUnroll loaded before a store
+      const int chunks = F / kV, total = nr * chunks;
+      for (int u0 = threadIdx.x; u0 < total; u0 += kThreads * kUnroll) {
+        int2 q[kUnroll];
+        bool whole[kUnroll];
+        Vec<Raw, kV> a[kUnroll], b[kUnroll];
+        float4 d[kUnroll][kV / 4];  // a run of the dense row
+#pragma unroll
+        for (int j = 0; j < kUnroll; ++j) {
+          const int u = u0 + j * kThreads;
+          whole[j] = false;
+          if (u < total) {
+            const int r = u / chunks;
+            q[j] = s_pos[(u - r * chunks) * kV];
+            whole[j] = q[j].y & kVecBit;
+            if (whole[j]) {  // one aligned run: load it as words now
+              const int col = (short)(q[j].x & 0xFFFF), add = q[j].x >> 16;
+              const int o = q[j].y & kOffMask;
+              const void* const* rp = s_row + r * n_plan;
+              if (col >= 0) {
+                a[j] = loadn<Raw, kV>(rp[col], o);
+                if (add >= 0) b[j] = loadn<Raw, kV>(rp[add], o);
+              } else if (col == kPosDense) {
+                const float4* run = reinterpret_cast<const float4*>(
+                    tile_dense + (int64_t)r * dense_dim + o);
+#pragma unroll
+                for (int h = 0; h < kV / 4; ++h) d[j][h] = __ldg(run + h);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kUnroll; ++j) {
+          const int u = u0 + j * kThreads;
+          if (u >= total) continue;
+          const int r = u / chunks;
+          const int p0 = (u - r * chunks) * kV;
+          Out* dst = tile_out + (int64_t)r * F + p0;
+          if (whole[j]) {
+            const int col = (short)(q[j].x & 0xFFFF), add = q[j].x >> 16;
+            const float* dv = reinterpret_cast<const float*>(d[j]);
+            Vec<Out, kV> v;
+#pragma unroll
+            for (int i = 0; i < kV; ++i) {
+              if (col >= 0)
+                v.v[i] = add >= 0 ? E::add(a[j].v[i], b[j].v[i], s_col[col].scale,
+                                           s_col[add].scale)
+                                  : E::value(a[j].v[i], s_col[col].scale);
+              else if (col == kPosDense)
+                v.v[i] = E::dense(dv[i]);
+              else
+                v.v[i] = Out(0);
+            }
+            *reinterpret_cast<int4*>(dst) = v.w;
+          } else {
+            for (int i = 0; i < kV; ++i)
+              dst[i] = element<E>(s_row + r * n_plan, s_col, s_pos[p0 + i],
+                                  tile_dense + (int64_t)r * dense_dim);
+          }
+        }
+      }
+    } else {  // element by element, kUnrollOne elements loaded before a store
+      const int total = nr * F;
+      for (int u0 = threadIdx.x; u0 < total; u0 += kThreads * kUnrollOne) {
+        Raw a[kUnrollOne] = {}, b[kUnrollOne] = {};
+        float d[kUnrollOne] = {};
+        int col[kUnrollOne], add[kUnrollOne];
+#pragma unroll
+        for (int j = 0; j < kUnrollOne; ++j) {
+          const int u = u0 + j * kThreads;
+          col[j] = add[j] = -1;
+          if (u < total) {
+            const int r = u / F;
+            const int2 q = s_pos[u - r * F];
+            col[j] = (short)(q.x & 0xFFFF);
+            add[j] = q.x >> 16;
+            const int o = q.y & kOffMask;
+            const void* const* rp = s_row + r * n_plan;
+            if (col[j] >= 0) {
+              a[j] = load1<Raw>(rp[col[j]], o);
+              if (add[j] >= 0) b[j] = load1<Raw>(rp[add[j]], o);
+            } else if (col[j] == kPosDense) {
+              d[j] = __ldg(tile_dense + (int64_t)r * dense_dim + o);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kUnrollOne; ++j) {
+          const int u = u0 + j * kThreads;
+          if (u >= total) continue;
+          Out v;
+          if (col[j] >= 0)
+            v = add[j] >= 0 ? E::add(a[j], b[j], s_col[col[j]].scale, s_col[add[j]].scale)
+                            : E::value(a[j], s_col[col[j]].scale);
+          else if (col[j] == kPosDense)
+            v = E::dense(d[j]);
+          else
+            v = Out(0);
+          tile_out[u] = v;
+        }
+      }
+    }
+  }
+}
+
+// Raises the kernel's dynamic shared-memory limit to the block's maximum,
+// once per device: `done` holds one bit a device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, unsigned long long& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (__atomic_load_n(&done, __ATOMIC_RELAXED) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (err == cudaSuccess) __atomic_fetch_or(&done, bit, __ATOMIC_RELAXED);
+  return err;
+}
+
+struct Args {
+  Buffers bufs;
+  const void *ids, *dense, *cols, *pos;
+  void *out, *bad;
+  int B, T, n_plan, F, dense_dim, rows, grid, vec;
+  int64_t stripes, stripe_height;
+};
+
+template <typename TS, typename I, bool VEC>
+cudaError_t launch(const Args& a, cudaStream_t st) {
+  static unsigned long long smem_set = 0;
+  cudaError_t err = allow_smem(lookup_fused_kernel<TS, I, VEC>, smem_set);
+  if (err != cudaSuccess) return err;
+  lookup_fused_kernel<TS, I, VEC><<<a.grid, kThreads, smem_bytes(a.F, a.n_plan, a.rows), st>>>(
+      a.bufs, static_cast<const I*>(a.ids), static_cast<const float*>(a.dense),
+      static_cast<const int64_t*>(a.cols), static_cast<const int2*>(a.pos),
+      static_cast<typename Elem<TS>::Out*>(a.out), static_cast<bool*>(a.bad), a.B, a.T,
+      a.n_plan, a.F, a.dense_dim, a.rows, a.stripes, a.stripe_height);
+  return cudaGetLastError();
+}
+
+template <typename TS>
+cudaError_t launch_ids(int ids_64, const Args& a, cudaStream_t st) {
+  if (a.vec) return ids_64 ? launch<TS, int64_t, true>(a, st) : launch<TS, int32_t, true>(a, st);
+  return ids_64 ? launch<TS, int64_t, false>(a, st) : launch<TS, int32_t, false>(a, st);
+}
+
+}  // namespace
+
+// One launch on `stream`.  bufs / scales: n_bufs pointers (the class buffers,
+// then the take buffer; scales only for int8 storage, else null); storage: 0
+// float32, 1 bfloat16, 2 int8; ids [B, T] int32 (ids_64 = 0) or int64;
+// dense [B, dense_dim] float32 or null; cols / pos: lookup_tensors'
+// descriptors; out [B, F] (float32 for int8 storage); bad [B] bool or null.
+// rows: batch rows a tile; grid: blocks (ops/lookup.py::launch_shape); vec:
+// chunks of 16 output bytes may move as words (F a multiple of the chunk,
+// every buffer, dense and out 16-byte aligned).
+extern "C" int fr_lookup_fused(const void* const* bufs, const void* const* scales,
+                               int n_bufs, int storage, const void* ids, int ids_64,
+                               const void* dense, const void* cols, const void* pos,
+                               void* out, void* bad, int64_t B, int T, int n_plan, int F,
+                               int dense_dim, int rows, int grid, int64_t stripes,
+                               int64_t stripe_height, int vec, void* stream) {
+  const int chunk = storage == 1 ? 8 : 4;
+  if (n_bufs < 0 || n_bufs > kMaxBufs || B < 1 || B > INT32_MAX || rows < 1 || grid < 1 ||
+      (int64_t)rows * F > INT32_MAX / 2 || (int64_t)rows * n_plan > INT32_MAX / 2 ||
+      smem_bytes(F, n_plan, rows) > kSmemMax || stripes < 1 ||
+      (dense == nullptr && dense_dim != 0) || (vec && F % chunk != 0))
+    return (int)cudaErrorInvalidValue;
+  Args a = {};
+  for (int i = 0; i < n_bufs; ++i) {
+    a.bufs.ptr[i] = bufs[i];
+    a.bufs.scale[i] = scales == nullptr ? nullptr : static_cast<const float*>(scales[i]);
+  }
+  a.ids = ids;
+  a.dense = dense;
+  a.cols = cols;
+  a.pos = pos;
+  a.out = out;
+  a.bad = bad;
+  a.B = (int)B;
+  a.T = T;
+  a.n_plan = n_plan;
+  a.F = F;
+  a.dense_dim = dense_dim;
+  a.rows = rows;
+  a.grid = grid;
+  a.vec = vec;
+  a.stripes = stripes;
+  a.stripe_height = stripe_height;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (storage) {
+    case 0:
+      return (int)launch_ids<float>(ids_64, a, st);
+    case 1:
+      return (int)launch_ids<__nv_bfloat16>(ids_64, a, st);
+    case 2:
+      return (int)launch_ids<int8_t>(ids_64, a, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

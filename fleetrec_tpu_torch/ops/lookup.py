@@ -1,0 +1,278 @@
+"""The whole index-mode lookup in one launch: config-order ids [B, T] ->
+the features [B, feature_dim] of ``lookup_concat(packed,
+plan_indices(ids), dense)`` and the [B] bad-row flags of
+``take_bad_rows``.
+
+The main path's form of kernel (a), the port of
+``fleetrec_tpu/ops/gather_pallas.py::gather_rows`` together with the XLA
+ops the JAX package runs around its lookups (``plan_indices``,
+``take_phys_sub``, ``take_bad_rows``, the int8 dequant, ``apply_qr_sums``,
+the dense tail and the ``feature_perm`` take).  What it reads is laid out
+by ``models/embedding.py::lookup_tensors``: one descriptor row a plan
+column (where its id comes from, which buffer, which row) and one an output
+column (which plan column and offset, the QR remainder column added to it,
+the dense tail or a zero).
+
+On a CUDA tensor ``lookup_fused`` launches ``ops/csrc/lookup_fused.cu`` or
+raises; on a CPU tensor it runs ``lookup_fused_plain``, which walks the
+same descriptors with PyTorch ops (and, using no data-dependent shapes,
+can be captured in a CUDA graph).  ``lookup_fused.launches`` counts the
+calls that launched the kernel: eager calls, and calls recorded while a
+CUDA graph is captured; replaying a graph adds nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from . import _build
+
+# The fields of one row of the plan-column descriptors
+# (models/embedding.py::lookup_tensors), in the order lookup_fused.cu reads
+# them, and their codes.
+LOOKUP_COL_FIELDS = ("src", "op", "rem", "kind", "buf", "base", "lim", "s",
+                     "dim", "scale")
+OP_NONE, OP_DIV, OP_MOD = 0, 1, 2
+KIND_CLASS, KIND_TAKE = 0, 1
+# an output column's source when it is not a plan column
+POS_ZERO, POS_DENSE = -1, -2
+# bits of an output column's offset word: the 4 (8) output columns it starts
+# are one aligned run of one source (lookup_tensors), which the kernel moves
+# as one 16-byte word of float32 (bfloat16) output
+VEC4, VEC8 = 1 << 30, 1 << 29
+OFF_MASK = VEC8 - 1
+
+_F = {name: i for i, name in enumerate(LOOKUP_COL_FIELDS)}
+_STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_IDX_DTYPES = (torch.int32, torch.int64)
+# the kernel's limits (lookup_fused.cu: kMaxBufs, kSmemMax: the dynamic
+# shared memory of one block, Hopper's 227 KB less 1 KB of static)
+MAX_BUFS = 16
+SMEM_BYTES = 232448 - 1024
+# a tile holds up to TILE_ELEMS output columns (1-16 batch rows), fewer rows
+# when the batch would give an SM fewer than TILES_PER_SM tiles; a launch has
+# up to BLOCKS_PER_SM blocks (of 256 threads) an SM, which walk the tiles
+# (on an H100, utils/lookup_sweep.py put this shape within 8% of the best
+# of rows 1-16 x 1-8 blocks an SM at model1 B=1024 / 4096, model3 and
+# criteo B=4096; PERF.md)
+TILE_ELEMS = 4096
+TILES_PER_SM = 3
+BLOCKS_PER_SM = 4
+
+
+def lookup_out_dtype(bufs: Sequence[torch.Tensor]) -> torch.dtype:
+    """The features' dtype: the storage dtype, float32 for int8 storage
+    (and for a model with no tables, as ``lookup_concat``)."""
+    store = bufs[0].dtype if bufs else torch.float32
+    return torch.float32 if store == torch.int8 else store
+
+
+def lookup_offsets_plain(ids: torch.Tensor, cols: torch.Tensor, stripes: int,
+                         stripe_height: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """([B, n_plan] int64 element offset of each plan column's row in its
+    buffer, -1 for a zero row; [B] bool, a take id out of range)."""
+    f = {name: cols[:, i] for name, i in _F.items()}
+    x = ids.long().index_select(1, f["src"])
+    rem = f["rem"].clamp(min=1)
+    x = torch.where(f["op"] == OP_DIV, torch.div(x, rem, rounding_mode="floor"),
+                    torch.where(f["op"] == OP_MOD, torch.remainder(x, rem), x))
+    ok = (x >= 0) & (x < f["lim"])
+    take = f["kind"] == KIND_TAKE
+    bad = (~ok & take).any(dim=1)
+    x = torch.where(ok, x, 0)
+    s = f["s"]
+    p, sub = torch.div(x, s, rounding_mode="floor"), torch.remainder(x, s)
+    if stripes > 1:
+        phys = (torch.remainder(p, stripes) * stripe_height + f["base"]
+                + torch.div(p, stripes, rounding_mode="floor"))
+    else:
+        phys = f["base"] + p
+    row = torch.where(take, phys * s + sub, f["base"] + x)
+    return torch.where(ok, row * f["dim"], -1), bad
+
+
+def _decode_pos(pos: torch.Tensor):
+    """(source column, added column, offset) of each output column."""
+    w = pos[:, 0]
+    return ((w & 0xFFFF) ^ 0x8000) - 0x8000, w >> 16, (pos[:, 1] & OFF_MASK).long()
+
+
+def _check_dense(ids: torch.Tensor, dense: Optional[torch.Tensor], dense_dim: int) -> None:
+    """``dense`` must be [B, dense_dim] when the descriptors read a dense
+    tail of that width, and None (or [B, 0]) when they read none."""
+    if (dense is None and dense_dim) or (
+            dense is not None and tuple(dense.shape) != (ids.shape[0], dense_dim)):
+        raise ValueError(f"the descriptors read dense [{ids.shape[0]}, {dense_dim}], got "
+                         f"{None if dense is None else tuple(dense.shape)}")
+
+
+def lookup_fused_plain(ids: torch.Tensor, dense: Optional[torch.Tensor],
+                       bufs: Sequence[torch.Tensor],
+                       scales: Optional[Sequence[torch.Tensor]],
+                       cols: torch.Tensor, pos: torch.Tensor, stripes: int = 1,
+                       stripe_height: int = 0, dense_dim: int = 0, with_bad: bool = True
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The same function with PyTorch ops: every output column's element
+    read from its buffer at its plan column's row offset, dequantized by
+    the column's scale, the QR remainder element added in the output
+    dtype (as ``apply_qr_sums``'s ``+=``), the dense tail cast, zeros
+    elsewhere."""
+    _check_dense(ids, dense, dense_dim)
+    B = ids.shape[0]
+    out_dtype = lookup_out_dtype(bufs)
+    col, add, o = _decode_pos(pos)
+    off, bad = lookup_offsets_plain(ids, cols, stripes, stripe_height)
+    buf_of, scale_at = cols[:, _F["buf"]], cols[:, _F["scale"]]
+    scale_of = None
+    if scales is not None:  # each plan column's scale
+        scale_of = torch.zeros(cols.shape[0], device=cols.device)
+        for i, sc in enumerate(scales):
+            mine = buf_of == i
+            scale_of = torch.where(mine, sc[torch.where(mine, scale_at, 0)], scale_of)
+
+    def values(c):
+        """[B, F] elements of plan columns ``c`` (-1: none) at offsets o."""
+        k = c.clamp(min=0)
+        at = off.index_select(1, k)
+        live = (c >= 0) & (at >= 0)
+        v = torch.zeros((B, c.shape[0]), dtype=bufs[0].dtype, device=ids.device)
+        for i, buf in enumerate(bufs):
+            m = live & (buf_of[k] == i)
+            idx = torch.where(m, at + o, 0).reshape(-1)
+            v = torch.where(m, buf.reshape(-1).index_select(0, idx).view(B, -1), v)
+        if scale_of is not None:
+            v = v.float() * scale_of[k]
+        return v
+
+    # a zero or dense output column reads no row: its value is 0 until the
+    # dense tail is placed
+    out = torch.zeros((B, pos.shape[0]), dtype=out_dtype, device=ids.device)
+    if bufs and cols.shape[0]:
+        v = values(col)
+        out = torch.where(add >= 0, v + values(add), v)
+    if dense is not None and dense.shape[1]:
+        dv = dense.to(out_dtype).index_select(1, torch.where(col == POS_DENSE, o, 0))
+        out = torch.where(col == POS_DENSE, dv, out)
+    return out, (bad if with_bad else None)
+
+
+@functools.cache
+def _entry():
+    fn = _build.kernels().fr_lookup_fused
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def smem_bytes(F: int, n_plan: int, rows: int) -> int:
+    """Dynamic shared memory of one block (lookup_fused.cu's smem_bytes):
+    8 bytes an output column, 40 a plan column, a row pointer a (row, plan
+    column) and a flag a row."""
+    return 8 * F + 40 * n_plan + 8 * rows * n_plan + 4 * rows
+
+
+def launch_shape(B: int, F: int, n_plan: int, sm_count: int, rows: Optional[int] = None,
+                 blocks_per_sm: int = BLOCKS_PER_SM) -> Tuple[int, int]:
+    """(rows a tile, blocks): ``rows`` (by default see TILE_ELEMS) halved
+    until a tile's shared memory fits a block, and at most
+    ``blocks_per_sm`` blocks an SM."""
+    if rows is None:
+        rows = max(1, min(16, TILE_ELEMS // max(F, 1), B // (TILES_PER_SM * sm_count)))
+    while rows > 1 and smem_bytes(F, n_plan, rows) > SMEM_BYTES:
+        rows //= 2
+    if smem_bytes(F, n_plan, rows) > SMEM_BYTES:
+        raise ValueError(f"feature_dim {F} with {n_plan} index columns does "
+                         f"not fit one block's shared memory")
+    return rows, max(1, min(-(-B // rows), blocks_per_sm * sm_count))
+
+
+def lookup_fused(ids: torch.Tensor, dense: Optional[torch.Tensor],
+                 bufs: Sequence[torch.Tensor],
+                 scales: Optional[Sequence[torch.Tensor]],
+                 cols: torch.Tensor, pos: torch.Tensor, stripes: int = 1,
+                 stripe_height: int = 0, dense_dim: int = 0, with_bad: bool = True,
+                 tile: Optional[Tuple[int, int]] = None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """ids [B, T] int32 or int64 (config order), dense [B, dense_dim] (None
+    when the descriptors read no dense tail, ``dense_dim`` 0), the packed
+    buffers (classes, then the take buffer) and, for int8 storage, their
+    scales (parallel to ``bufs``), the descriptors of ``lookup_tensors``
+    and the layout's stripes -> (features [B, feature_dim] in
+    ``lookup_out_dtype(bufs)``, bad [B] bool or None when not
+    ``with_bad``).  ``tile``: (rows a tile, blocks an SM) in place of
+    ``launch_shape``'s defaults, for timing sweeps
+    (``utils/lookup_sweep.py``)."""
+    if ids.dim() != 2 or ids.dtype not in _IDX_DTYPES:
+        raise TypeError(f"ids must be [B, T] int32 or int64, got "
+                        f"{tuple(ids.shape)} {ids.dtype}")
+    if cols.dim() != 2 or cols.shape[1] != len(LOOKUP_COL_FIELDS) or pos.dim() != 2:
+        raise ValueError("cols / pos are not lookup_tensors' descriptors")
+    if len({b.dtype for b in bufs}) > 1 or any(b.dtype not in _STORAGE for b in bufs):
+        raise TypeError(f"buffers of one storage dtype in {list(_STORAGE)}, got "
+                        f"{[b.dtype for b in bufs]}")
+    if (scales is not None) != (bool(bufs) and bufs[0].dtype == torch.int8):
+        raise ValueError("int8 buffers need their scales, and only they")
+    tensors = [ids, cols, pos, *bufs, *(scales or []),
+               *([] if dense is None else [dense])]
+    if any(t.device != ids.device for t in tensors):
+        raise ValueError("the lookup's tensors lie on more than one device")
+    _check_dense(ids, dense, dense_dim)
+    if ids.device.type == "cpu":
+        return lookup_fused_plain(ids, dense, bufs, scales, cols, pos, stripes,
+                                  stripe_height, dense_dim, with_bad)
+    if ids.device.type != "cuda":
+        raise ValueError(f"no lookup kernel for device {ids.device}")
+    if len(bufs) > MAX_BUFS:
+        raise ValueError(f"{len(bufs)} buffers: the kernel takes {MAX_BUFS}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the lookup kernel needs contiguous tensors")
+    if dense is not None and dense.dtype != torch.float32:
+        if dense.dtype not in (torch.bfloat16, torch.float16):
+            raise TypeError(f"dense must be float32 (or exactly widened), got {dense.dtype}")
+        dense = dense.float()
+    B, T = ids.shape
+    n_plan, F = cols.shape[0], pos.shape[0]
+    dev = ids.device
+    out = torch.empty((B, F), dtype=lookup_out_dtype(bufs), device=dev)
+    bad = torch.empty(B, dtype=torch.bool, device=dev) if with_bad else None
+    if B == 0:
+        return out, bad
+    rows, grid = launch_shape(B, F, n_plan, _sm_count(dev.index or 0), *(tile or ()))
+    # 16-byte words of output (4 float32 or 8 bfloat16 columns) when every
+    # row of the output starts one and every buffer is aligned for them
+    chunk = 16 // out.element_size()
+    vec = F % chunk == 0 and all(t.data_ptr() % 16 == 0 for t in [out, *bufs, *(
+        [] if dense is None else [dense])])
+    vp = ctypes.c_void_p * max(len(bufs), 1)
+    ptrs = vp(*[b.data_ptr() for b in bufs])
+    sptrs = None if scales is None else vp(*[s.data_ptr() for s in scales])
+    storage = _STORAGE[bufs[0].dtype] if bufs else 0
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _entry()(ptrs, sptrs, len(bufs), storage, ids.data_ptr(),
+                      int(ids.dtype == torch.int64),
+                      None if dense is None else dense.data_ptr(),
+                      cols.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                      None if bad is None else bad.data_ptr(),
+                      B, T, n_plan, F, dense_dim if dense is not None else 0,
+                      rows, grid, stripes, stripe_height, int(vec), stream)
+    _build.check(rc, "lookup_fused")
+    lookup_fused.launches += 1
+    return out, bad
+
+
+lookup_fused.launches = 0

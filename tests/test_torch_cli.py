@@ -33,6 +33,29 @@ def test_cli_bench_stages(capsys, stage):
     assert {"inferences_per_sec", "ms_per_batch_two_k", "percall_const_ms"} <= set(r)
 
 
+def test_cli_bench_mlp_times_the_configs_activation(capsys, monkeypatch):
+    """`bench --stage mlp` on a ReLU tower times the tower with its ReLU,
+    the function the forward runs."""
+    import dataclasses
+
+    from fleetrec_tpu_torch.models import mlp
+
+    relu = TC.micro_test(batch_size=16)
+    relu = dataclasses.replace(relu, mlp=dataclasses.replace(relu.mlp, activation="relu"))
+    monkeypatch.setattr(TC, "get_config", lambda name, batch_size: relu)
+    seen = []
+    real = mlp.mlp_apply
+
+    def spy(weights, x, activation=None):
+        seen.append(activation)
+        return real(weights, x, activation)
+
+    monkeypatch.setattr(mlp, "mlp_apply", spy)
+    r = run_cli(capsys, "bench", *COMMON, "--iters", "2", "--stage", "mlp")
+    assert r["ms_per_batch"] > 0
+    assert seen and set(seen) == {"relu"}
+
+
 def test_cli_export_and_ckpt_roundtrip(tmp_path, capsys):
     path = os.path.join(tmp_path, "m.npz")
     r = run_cli(capsys, "export", *COMMON, "--out", path)

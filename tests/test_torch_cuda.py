@@ -3,20 +3,26 @@ card.  Every test here is marked ``cuda`` and skips without a CUDA device
 (the kernels have no CPU mode; chip_smoke.py runs them on the card too).
 The file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed (from the repo's root, which holds chip_smoke.py,
-whose gatherbench flags and ragged ids the grouped test shares):
+whose gatherbench flags, ragged ids and bad ids the tests share):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import GB_FLAGS, ragged_rings
+from chip_smoke import GB_FLAGS, bits, ids_with_bad, ragged_rings
+from fleetrec_tpu_torch import config as TC
 from fleetrec_tpu_torch.config import MLPSpec
+from fleetrec_tpu_torch.models import init_model
 from fleetrec_tpu_torch.models.mlp import init_mlp_params
 from fleetrec_tpu_torch.ops.gather import gather_rows, gather_rows_grouped, gather_rows_plain
+from fleetrec_tpu_torch.ops.lookup import lookup_fused, lookup_fused_plain
 from fleetrec_tpu_torch.ops.mlp_fused import fused_mlp, fused_mlp_plain
+from torch_variants import LAYOUT_CASES, variant
 
 MODEL1 = (352, 1024, 512, 256, 1)
 RAGGED = (45, 40, 24, 1)
@@ -100,3 +106,33 @@ def test_grouped_kernel_matches_plain_on_card(cuda, dtype):
                 got = gather_rows_grouped(table, idx, **kw)
                 assert gather_rows_grouped.launches == before + 1
                 assert torch.equal(got, want), (L, what, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", LAYOUT_CASES + ["criteo"])
+def test_lookup_kernel_matches_plain_on_card(cuda, name):
+    """FleetRecModel.lookup (one lookup_fused launch) bit-equal to
+    lookup_fused_plain on the same operands: features and flags, every
+    storage dtype (criteo: bf16, 16 stripes, 845 wide), int32 and int64
+    ids, bad ids among them; B = 20000 on micro makes blocks walk several
+    tiles."""
+    rng = np.random.default_rng(9)
+    for table_dtype in ("bfloat16",) if name == "criteo" else ("float32", "bfloat16", "int8"):
+        cfg = dataclasses.replace(variant(name, TC), table_dtype=table_dtype)
+        model = init_model(cfg, table_scheme="uniform", device=cuda)
+        ops = model.lookup_operands()
+        for B in (cfg.batch_size, 3000, *((20000,) if name == "micro" else ())):
+            ids = ids_with_bad(cfg, B, rng)
+            dense = (torch.from_numpy(rng.uniform(-1, 1, (B, cfg.dense_dim)).astype(np.float32))
+                     .to(cuda) if cfg.dense_dim else None)
+            for idt in (torch.int32, torch.int64):
+                idx = torch.from_numpy(ids).to(cuda, idt)
+                before = lookup_fused.launches
+                got, bad = model.lookup(idx, dense)
+                assert lookup_fused.launches == before + 1
+                want, want_bad = lookup_fused_plain(idx, dense, **ops)
+                torch.cuda.synchronize()
+                what = (name, table_dtype, B, idt)
+                assert got.dtype == want.dtype and torch.equal(bits(got), bits(want)), what
+                assert (bad is None) == (want_bad is None), what
+                assert bad is None or torch.equal(bad, want_bad), what

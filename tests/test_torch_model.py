@@ -22,50 +22,7 @@ from fleetrec_tpu_torch import config as TC
 from fleetrec_tpu_torch.convert import params_from_jax
 from fleetrec_tpu_torch.models import ModelPlan, init_model
 from fleetrec_tpu_torch.models import embedding as temb
-
-PAPER = ["fleetrec_model1", "fleetrec_model2", "fleetrec_model3"]
-
-
-def _cap(cfg, cap):
-    return dataclasses.replace(cfg, tables=tuple(
-        dataclasses.replace(t, rows=min(t.rows, cap)) for t in cfg.tables))
-
-
-def _variant(name, C):
-    """Configs built the same way from either package's config module."""
-    if name == "micro":
-        return C.micro_test(batch_size=24)
-    if name in PAPER:
-        # fp32 storage, rows capped at 512 as in test_parity.py
-        return dataclasses.replace(_cap(C.get_config(name, batch_size=16), 512),
-                                   table_dtype="float32")
-    if name == "tiers":
-        # rows straddle all three tiers (plain / factored / take)
-        base = C.micro_test(batch_size=32)
-        rows = [40, 50, 300, 700, 900, 1400, 3000, 5000]
-        return dataclasses.replace(
-            base, tables=tuple(dataclasses.replace(t, rows=rows[i])
-                               for i, t in enumerate(base.tables)),
-            onehot_max=64, onehot_factor_max=1500, onehot_r2=32)
-    if name == "model1_tiers":
-        # model1 geometry with all three tiers at a test size
-        return dataclasses.replace(_cap(C.fleetrec_model1(batch_size=16), 20000),
-                                   onehot_max=2048, onehot_factor_max=10000)
-    if name == "striped":
-        return dataclasses.replace(C.micro_test(batch_size=24), onehot_max=70,
-                                   take_stripes=4)
-    if name == "qr":
-        return dataclasses.replace(C.micro_test(batch_size=24), onehot_max=8,
-                                   qr_threshold=80, qr_rem=16)
-    if name.startswith("lanes"):
-        return dataclasses.replace(C.micro_test(batch_size=24), onehot_max=0,
-                                   take_lanes=int(name[5:]))
-    raise KeyError(name)
-
-
-LAYOUT_CASES = ["micro", *PAPER, "tiers", "model1_tiers", "striped", "qr",
-                "lanes64", "lanes256"]
-
+from torch_variants import LAYOUT_CASES, PAPER, cap, variant
 
 def _np(t):
     """Port tensor -> numpy, bf16 as its uint16 bits."""
@@ -111,7 +68,7 @@ def test_layout_and_plan_equal(name):
     elif name == "model3_full":
         jc, tc = JC.fleetrec_model3(), TC.fleetrec_model3()
     else:
-        jc, tc = _variant(name, JC), _variant(name, TC)
+        jc, tc = variant(name, JC), variant(name, TC)
     jm, tp = JModel.create(jc), ModelPlan.create(tc)
     assert dataclasses.asdict(jm.layout) == dataclasses.asdict(tp.layout)
     assert jm.index_perm == tp.index_perm
@@ -128,8 +85,8 @@ def test_layout_and_plan_equal(name):
     ("qr", "float32", "rowid"),
 ])
 def test_pack_tables_bit_equal(name, table_dtype, scheme):
-    jc = dataclasses.replace(_variant(name, JC), table_dtype=table_dtype)
-    tc = dataclasses.replace(_variant(name, TC), table_dtype=table_dtype)
+    jc = dataclasses.replace(variant(name, JC), table_dtype=table_dtype)
+    tc = dataclasses.replace(variant(name, TC), table_dtype=table_dtype)
     jm = JModel.create(jc)
     tables = [jref.init_table(t, scheme) for t in jm.spec_tables]
     _, _, pj = _jax_pair(jc, tables)
@@ -167,8 +124,8 @@ def test_pack_tables_bit_equal(name, table_dtype, scheme):
     ("qr", "float32", "uniform"),
 ])
 def test_lookup_concat_bit_equal(name, table_dtype, scheme):
-    jc = dataclasses.replace(_variant(name, JC), table_dtype=table_dtype)
-    tc = dataclasses.replace(_variant(name, TC), table_dtype=table_dtype)
+    jc = dataclasses.replace(variant(name, JC), table_dtype=table_dtype)
+    tc = dataclasses.replace(variant(name, TC), table_dtype=table_dtype)
     jm, jp, pj = _jax_pair(jc, [jref.init_table(t, scheme)
                                 for t in JModel.create(jc).spec_tables])
     model = params_from_jax(tc, pj)
@@ -192,7 +149,7 @@ def test_lookup_concat_bit_equal(name, table_dtype, scheme):
 
 
 def test_lookup_counts_one_gather_per_tier():
-    tc = _variant("model1_tiers", TC)
+    tc = variant("model1_tiers", TC)
     model = init_model(tc)
     lay = model.layout
     tiers = temb.tier_gathers(model.packed, model.plan_indices(_t(_ids(tc, 16, 0))))
@@ -210,7 +167,7 @@ def test_lookup_counts_one_gather_per_tier():
 def test_forward_matches_jax_uniform(name):
     """Uniform tables and weights: rtol/atol 1e-5, the fp32 sums run in
     another order."""
-    jc, tc = _variant(name, JC), _variant(name, TC)
+    jc, tc = variant(name, JC), variant(name, TC)
     jm = JModel.create(jc)
     tables = [jref.init_table(t, "uniform") for t in jm.spec_tables]
     ws = jref.init_mlp_weights(jc, "uniform")
@@ -232,8 +189,8 @@ def test_forward_matches_jax_uniform(name):
 def test_forward_pm1_ones_bit_equal(name, table_dtype):
     """pm1 tables, all-ones weights, ones dense: integer-valued, so the
     scores are exact and equal in both packages and the oracle."""
-    jc = dataclasses.replace(_variant(name, JC), table_dtype=table_dtype)
-    tc = dataclasses.replace(_variant(name, TC), table_dtype=table_dtype)
+    jc = dataclasses.replace(variant(name, JC), table_dtype=table_dtype)
+    tc = dataclasses.replace(variant(name, TC), table_dtype=table_dtype)
     tables = jref.init_tables(jc, "pm1")
     jm, jp, pj = _jax_pair(jc, tables)
     model = params_from_jax(tc, pj)
@@ -253,7 +210,7 @@ def test_forward_pm1_ones_bit_equal(name, table_dtype):
 def test_out_of_range_take_ids_poison_the_same_rows(name):
     """Out-of-range and negative take ids: NaN scores on the same rows in
     both packages; features and scores of the other rows agree."""
-    jc, tc = _variant(name, JC), _variant(name, TC)
+    jc, tc = variant(name, JC), variant(name, TC)
     jm = JModel.create(jc)
     tables = [jref.init_table(t, "uniform") for t in jm.spec_tables]
     ws = jref.init_mlp_weights(jc, "uniform")
@@ -286,7 +243,7 @@ def test_out_of_range_take_ids_poison_the_same_rows(name):
 
 def test_negative_ids_floor_like_jnp():
     """QR split and take arithmetic on negative ids: floored // and %."""
-    jc, tc = _variant("qr", JC), _variant("qr", TC)
+    jc, tc = variant("qr", JC), variant("qr", TC)
     jm, tp = JModel.create(jc), init_model(tc)
     idx = _ids(jc, 24, 10)
     idx[:, :] = np.random.default_rng(11).integers(-300, 300, idx.shape)
@@ -314,7 +271,7 @@ def test_end_to_end_vs_oracle(name):
     """Twin of test_parity.py::test_end_to_end_vs_oracle (rows capped at
     256; rtol 1e-3 / atol 2e-3 against the float64 oracle)."""
     cfg = TC.get_config(name, batch_size=8)
-    cfg = _cap(cfg, 256)
+    cfg = cap(cfg, 256)
     tables = jref.init_tables(cfg, "uniform")
     ws = jref.init_mlp_weights(cfg, "uniform")
     model = init_model(cfg, tables_np=tables, mlp_np=ws)

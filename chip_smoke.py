@@ -26,7 +26,9 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
    B = 8192) equal to ``torch.matmul``, then the ``fused_mlp`` kernels
    (one launch a layer) against their plain version at the model1,
    model2, model3, criteo (input padded 845 -> 848) and two ragged towers
-   (45-40-24-1, and 45-40-10, which ends in a product), B in 1, 77, 700,
+   (45-40-24-1, and 45-40-10, which ends in a product) and dlrm_terabyte's
+   bottom (13-512-256-128, input padded to 16, ends in a 128-wide product)
+   and top (479-1024-1024-512-256-1) towers, B in 1, 77, 700,
    1000, 1024, 4000, 4096, float32 and bfloat16, ReLU off and on, every
    block tile planned on a ragged batch among them (float32 rtol/atol
    1e-5; bfloat16 rtol 2e-2 with atol 2e-2 * max|plain|); the all-ones
@@ -51,7 +53,9 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
    wide) with its take tables capped at 1M rows (every tier kept: a plain
    class, four factored classes, two take groups), B = 4096; a
    criteo-shaped config (bf16, 16 stripes, 845 wide, dense 13) with rows
-   capped at 100000; the QR variant of micro_test;
+   capped at 100000; the QR variant of micro_test; dlrm_terabyte's
+   dense-free dot layout (fp32, 26 x 128 wide, 10 one-hot tables and 16
+   take tables in 16 stripes) at 1M rows a table, B = 1024 and 4096;
 6. serve: ``serving.compose.serve`` for model1 (B = 1024, replies on) in a
    thread, 4 index batches sent over loopback, the replied scores equal to
    the oracle, one ``lookup_fused`` and one ``fused_mlp`` launch a batch;
@@ -61,11 +65,25 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
    at B = 4096, ``servebench`` at B = 1024 for 2 s;
 8. feature mode: ``ServingEngine.mlp_only`` on parity_synthetic(3968) fed
    by three senders over loopback, every score the closed form;
-9. report: the card's name and power limit, each kernel's median time
+9. interaction heads: micro_dlrm (also onehot_max=70 with 4 stripes) and
+   micro_cross (two full-rank layers; one layer at rank 4) on pm1 tables
+   and all-ones weights bit-equal to the oracle; dlrm_terabyte at full
+   widths with every table capped at 1M rows (3.64 GB of fp32 tables on
+   the device), uniform tables, weights and dense, B = 4096: within rtol
+   1e-3 / atol 2e-3 of the oracle and rtol / atol 1e-5 of the same forward
+   composed from the plain versions, bad take ids NaN-poisoned (rows
+   [5, 9]), launches per forward 1 ``lookup_fused``, 2 ``fused_mlp`` (bottom
+   and top tower), 0 gathers; bf16 at 100000 rows a table within rtol 2e-2
+   / atol 2e-2 * max|oracle|; served at B = 1024 over loopback with replies
+   bit-equal to direct forwards; ``cli bench --stage e2e|lookup|mlp`` at 1M
+   rows, and ``cli export`` -> ``io.load_npz`` of micro_dlrm and
+   micro_cross bit-equal;
+10. report: the card's name and power limit, each kernel's median time
    against its plain version at the model1 shapes and at gatherbench's
    shape and flags, ``fused_mlp`` in both dtypes at model1 and model3
-   widths, B = 4096 and 1024, ``lookup_fused`` at model1 B = 1024 and 4096
-   and model3 B = 4096 beside the path it replaced (CUDA events over
+   widths, B = 4096 and 1024, and at dlrm's bottom and top towers (ReLU)
+   at B = 4096, ``lookup_fused`` at model1 B = 1024 and 4096, model3 and
+   dlrm B = 4096 beside the path it replaced (CUDA events over
    CUDA-graph replays, so host
    dispatch is out of the kernel-against-plain comparison; eager
    back-to-back calls and the profiler's device time beside them), each
@@ -73,12 +91,15 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
    TB/s and its FLOPs over the dtype's peak: the H100 SXM data sheet) and
    one PyTorch call computing the same function, timed as a yardstick only
    (``index_select`` for the gathers, ``torch.linalg.multi_dot`` for the
-   towers, which run with no activation, as model1's does; none computes
-   the fused lookup), and the model1 forward's ms/batch, eager and
-   replayed from a CUDA graph, with its kernel launches and the fused-MLP
-   kernels' share of its device time.
+   towers, which run with no activation, as model1's does, and without
+   the ReLU of dlrm's, so there only a yardstick; none computes the fused
+   lookup), and the model1 and dlrm forwards' ms/batch at B = 1024 and
+   4096, eager and replayed from a CUDA graph, with their kernel launches,
+   the fused-MLP kernels' share of model1's device time and dlrm's device
+   time split into the lookup, the bottom tower, the interaction's torch
+   ops, the top tower and the poison.
 
-In phases 6-8 the kernels' launch counters are zeroed just before each
+In phases 6-9 the kernels' launch counters are zeroed just before each
 path runs and read just after; each kernel of the path must have launched.
 A counter counts wrapper calls that launched a kernel: eager calls, and
 the calls recorded while a CUDA graph is captured.  Replays of a graph
@@ -140,6 +161,9 @@ GB_FLAGS = {"chunk": 512, "group": 8, "window": 8}
 # row caps of the fused-lookup phase: model3's take tables at bench.py's
 # model3 operating point (its class tables stay whole), criteo's tables
 LOOKUP_CAPS = {"fleetrec_model3": 1_000_000, "criteo_terabyte": 100_000}
+# dlrm_terabyte's row caps for one card: every table at 1M rows (3.64 GB of
+# fp32 tables; the full 882.8M rows would be 452 GB), and 100000 in bf16
+DLRM_ROWS, DLRM_BF16_ROWS = 1_000_000, 100_000
 
 
 def log(msg: str) -> None:
@@ -294,11 +318,13 @@ def phase_grouped(dev, gb) -> float:
 
 
 # the towers of the repo's configs and two ragged ones (every width padded;
-# ragged_wide ends in a 10-wide product, not a row-dot)
+# ragged_wide ends in a 10-wide product, not a row-dot, as dlrm's bottom
+# tower ends in a 128-wide one)
 MLP_WIDTHS = {"model1": (352, 1024, 512, 256, 1), "model2": (880, 1024, 512, 256, 1),
               "model3": (3968, 2048, 512, 256, 1),
               "criteo": (845, 1024, 1024, 512, 256, 1), "ragged": (45, 40, 24, 1),
-              "ragged_wide": (45, 40, 10)}
+              "ragged_wide": (45, 40, 10),
+              "dlrm_bottom": (13, 512, 256, 128), "dlrm_top": (479, 1024, 1024, 512, 256, 1)}
 # 1000 and 4000 reach every block tile on a ragged batch (model1 plans
 # 64 x 128, then 128 x 128 and 64 x 64)
 MLP_BATCHES = (1, 77, 700, 1000, 1024, 4000, 4096)
@@ -332,7 +358,8 @@ def phase_mlp(dev):
     MLP_WIDTHS at every B of MLP_BATCHES, float32 and bfloat16, ReLU off
     and on, which between them plan every block tile; the all-ones closed
     forms exactly in both dtypes; ReLU on positive data equal to no ReLU.
-    Returns the worst float32 and bfloat16 errors."""
+    Returns the worst float32 and bfloat16 errors, and each tower's as
+    {(name, dtype): error}."""
     rng = np.random.default_rng(1)
     bf = torch.bfloat16
     # the m64n128k16 tile: integer data is exact in any order of the 16 terms
@@ -348,6 +375,7 @@ def phase_mlp(dev):
     worst[bf] = _check_mlp([w.to(bf)], a.to(bf), None, "m64n128k16 wgmma tiles")
     n_cases = 0
     tiles = set()
+    by_tower = {}
     for name, widths in MLP_WIDTHS.items():
         ws32 = _mlp_weights(widths, dev)
         x32 = torch.from_numpy(rng.uniform(-1, 1, (max(MLP_BATCHES), widths[0]))
@@ -361,6 +389,7 @@ def phase_mlp(dev):
                 for act in (None, "relu"):
                     err = _check_mlp(ws, x32[:B].to(dtype), act, f"{name} {dtype} B={B} {act}")
                     worst[dtype] = max(worst[dtype], err)
+                    by_tower[name, dtype] = max(by_tower.get((name, dtype), 0.0), err)
                     n_cases += 1
     if tiles != set(TILES):
         raise AssertionError(f"ragged batches planned tiles {sorted(tiles)}, not all of {TILES}")
@@ -389,8 +418,10 @@ def phase_mlp(dev):
         f"tolerance: fp32 max_abs_err {worst[torch.float32]} (rtol/atol 1e-5), "
         f"bf16 max_abs_err {worst[bf]} (rtol 2e-2, atol 2e-2 * max|plain|); "
         f"closed forms 68719476736 and 532575944704 exact in both dtypes; "
-        f"relu == none on positive data")
-    return worst[torch.float32], worst[bf]
+        f"relu == none on positive data; dlrm towers fp32 max_abs_err "
+        f"{by_tower['dlrm_bottom', torch.float32]} / {by_tower['dlrm_top', torch.float32]}, "
+        f"bf16 {by_tower['dlrm_bottom', bf]} / {by_tower['dlrm_top', bf]}")
+    return worst[torch.float32], worst[bf], by_tower
 
 
 def check_tier_gathers(model, idx_t):
@@ -501,10 +532,11 @@ def ids_with_bad(cfg, B, rng):
     return ids.astype(np.int32)
 
 
-def _dense(cfg, B, rng, dev):
-    if not cfg.dense_dim:
+def _dense(width, B, rng, dev):
+    """Uniform dense features [B, width] on ``dev``, or None for width 0."""
+    if not width:
         return None
-    return torch.from_numpy(rng.uniform(-1, 1, (B, cfg.dense_dim)).astype(np.float32)).to(dev)
+    return torch.from_numpy(rng.uniform(-1, 1, (B, width)).astype(np.float32)).to(dev)
 
 
 def bits(t):
@@ -546,32 +578,38 @@ def lookup_models(dev):
             for name, cfg in cfgs.items()}
 
 
-def phase_lookup(dev, model1):
-    """lookup_fused == plain == the tier-by-tier path on phase 4's model1 at
+def phase_lookup(dev, model1, dlrm):
+    """lookup_fused == plain == the tier-by-tier path on phase 4's model1 and
+    the fp32 dlrm_terabyte model ``dlrm`` (the dense-free dot layout) at
     B = 1024 (the served batch) and 4096, and on lookup_models at B = 4096,
-    int32 and int64 ids with bad ones.  Returns the worst error and model1's
-    and model3's (cfg, model), which the report times."""
+    int32 and int64 ids with bad ones.  Returns the worst error
+    and model1's, model3's and dlrm's (cfg, model), which the report
+    times."""
     t0 = time.time()
     rng = np.random.default_rng(10)
-    models = {"fleetrec_model1": (model1.cfg, model1), **lookup_models(dev)}
+    models = {"fleetrec_model1": (model1.cfg, model1), **lookup_models(dev),
+              "dlrm_terabyte": dlrm[:2]}
     worst, notes = 0.0, []
     with torch.inference_mode():
         for name, (cfg, model) in models.items():
-            for B in (B_SERVE, B_TIME) if name == "fleetrec_model1" else (B_TIME,):
+            served = name in ("fleetrec_model1", "dlrm_terabyte")
+            for B in (B_SERVE, B_TIME) if served else (B_TIME,):
                 ids = ids_with_bad(cfg, B, rng)
-                dense = _dense(cfg, B, rng, dev)
+                # the lookup's dense tail (the dot layout has none)
+                dense = _dense(model.layout.dense_dim, B, rng, dev)
                 for idt in (torch.int32, torch.int64):
                     idx = torch.from_numpy(ids).to(dev, idt)
                     worst = max(worst, check_lookup(model, idx, dense, f"{name} B={B} {idt}"))
             lay = model.layout
-            notes.append(f"{name} ({cfg.table_dtype}, {cfg.feature_dim} wide, "
+            notes.append(f"{name} ({cfg.table_dtype}, {lay.feature_dim} wide, "
                          f"{len(lay.onehot_classes)} classes, {len(lay.take_groups)} "
-                         f"take groups, {lay.take_stripes} stripes, dense {cfg.dense_dim})")
+                         f"take groups, {lay.take_stripes} stripes, dense {lay.dense_dim})")
     log(f"phase 5 fused lookup: lookup_fused bit-equal to its plain version and to "
         f"the tier-by-tier path, features and flags, int32 and int64 ids with bad "
-        f"ones, B={B_TIME} (model1 also B={B_SERVE}): {'; '.join(notes)} (max_abs_err {worst}; "
+        f"ones, B={B_TIME} (model1 and dlrm also B={B_SERVE}): {'; '.join(notes)} (max_abs_err {worst}; "
         f"{time.time() - t0:.1f}s)")
-    return worst, {k: models[k] for k in ("fleetrec_model1", "fleetrec_model3")}
+    return worst, {k: models[k] for k in ("fleetrec_model1", "fleetrec_model3",
+                                          "dlrm_terabyte")}
 
 
 def _free_port() -> int:
@@ -580,20 +618,21 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def phase_serve(model, tabs, ws):
-    """serve() over loopback; returns the launch counts of this run."""
-    cfg = C.fleetrec_model1(batch_size=B_SERVE)
+def serve_loopback(cfg, model, batches):
+    """serve() in a thread with replies on, ``batches`` [(ids, dense or
+    None)] sent over loopback on one wire; returns the replied scores
+    [n, B], the launch counts of the run (every count set to 0 just before
+    serve() starts) and serve()'s summary."""
+    B = batches[0][0].shape[0]
     port = _free_port()
-    rng = np.random.default_rng(3)
-    batches = [_rand_ids(cfg, B_SERVE, rng) for _ in range(N_SERVE)]
-    spec = ServeSpec(batch=B_SERVE, batches=N_SERVE, port=port, slots=4,
-                     reply=True)
+    spec = ServeSpec(batch=B, batches=len(batches), port=port, slots=4, reply=True)
     out = {}
 
     def run():
         out["summary"] = serve(cfg, model, spec)
 
-    gather_rows.launches = fused_mlp.launches = lookup_fused.launches = 0
+    for k in KERNELS:
+        k.launches = 0
     th = threading.Thread(target=run, daemon=True)
     th.start()
     sock = None
@@ -605,11 +644,11 @@ def phase_serve(model, tabs, ws):
             time.sleep(0.05)
     if sock is None:
         raise AssertionError("serve() never bound its port")
-    want = N_SERVE * B_SERVE * 4
+    want = len(batches) * B * 4
     buf = b""
     with sock:
-        for idx in batches:
-            sock.sendall(idx.tobytes())
+        for idx, dense in batches:
+            sock.sendall(idx.tobytes() + (b"" if dense is None else dense.tobytes()))
         while len(buf) < want:
             chunk = sock.recv(want - len(buf))
             if not chunk:
@@ -618,20 +657,27 @@ def phase_serve(model, tabs, ws):
     th.join(120)
     if th.is_alive() or "summary" not in out:
         raise AssertionError("serve() did not finish")
-    launches = {"lookup_fused": lookup_fused.launches, "gather_rows": gather_rows.launches,
-                "fused_mlp": fused_mlp.launches}
+    launches = {k.__name__: k.launches for k in KERNELS}
     if len(buf) != want:
         raise AssertionError(f"got {len(buf)} reply bytes, want {want}")
-    scores = np.frombuffer(buf, np.float32).reshape(N_SERVE, B_SERVE)
-    for k, idx in enumerate(batches):
+    return np.frombuffer(buf, np.float32).reshape(len(batches), B), launches, out["summary"]
+
+
+def phase_serve(model, tabs, ws):
+    """serve() over loopback; returns the launch counts of this run."""
+    cfg = C.fleetrec_model1(batch_size=B_SERVE)
+    rng = np.random.default_rng(3)
+    batches = [(_rand_ids(cfg, B_SERVE, rng), None) for _ in range(N_SERVE)]
+    scores, launches, s = serve_loopback(cfg, model, batches)
+    for k, (idx, _) in enumerate(batches):
         golden = ref.forward(cfg, tabs, ws, idx).astype(np.float32)
         if not np.array_equal(scores[k], golden):
             raise AssertionError(f"served batch {k} differs from the oracle")
     if launches["lookup_fused"] < 1 or launches["fused_mlp"] < 1:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
-    if launches != {"lookup_fused": N_SERVE, "gather_rows": 0, "fused_mlp": N_SERVE}:
+    if launches != {"gather_rows": 0, "gather_rows_grouped": 0, "fused_mlp": N_SERVE,
+                    "lookup_fused": N_SERVE}:
         raise AssertionError(f"unexpected launch counts {launches}")
-    s = out["summary"]
     log(f"phase 6 serve: {s['wire_batches']} batches x {B_SERVE} served over "
         f"loopback, replies bit-equal to the oracle; launches in the run: "
         f"{launches}; latency_ms_p50 {s.get('latency_ms_p50')} (host clock, "
@@ -763,6 +809,189 @@ def phase_feature(dev):
         f"{ref.closed_form_all_ones_score(F):.0f}; launches {launches}")
 
 
+def dlrm_fp32(dev):
+    """dlrm_terabyte at full widths, every table capped at DLRM_ROWS,
+    uniform tables and weights from seed 0 on ``dev``: (cfg, model, the
+    host tables the oracle reads)."""
+    cfg = _cap(C.dlrm_terabyte(batch_size=B_TIME), DLRM_ROWS)
+    tables = ref.init_tables(cfg, "uniform")
+    return cfg, init_model(cfg, tables_np=tables, mlp_scheme="uniform", device=dev), tables
+
+
+def heads_oracle(cfg, tables, idx, dense, scheme):
+    """The float64 oracle of a dot or cross config with ``scheme`` weights
+    (as init_model draws them from seed 0)."""
+    heads = {}
+    if cfg.bottom_mlp is not None:
+        heads["bottom_weights"] = ref.init_bottom_weights(cfg, scheme)
+    if cfg.interaction == "cross":
+        heads["cross_weights"] = ref.init_cross_weights(cfg, scheme)
+    return ref.forward(cfg, tables, ref.init_mlp_weights(cfg, scheme), idx, dense, **heads)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The model's wrappers swapped for their plain versions
+    (``lookup_fused_plain``, ``fused_mlp_plain``): inside, a forward is the
+    same forward composed from the plain versions, and launches nothing."""
+    from fleetrec_tpu_torch.models import fleetrec as fr_mod
+    from fleetrec_tpu_torch.models import mlp as mlp_mod
+
+    saved = fr_mod.lookup_fused, mlp_mod.fused_mlp
+    fr_mod.lookup_fused, mlp_mod.fused_mlp = lookup_fused_plain, fused_mlp_plain
+    try:
+        yield
+    finally:
+        fr_mod.lookup_fused, mlp_mod.fused_mlp = saved
+
+
+def _launches(lookup=0, mlp=0):
+    return {"gather_rows": 0, "gather_rows_grouped": 0, "fused_mlp": mlp,
+            "lookup_fused": lookup}
+
+
+def micro_heads():
+    """{name: (cfg, dense values drawn from 0..hi-1)} of the micro heads,
+    B = B_SERVE: integer sums below 2^24, so exact in fp32."""
+    dlrm, cross = C.micro_dlrm, C.micro_cross
+    return {"micro_dlrm": (dlrm(batch_size=B_SERVE), 4),
+            "micro_dlrm onehot_max=70 take_stripes=4": (dataclasses.replace(
+                dlrm(batch_size=B_SERVE, onehot_max=70), take_stripes=4), 4),
+            "micro_cross": (cross(batch_size=B_SERVE), 2),
+            "micro_cross rank 4": (cross(batch_size=B_SERVE, cross_layers=1, cross_rank=4), 2)}
+
+
+def phase_heads(dev, dlrm):
+    """The interaction heads on the card.  (1) the micro heads, pm1 tables
+    and all-ones weights: bit-equal to the oracle, 1 lookup_fused and 2
+    (dot) or 1 (cross) fused_mlp calls a forward.  (2) ``dlrm`` (fp32, full
+    widths, DLRM_ROWS a table) at B = B_TIME: within rtol 1e-3 / atol 2e-3
+    of the oracle and rtol / atol 1e-5 of the same forward composed from
+    the plain versions; bad take ids NaN-poison exactly their rows; 1
+    lookup_fused, 2 fused_mlp, 0 gather launches a forward.  (3) the bf16
+    model at DLRM_BF16_ROWS: rtol 2e-2, atol 2e-2 * max|oracle|.  (4) serve()
+    of ``dlrm`` at B = B_SERVE over loopback: replies bit-equal to direct
+    forwards.  (5) ``cli bench`` of dlrm_terabyte at DLRM_ROWS, every stage;
+    ``cli export`` -> ``load_npz`` of micro_dlrm and micro_cross, scores
+    bit-equal.  Returns the worst fp32 error against the plain composition
+    and the served run's launch counts."""
+    t0 = time.time()
+    rng = np.random.default_rng(11)
+    notes = []
+    with torch.inference_mode():
+        for name, (cfg, hi) in micro_heads().items():
+            model = init_model(cfg, device=dev)
+            idx = _rand_ids(cfg, B_SERVE, rng)
+            dense = rng.integers(0, hi, (B_SERVE, cfg.dense_dim)).astype(np.float32)
+            scores, launches = _counted(lambda: model(torch.from_numpy(idx).to(dev),
+                                                      torch.from_numpy(dense).to(dev)))
+            want = heads_oracle(cfg, ref.init_tables(cfg), idx, dense, "ones")
+            if not np.array_equal(scores.cpu().numpy(), want.astype(np.float32)):
+                raise AssertionError(f"{name}: scores are not bit-equal to the oracle")
+            if launches != _launches(1, 2 if cfg.interaction == "dot" else 1):
+                raise AssertionError(f"{name}: launches {launches}")
+        notes.append(f"(1) {', '.join(micro_heads())} at B={B_SERVE}: pm1 / all-ones "
+                     f"bit-equal to the oracle, launches 1 lookup_fused and 2 (dot) or "
+                     f"1 (cross) fused_mlp a forward")
+
+        cfg, model, tables = dlrm
+        idx = _rand_ids(cfg, B_TIME, rng)
+        dense_np = rng.uniform(-1, 1, (B_TIME, cfg.dense_dim)).astype(np.float32)
+        idx_t, dense = torch.from_numpy(idx).to(dev), torch.from_numpy(dense_np).to(dev)
+        scores, launches = _counted(lambda: model(idx_t, dense))
+        if launches != _launches(1, 2):
+            raise AssertionError(f"dlrm launches per forward {launches}, want 1 "
+                                 f"lookup_fused, 2 fused_mlp")
+        with plain_kernels():
+            plain, plain_launches = _counted(lambda: model(idx_t, dense))
+        if plain_launches != _launches():
+            raise AssertionError(f"the plain composition launched {plain_launches}")
+        torch.testing.assert_close(scores, plain, rtol=1e-5, atol=1e-5,
+                                   msg=lambda m: f"dlrm against its plain composition: {m}")
+        err_plain = (scores - plain).abs().max().item()
+        got = scores.cpu().numpy()
+        golden = heads_oracle(cfg, tables, idx, dense_np, "uniform")
+        np.testing.assert_allclose(got, golden, rtol=1e-3, atol=2e-3)
+        err_oracle = float(np.abs(got - golden).max())
+        bad = idx.copy()
+        take_cols = [j for j, t in enumerate(cfg.tables) if t.rows > cfg.onehot_max]
+        bad[5, take_cols[-1]] = cfg.tables[take_cols[-1]].rows
+        bad[9, take_cols[0]] = -1
+        sb = model(torch.from_numpy(bad).to(dev), dense).cpu().numpy()
+        nan_rows = np.flatnonzero(np.isnan(sb)).tolist()
+        if nan_rows != [5, 9] or not np.array_equal(np.delete(sb, [5, 9]), np.delete(got, [5, 9])):
+            raise AssertionError(f"dlrm bad-id poison rows {nan_rows}, want [5, 9]")
+        lay = model.layout
+        table_bytes = sum(b.numel() * b.element_size() for b in model.lookup_operands()["bufs"])
+        notes.append(f"(2) dlrm_terabyte fp32, {cfg.num_tables} tables capped at {DLRM_ROWS} "
+                     f"rows ({table_bytes / 1e9:.3f} GB of packed buffers; {lay.n_onehot} "
+                     f"one-hot, {lay.n_take} take tables in {lay.take_stripes} stripes, "
+                     f"{lay.feature_dim} wide, no dense tail), B={B_TIME}: within rtol 1e-3 / "
+                     f"atol 2e-3 of the oracle (max abs err {err_oracle:.3g}) and rtol / atol "
+                     f"1e-5 of its plain composition (max abs err {err_plain:.3g}); bad ids -> "
+                     f"NaN rows {nan_rows}; launches a forward {launches}")
+
+        cfg16 = _cap(C.dlrm_terabyte(batch_size=B_TIME, dtype="bfloat16"), DLRM_BF16_ROWS)
+        tabs16 = ref.init_tables(cfg16, "uniform")
+        m16 = init_model(cfg16, tables_np=tabs16, mlp_scheme="uniform", device=dev)
+        idx16 = _rand_ids(cfg16, B_TIME, rng)
+        s16, launches16 = _counted(lambda: m16(torch.from_numpy(idx16).to(dev), dense))
+        want16 = heads_oracle(cfg16, tabs16, idx16, dense_np, "uniform")
+        s16 = s16.cpu().numpy()
+        np.testing.assert_allclose(s16, want16, rtol=2e-2, atol=2e-2 * np.abs(want16).max())
+        if launches16 != _launches(1, 2):
+            raise AssertionError(f"dlrm bf16 launches per forward {launches16}")
+        notes.append(f"(3) dlrm_terabyte bf16 at {DLRM_BF16_ROWS} rows a table, B={B_TIME}: "
+                     f"within rtol 2e-2 / atol 2e-2 * max|oracle| (max abs err "
+                     f"{float(np.abs(s16 - want16).max()):.3g} of max|oracle| "
+                     f"{float(np.abs(want16).max()):.3g})")
+        del m16, tabs16
+
+    batches = [(_rand_ids(cfg, B_SERVE, rng),
+                rng.uniform(-1, 1, (B_SERVE, cfg.dense_dim)).astype(np.float32))
+               for _ in range(N_SERVE)]
+    served, serve_launches, summary = serve_loopback(cfg, model, batches)
+    with torch.inference_mode():
+        for k, (i, d) in enumerate(batches):
+            direct = model(torch.from_numpy(i).to(dev), torch.from_numpy(d).to(dev))
+            if not np.array_equal(served[k], direct.cpu().numpy()):
+                raise AssertionError(f"served dlrm batch {k} differs from a direct forward")
+    if serve_launches != _launches(N_SERVE, 2 * N_SERVE):
+        raise AssertionError(f"dlrm serve launches {serve_launches}")
+    notes.append(f"(4) serve() of the fp32 model: {summary['wire_batches']} batches x "
+                 f"{B_SERVE} (ids and dense) over loopback, replies bit-equal to direct "
+                 f"forwards; launches in the run {serve_launches}")
+
+    common = ["--config", "dlrm_terabyte", "--max-rows", str(DLRM_ROWS), "--batch",
+              str(B_TIME), "--device", "cuda"]
+    for stage, need in (("e2e", ("lookup_fused", "fused_mlp")),
+                        ("lookup", ("lookup_fused",)), ("mlp", ("fused_mlp",))):
+        r, _ = _cli(["bench", *common, "--stage", stage], need)
+        if not _finite_pos(r["ms_per_batch"], r["inferences_per_sec"]):
+            raise AssertionError(f"dlrm bench {stage}: bad times {r}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        for name in ("micro_dlrm", "micro_cross"):
+            hcfg = C.get_config(name, batch_size=B_SERVE)
+            path = os.path.join(tmp, f"{name}.npz")
+            _cli(["export", "--config", name, "--batch", str(B_SERVE), "--device", "cuda",
+                  "--table-scheme", "uniform", "--mlp-scheme", "uniform", "--out", path], ())
+            loaded = fio.load_npz(path, hcfg, dev)
+            built = init_model(hcfg, table_scheme="uniform", mlp_scheme="uniform", device=dev)
+            i = torch.from_numpy(_rand_ids(hcfg, B_SERVE, rng)).to(dev)
+            d = _dense(hcfg.dense_dim, B_SERVE, rng, dev)
+            with torch.inference_mode():
+                if not torch.equal(loaded(i, d), built(i, d)):
+                    raise AssertionError(f"{name}: scores from the export differ")
+    finally:
+        shutil.rmtree(tmp)
+    notes.append(f"(5) cli bench --config dlrm_terabyte --max-rows {DLRM_ROWS} --batch "
+                 f"{B_TIME} --stage e2e|lookup|mlp finite and positive; cli export -> "
+                 f"load_npz of micro_dlrm and micro_cross scores bit-equal")
+    log(f"phase 9 interaction heads ({time.time() - t0:.1f}s): " + "; ".join(notes))
+    return err_plain, serve_launches
+
+
 def _ms(fn, iters: int = 20) -> float:
     """Mean ms per call over ``iters`` back-to-back calls, from CUDA events
     (includes any gap the host leaves between launches)."""
@@ -847,6 +1076,61 @@ def _profile(fn, iters: int = 20):
     return (busy if rows else None), wall, rows, sum(e.count for e in events) / iters
 
 
+def _forward_split(fn, iters: int = 20):
+    """Device ms and kernel launches per call of a DLRM forward by part,
+    from the profiler's device events in launch order: ``lookup_fused``;
+    the bottom tower (the fused-MLP kernels before the first other kernel
+    that follows them); the top tower (the fused-MLP kernels after it); the
+    poison (what runs after the top tower); the interaction's torch ops
+    (everything else: pads, cats, casts, the Gram ``bmm``, the triangle
+    gather).  Averaged over the forwards whose events all arrived (the
+    profiler can drop a few): those with the most common count of events,
+    each starting at its ``lookup_fused``.  Returns ({part: (ms, launches)},
+    forwards averaged), or None when the profiler reports no device
+    event."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    forwards = []
+    for e in events:
+        if "lookup_fused" in e.name:
+            forwards.append([])
+        if forwards:
+            forwards[-1].append(e)
+    if not forwards:
+        return None
+    n = Counter(len(f) for f in forwards).most_common(1)[0][0]
+    whole = [f for f in forwards if len(f) == n]
+    parts = {p: [0.0, 0] for p in ("lookup_fused", "bottom tower", "interaction ops",
+                                   "top tower", "poison")}
+    for f in whole:
+        state = "start"
+        for e in f:
+            if "lookup_fused" in e.name:
+                part = "lookup_fused"
+            elif any(k in e.name for k in MLP_KERNELS):
+                part = "bottom tower" if state in ("start", "bottom") else "top tower"
+                state = "bottom" if part == "bottom tower" else "top"
+            elif state == "top":
+                part = "poison"
+            else:
+                part = "interaction ops"
+                state = "interaction" if state == "bottom" else state
+            parts[part][0] += e.time_range.elapsed_us() / 1e3 / len(whole)
+            parts[part][1] += 1
+    return {p: (ms, k // len(whole)) for p, (ms, k) in parts.items()}, len(whole)
+
+
 def _fmt(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
@@ -924,8 +1208,9 @@ def phase_report(cfg, model, dev, gb, lookups):
     lookup, which is timed beside the path it replaced: lookup_concat of
     plan_indices through gather_rows, and bad_take_rows); kernel (b) and
     kernel (a) at gatherbench's table and ids ``gb``, (b) with gatherbench's
-    flags; ``lookup_fused`` on model1 and on ``lookups``' model3.
-    CUDA-event timings come first: once
+    flags; ``lookup_fused`` on model1 and on ``lookups``' model3 and
+    dlrm_terabyte; ``fused_mlp`` at model1's, model3's and dlrm's towers;
+    the model1 and dlrm forwards.  CUDA-event timings come first: once
     torch.profiler has attached to the device it adds host cost to every
     later launch, so the profiled pass runs last.  Returns each label's
     numbers for the kernels' record."""
@@ -981,14 +1266,34 @@ def phase_report(cfg, model, dev, gb, lookups):
                                   f"widths {widths}, {flops[label]} FLOP, "
                                   f"{len(widths) - 1} launches", multi_dot_call(w_, x_),
                                   bound(nbytes, flops[label], dtype), None))
+        # dlrm's towers with their ReLU, as its forward runs them (multi_dot
+        # runs the chain without it: a yardstick, not the same function)
+        dcfg, dmodel = lookups["dlrm_terabyte"]
+        for name, ws, spec in (("dlrm_bottom", dmodel.bottom_weights, dcfg.bottom_mlp),
+                               ("dlrm_top", dmodel.mlp_weights, dcfg.mlp)):
+            widths = spec.widths
+            x = torch.from_numpy(np.random.default_rng(6).uniform(
+                -1, 1, (B_TIME, widths[0])).astype(np.float32)).to(dev)
+            for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+                w_ = [w.to(dtype) for w in ws]
+                x_ = x.to(dtype)
+                label = f"fused_mlp {tag} {name} B={B_TIME}"
+                flops[label] = 2 * B_TIME * sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+                nbytes = (x_.element_size() * (x_.numel() + sum(w.numel() for w in w_))
+                          + 4 * B_TIME * widths[-1])
+                cases.append((label, functools.partial(fused_mlp, w_, x_, spec.activation),
+                              functools.partial(fused_mlp_plain, w_, x_, spec.activation),
+                              f"widths {widths}, ReLU, {flops[label]} FLOP, "
+                              f"{len(widths) - 1} launches; multi_dot without the ReLU",
+                              multi_dot_call(w_, x_), bound(nbytes, flops[label], dtype), None))
         # the lookups at B_TIME again with every id 0: every row a cached one,
         # so the gap to random ids is what the random row reads cost
         ids0 = {}
         for name, B in (("fleetrec_model1", 1024), ("fleetrec_model1", B_TIME),
-                        ("fleetrec_model3", B_TIME)):
+                        ("fleetrec_model3", B_TIME), ("dlrm_terabyte", B_TIME)):
             lcfg, m = lookups[name]
             ids = torch.from_numpy(_rand_ids(lcfg, B, rng)).to(dev)  # int32, as served
-            dense = _dense(lcfg, B, rng, dev)
+            dense = _dense(m.layout.dense_dim, B, rng, dev)
             nbytes = lookup_bytes(m, ids, dense)
 
             def replaced(m=m, ids=ids, dense=dense):
@@ -1002,9 +1307,15 @@ def phase_report(cfg, model, dev, gb, lookups):
                           functools.partial(lookup_fused_plain, ids, dense,
                                             **m.lookup_operands()),
                           f"{lcfg.num_tables} tables ({lcfg.table_dtype}), "
-                          f"{lcfg.feature_dim} wide, dense {lcfg.dense_dim}, int32 ids, "
+                          f"{m.layout.feature_dim} wide, dense {m.layout.dense_dim}, int32 ids, "
                           f"{nbytes} B counted once", None, bound(nbytes), replaced))
-        fwds = {B: functools.partial(model, idx[:B].contiguous()) for B in (1024, B_TIME)}
+        d_idx = torch.from_numpy(_rand_ids(dcfg, B_TIME, rng)).to(dev)
+        d_dense = _dense(dcfg.dense_dim, B_TIME, rng, dev)
+        fwds = {}
+        for B in (1024, B_TIME):
+            fwds["model1", B] = functools.partial(model, idx[:B].contiguous())
+            fwds["dlrm_terabyte", B] = functools.partial(
+                dmodel, d_idx[:B].contiguous(), d_dense[:B].contiguous())
 
         events = {c[0]: _pair(c[1], c[2]) for c in cases}
         graphed = {c[0]: _pair_graph(c[1], c[2]) for c in cases}
@@ -1012,12 +1323,12 @@ def phase_report(cfg, model, dev, gb, lookups):
         replaced_ms = {c[0]: _graph_ms(c[6]) for c in cases if c[6] is not None}
         ids0_ms = {label: _graph_ms(fn) for label, fn in ids0.items()}
         fwd_ms, fwd_graph_ms = {}, {}
-        for B, fwd in fwds.items():
+        for key, fwd in fwds.items():
             for _ in range(5):
                 fwd()
             torch.cuda.synchronize()
-            fwd_ms[B] = float(np.median([_ms(fwd) for _ in range(5)]))
-            fwd_graph_ms[B] = _graph_ms(fwd, 10)
+            fwd_ms[key] = float(np.median([_ms(fwd) for _ in range(5)]))
+            fwd_graph_ms[key] = _graph_ms(fwd, 10)
 
         stats = {}
         for label, k, p, note, lib, (bound_ms, bound_by), _ in cases:
@@ -1057,21 +1368,28 @@ def phase_report(cfg, model, dev, gb, lookups):
             f"bound {tiers['bound_ms']:.4f} ms (bytes), kernel at "
             f"{tiers['bound_ms'] / tiers['ms']:.3f} of it (CUDA events over graph "
             f"replays, summed)")
-        for B, fwd in fwds.items():
+        for (name, B), fwd in fwds.items():
             busy, wall, rows, n_launch = _profile(fwd)
             idle = "not measured" if busy is None else f"{max(0.0, 1 - busy / wall):.3f}"
-            log(f"time model1 forward B={B}: {fwd_ms[B]:.4f} ms/batch (CUDA "
-                f"events, back-to-back), {B / fwd_ms[B] * 1e3:.0f} inf/s; "
-                f"replayed from a CUDA graph {fwd_graph_ms[B]:.4f} ms/batch, "
-                f"{B / fwd_graph_ms[B] * 1e3:.0f} inf/s; "
+            log(f"time {name} forward B={B}: {fwd_ms[name, B]:.4f} ms/batch (CUDA "
+                f"events, back-to-back), {B / fwd_ms[name, B] * 1e3:.0f} inf/s; "
+                f"replayed from a CUDA graph {fwd_graph_ms[name, B]:.4f} ms/batch, "
+                f"{B / fwd_graph_ms[name, B] * 1e3:.0f} inf/s; "
                 f"profiled: host wall {wall:.4f} ms/batch, device busy "
                 f"{_fmt(busy)}/batch, device idle share {idle}, "
                 f"{n_launch:g} kernel launches of {len(rows)} kernels")
-            for name, ms in rows[:6]:
-                log(f"  device time per forward B={B}: {ms:.4f} ms  {name[:80]}")
-            mlp_ms = sum(ms for name, ms in rows if any(k in name for k in MLP_KERNELS))
-            log(f"  fused_mlp kernels per forward B={B}: {mlp_ms:.4f} ms (profiler; "
-                f"alone over graph replays: {graphed[f'fused_mlp fp32 model1 B={B}'][0]:.4f} ms)")
+            for kname, ms in rows[:8]:
+                log(f"  device time per forward B={B}: {ms:.4f} ms  {kname[:80]}")
+            mlp_ms = sum(ms for kname, ms in rows if any(k in kname for k in MLP_KERNELS))
+            if name == "model1":
+                log(f"  fused_mlp kernels per forward B={B}: {mlp_ms:.4f} ms (profiler; alone "
+                    f"over graph replays: {graphed[f'fused_mlp fp32 model1 B={B}'][0]:.4f} ms)")
+            else:
+                split = _forward_split(fwd)
+                log(f"  device time per forward B={B} by part (profiler, kernels in launch "
+                    f"order): " + ("not measured" if split is None else ", ".join(
+                        f"{part} {ms:.4f} ms ({n} launches)" for part, (ms, n) in split[0].items())
+                        + f" (the mean of {split[1]} forwards)"))
     return stats
 
 
@@ -1094,14 +1412,20 @@ def main() -> int:
     gb = gatherbench_inputs(dev)
     err_g = phase_gather(dev)
     err_gg = phase_grouped(dev, gb)
-    err_m, err_mb = phase_mlp(dev)
+    err_m, err_mb, err_towers = phase_mlp(dev)
     cfg, model, tabs, ws, err_tiers, err_tiers_gg = phase_model1(dev)
     err_g = max(err_g, err_tiers)
     err_gg = max(err_gg, err_tiers_gg)
-    err_lk, lookups = phase_lookup(dev, model)
+    t_dlrm = time.perf_counter()
+    dlrm = dlrm_fp32(dev)
+    log(f"dlrm_terabyte fp32 at {DLRM_ROWS} rows a table built on the host and moved to "
+        f"{dev}: {time.perf_counter() - t_dlrm:.1f} s")
+    err_lk, lookups = phase_lookup(dev, model, dlrm)
     launches = phase_serve(model, tabs, ws)
     gb_launches, _ = phase_tools(model, dev)
     phase_feature(dev)
+    err_dlrm, dlrm_launches = phase_heads(dev, dlrm)
+    del dlrm  # the host tables; the model stays in lookups
     stats = phase_report(cfg, model, dev, gb, lookups)
     tiers, gb_a = stats["gather_rows all tiers"], stats["gather_rows gatherbench shape"]
     mlp, mlp_bf = stats[f"fused_mlp fp32 model1 B={B_TIME}"], stats[f"fused_mlp bf16 model1 B={B_TIME}"]
@@ -1118,6 +1442,18 @@ def main() -> int:
          "launches": launches["fused_mlp"], "max_abs_err": err_m, **mlp,
          "max_abs_err_bf16": err_mb,
          **{f"{k}_bf16": mlp_bf[k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         # dlrm_terabyte: two calls a forward (bottom and top tower, with ReLU;
+         # multi_dot runs the chain without it), launches of its served run
+         "launches_dlrm_serve": dlrm_launches["fused_mlp"], "max_abs_err_dlrm": err_dlrm,
+         # each tower against fused_mlp_plain in phase 3, every B, ReLU off and on
+         **{f"max_abs_err_{tower}{sfx}": err_towers[tower, dtype]
+            for tower in ("dlrm_bottom", "dlrm_top")
+            for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16"))},
+         **{f"{k if k != 'library_ms' else 'multi_dot_ms'}_{tower}{sfx}":
+            stats[f"fused_mlp {tag} {tower} B={B_TIME}"][k]
+            for tower in ("dlrm_bottom", "dlrm_top")
+            for tag, sfx in (("fp32", ""), ("bf16", "_bf16"))
             for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
         {"name": "gather_rows_grouped", "route": "cuda",
          "source": "fleetrec_tpu_torch/ops/csrc/gather_grouped.cu",
@@ -1132,7 +1468,10 @@ def main() -> int:
             for tag, label in (("b1024", "lookup_fused fleetrec_model1 B=1024"),
                                ("model3", f"lookup_fused fleetrec_model3 B={B_TIME}"))
             for k in ("ms", "plain_ms", "bound_ms", "replaced_ms")},
-         "ms_ids0_model3": stats[f"lookup_fused fleetrec_model3 B={B_TIME}"]["ms_ids0"]},
+         "ms_ids0_model3": stats[f"lookup_fused fleetrec_model3 B={B_TIME}"]["ms_ids0"],
+         "launches_dlrm_serve": dlrm_launches["lookup_fused"],
+         **{f"{k}_dlrm": stats[f"lookup_fused dlrm_terabyte B={B_TIME}"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "replaced_ms", "ms_ids0")}},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,12 @@
 to one NVIDIA H100.
 
 Index-mode scoring and serving on one device: config-order ids and dense
-features go through the packed-table lookup (the hand-written row-gather
-kernel, ``ops/csrc/gather_rows.cu``) and the bias-free MLP tower (the
-fused-MLP kernel, ``ops/csrc/fused_mlp.cu``) to [B] scores, served over the
-native ingest tier; feature mode serves the tower alone.  ``io.py`` reads
+features go through the packed-table lookup (the hand-written fused lookup
+kernel, ``ops/csrc/lookup_fused.cu``), an optional interaction head (DLRM's
+pairwise dots with its bottom tower, or DCNv2's cross layers) and the
+bias-free MLP tower (the fused-MLP kernel, ``ops/csrc/fused_mlp.cu``) to [B]
+scores, served over the native ingest tier; feature mode serves the tower
+alone.  ``io.py`` reads
 and writes the JAX package's npz checkpoints, and the CLI's ``bench``,
 ``gatherbench`` (with the grouped gather kernel,
 ``ops/csrc/gather_grouped.cu``), ``autotune``, ``servebench``,

@@ -8,6 +8,7 @@
   python -m fleetrec_tpu_torch.cli servebench --config fleetrec_model1 --qps 200000
   python -m fleetrec_tpu_torch.cli netbench
   python -m fleetrec_tpu_torch.cli export  --config fleetrec_model1 --out m.npz
+  python -m fleetrec_tpu_torch.cli bench   --config dlrm_terabyte --max-rows 1000000 --batch 4096
 
 Every command that builds a model or times a kernel runs on ``--device``
 (default ``cuda``; nothing moves to the CPU when no card is found — pass
@@ -247,7 +248,9 @@ def cmd_bench(args):
     --stage picks the slice of the pipeline, the analog of the reference's
     measurement variants that disable the matmuls to isolate the data
     path: e2e (default) | lookup (``FleetRecModel.lookup``: features and
-    bad-row flags) | mlp (the tower only, with the config's activation).
+    bad-row flags; a DLRM config's lookup reads no dense features, which
+    feed its bottom tower) | mlp (the top tower only, ``feature_dim`` wide,
+    with the config's activation).
     ms_per_batch and inferences_per_sec come from the K-step
     graph.  ms_per_batch_two_k and percall_const_ms are the two-K split
     (a second graph of 4K steps), side fields that no metric reads: on the

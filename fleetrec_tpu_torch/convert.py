@@ -17,7 +17,7 @@ import torch
 
 from .config import ModelConfig
 from .models.embedding import PackedTables, plan_tensors
-from .models.fleetrec import FleetRecModel, ModelPlan
+from .models.fleetrec import FleetRecModel, ModelPlan, weight_shapes
 
 
 def tensor_from_numpy(arr: np.ndarray, device="cpu") -> torch.Tensor:
@@ -34,9 +34,11 @@ def params_from_jax(cfg: ModelConfig, params_np: Mapping, device="cpu") -> Fleet
     FleetRecModel on ``device``.
 
     params_np: ``{"tables": PackedTables, "mlp": [...]}`` as the JAX
-    ``init_model`` returns it, with numpy leaves.  The JAX PackedTables is
-    read by its fields (onehot_buffers, take_buffer, onehot_scales,
-    take_scales); its class is not imported."""
+    ``init_model`` returns it, with numpy leaves, and for the interaction
+    heads ``"bottom"`` (DLRM) or ``"cross"`` (DCNv2); every weight's shape
+    is checked against ``cfg``.  The JAX PackedTables is read by its fields
+    (onehot_buffers, take_buffer, onehot_scales, take_scales); its class is
+    not imported."""
     plan = ModelPlan.create(cfg)
     lay = plan.layout
     tables = params_np["tables"]
@@ -65,4 +67,15 @@ def params_from_jax(cfg: ModelConfig, params_np: Mapping, device="cpu") -> Fleet
                      tensor_from_numpy(take_scales, device)),
     )
     mlp = [tensor_from_numpy(w, device) for w in params_np["mlp"]]
-    return FleetRecModel(plan, packed, mlp)
+    bottom = [tensor_from_numpy(w, device) for w in params_np.get("bottom", ())]
+    cross = [[tensor_from_numpy(w, device) for w in layer]
+             for layer in params_np.get("cross", ())]
+    want = weight_shapes(cfg)
+    got = {"mlp": [tuple(w.shape) for w in mlp],
+           "bottom": [tuple(w.shape) for w in bottom],
+           "cross": [[tuple(w.shape) for w in layer] for layer in cross]}
+    for name, shapes in got.items():
+        if shapes != want[name]:
+            raise ValueError(f"params[{name!r}] has shapes {shapes}, config "
+                             f"'{cfg.name}' needs {want[name]}")
+    return FleetRecModel(plan, packed, mlp, bottom, cross)

@@ -2,7 +2,9 @@
 
 A checkpoint holds the packed buffers as the JAX package writes them
 (``onehot_<i>``, ``take``, ``onehot_scale_<i>`` [n, 1, 1], ``take_scales``,
-``mlp_<i>``) and ``config_fingerprint``, the same digest for the same
+``mlp_<i>``, and for the interaction heads ``bottom_<i>`` and
+``cross_<layer>_<j>``, 2 or 3 arrays a layer by ``cross_rank``) and
+``config_fingerprint``, the same digest for the same
 config, so files cross between the two packages both ways.  Orbax
 checkpoints (``save_orbax`` / ``load_orbax``) are JAX-only and not ported.
 
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 
 from .models.embedding import TORCH_DTYPES, PackedTables, _pow2_scale, plan_tensors
-from .models.fleetrec import FleetRecModel, ModelPlan
+from .models.fleetrec import FleetRecModel, ModelPlan, weight_shapes
 
 
 def config_fingerprint(cfg) -> str:
@@ -78,7 +80,7 @@ def quantize_tables(model: FleetRecModel) -> FleetRecModel:
     class table over its slice of the class buffer, each take table over
     its own physical rows of the unified buffer.  Returns a new model on
     the same device whose config stores int8 (``table_dtype="int8"``);
-    the MLP weights are shared, not copied."""
+    the towers' and cross layers' weights are shared, not copied."""
     packed = model.packed
     if model.cfg.table_dtype == "int8" or packed.onehot_scales is not None:
         raise ValueError("the tables are already int8-quantized")
@@ -119,7 +121,8 @@ def quantize_tables(model: FleetRecModel) -> FleetRecModel:
     return FleetRecModel(plan, PackedTables(
         layout=layout, onehot_buffers=oh_bufs, take_buffer=take,
         plan=plan_tensors(layout, dev), onehot_scales=oh_scales,
-        take_scales=take_scales), model.mlp_weights)
+        take_scales=take_scales), model.mlp_weights, model.bottom_weights,
+        model.cross_weights)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -158,6 +161,11 @@ def save_npz(path: str, model: FleetRecModel) -> None:
             arrs["take_scales"] = _to_numpy(packed.take_scales)
     for i, w in enumerate(model.mlp_weights):
         arrs[f"mlp_{i}"] = _to_numpy(w)
+    for i, w in enumerate(model.bottom_weights):
+        arrs[f"bottom_{i}"] = _to_numpy(w)
+    for li, layer in enumerate(model.cross_weights):
+        for j, w in enumerate(layer):
+            arrs[f"cross_{li}_{j}"] = _to_numpy(w)
     np.savez(path, **arrs)
 
 
@@ -175,9 +183,13 @@ def _expected_arrays(plan: ModelPlan) -> Dict[str, Tuple[int, ...]]:
             out[f"onehot_scale_{i}"] = (c.num_tables, 1, 1)
         if lay.take_groups:
             out["take_scales"] = (lay.n_take,)
-    w = cfg.mlp.widths
-    for i in range(len(w) - 1):
-        out[f"mlp_{i}"] = (w[i], w[i + 1])
+    weights = weight_shapes(cfg)
+    for tower in ("mlp", "bottom"):
+        for i, shape in enumerate(weights[tower]):
+            out[f"{tower}_{i}"] = shape
+    for li, layer in enumerate(weights["cross"]):
+        for j, shape in enumerate(layer):
+            out[f"cross_{li}_{j}"] = shape
     return out
 
 
@@ -210,7 +222,7 @@ def load_npz(path: str, cfg, device="cpu") -> FleetRecModel:
                     f"checkpoint {path}: array {name!r} has shape "
                     f"{arr.shape}, the layout of config '{cfg.name}' needs "
                     f"{shape}")
-            if name.startswith("mlp_"):
+            if name.startswith(("mlp_", "bottom_", "cross_")):
                 dtype = mdtype
             elif "scale" in name:
                 dtype = torch.float32
@@ -229,5 +241,9 @@ def load_npz(path: str, cfg, device="cpu") -> FleetRecModel:
                        if quant else None),
         take_scales=got.get("take_scales"),
     )
-    mlp = [got[f"mlp_{i}"] for i in range(len(cfg.mlp.widths) - 1)]
-    return FleetRecModel(plan, packed, mlp)
+    weights = weight_shapes(cfg)
+    mlp, bottom = ([got[f"{tower}_{i}"] for i in range(len(weights[tower]))]
+                   for tower in ("mlp", "bottom"))
+    cross = [[got[f"cross_{li}_{j}"] for j in range(len(layer))]
+             for li, layer in enumerate(weights["cross"])]
+    return FleetRecModel(plan, packed, mlp, bottom, cross)

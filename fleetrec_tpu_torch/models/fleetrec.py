@@ -1,16 +1,18 @@
 """The end-to-end model, the port of ``fleetrec_tpu/models/fleetrec.py``:
-multi-table embedding lookup -> fixed-offset concat -> bias-free MLP ->
-[B] scores, on one device.
+multi-table embedding lookup -> fixed-offset concat -> [interaction] ->
+bias-free MLP -> [B] scores, on one device.
 
 ``ModelPlan`` is the static half (the JAX package's frozen
 ``FleetRecModel``: layout, index permutation, QR plan).  ``FleetRecModel``
-is an ``nn.Module`` that owns the packed tables, the MLP weights and the
-lookup descriptors as buffers (inference only) and runs the forward:
-``lookup`` (the fused lookup kernel: ``plan_indices``, every tier,
-``take_bad_rows`` and the feature layout in one launch), ``mlp_apply``
-(the fused-MLP kernel) and the NaN poison.  ``plan_indices``,
-``bad_take_rows`` and ``lookup_concat`` (one gather a tier) stay as the
-ports of the JAX functions that ``lookup`` computes.
+is an ``nn.Module`` that owns the packed tables, the towers' and cross
+layers' weights and the lookup descriptors as buffers (inference only)
+and runs the forward: ``lookup`` (the fused lookup kernel: ``plan_indices``,
+every tier, ``take_bad_rows`` and the feature layout in one launch), the
+head (``mlp_apply``, the fused-MLP kernel; a DCNv2 cross network before it,
+or the DLRM ``interaction_head``: bottom tower, pairwise dots, top tower)
+and the NaN poison.  ``plan_indices``, ``bad_take_rows`` and
+``lookup_concat`` (one gather a tier) stay as the ports of the JAX
+functions that ``lookup`` computes.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from .embedding import (
     pack_tables,
     take_bad_rows,
 )
+from .interaction import cross_network, dot_interaction, init_cross_params, pair_columns
 from .mlp import init_mlp_params, mlp_apply
 from ..ops.lookup import lookup_fused
 
@@ -53,14 +56,16 @@ class ModelPlan:
 
     @classmethod
     def create(cls, cfg: ModelConfig) -> "ModelPlan":
-        if cfg.interaction != "none":
-            raise NotImplementedError(
-                f"interaction={cfg.interaction!r}: the port runs the plain "
-                f"concat -> MLP model only (ROADMAP.md queue 1, "
-                f"'Interaction heads')")
         internal, qr_positions, sum_pairs = qr_expand(cfg)
+        if cfg.interaction == "dot":
+            # DLRM: the lookup gives the plain [T*D] concat in offset order
+            # (the head reads it as [B, T, D]); the dense features feed the
+            # bottom tower, not the concat
+            feature_dim, dense_dim = cfg.num_tables * cfg.tables[0].dim, 0
+        else:
+            feature_dim, dense_dim = cfg.feature_dim, cfg.dense_dim
         layout = build_layout(
-            internal, cfg.feature_dim, cfg.dense_dim,
+            internal, feature_dim, dense_dim,
             onehot_max=cfg.onehot_max, take_lanes=cfg.take_lanes,
             take_stripes=cfg.take_stripes,
             onehot_factor_max=cfg.onehot_factor_max,
@@ -74,16 +79,21 @@ class ModelPlan:
 
 class FleetRecModel(nn.Module):
     """Scores [B] from config-order ids [B, num_tables] and dense features
-    [B, dense_dim], on the device its buffers live on."""
+    [B, dense_dim], on the device its buffers live on.  ``bottom``: the
+    DLRM bottom tower's weights; ``cross``: the DCNv2 layers, [W, b] or
+    [U, V, b] each (both empty for a config without that head)."""
 
     def __init__(self, plan: ModelPlan, packed: PackedTables,
-                 mlp: Sequence[torch.Tensor]):
+                 mlp: Sequence[torch.Tensor], bottom: Sequence[torch.Tensor] = (),
+                 cross: Sequence[Sequence[torch.Tensor]] = ()):
         super().__init__()
         self.plan = plan
         self.cfg = plan.cfg
         self.layout = plan.layout
         self._n_onehot = len(packed.onehot_buffers)
         self._n_mlp = len(mlp)
+        self._n_bottom = len(bottom)
+        self._cross_shape = tuple(len(layer) for layer in cross)
         self._quant = packed.onehot_scales is not None
         for i, b in enumerate(packed.onehot_buffers):
             self.register_buffer(f"onehot_{i}", b)
@@ -96,12 +106,21 @@ class FleetRecModel(nn.Module):
             self.register_buffer(f"plan_{k}", v)
         for i, w in enumerate(mlp):
             self.register_buffer(f"mlp_{i}", w)
+        for i, w in enumerate(bottom):
+            self.register_buffer(f"bottom_{i}", w)
+        for li, layer in enumerate(cross):
+            for j, w in enumerate(layer):
+                self.register_buffer(f"cross_{li}_{j}", w)
         dev = packed.plan["feature_perm"].device
         self.register_buffer("index_perm", torch.as_tensor(
             np.asarray(plan.index_perm, np.int64), device=dev))
         for k, v in lookup_tensors(plan.layout, plan.index_perm, plan.qr_positions,
                                    dev).items():
             self.register_buffer(f"lookup_{k}", v)
+        if self.cfg.interaction == "dot":
+            # the triangle's flat columns over the bottom vector and the tables
+            n_vecs = self.cfg.num_tables + (self.cfg.bottom_mlp is not None)
+            self.register_buffer("pair_cols", pair_columns(n_vecs, dev))
 
     @property
     def device(self) -> torch.device:
@@ -124,6 +143,15 @@ class FleetRecModel(nn.Module):
     @property
     def mlp_weights(self) -> List[torch.Tensor]:
         return [getattr(self, f"mlp_{i}") for i in range(self._n_mlp)]
+
+    @property
+    def bottom_weights(self) -> List[torch.Tensor]:
+        return [getattr(self, f"bottom_{i}") for i in range(self._n_bottom)]
+
+    @property
+    def cross_weights(self) -> List[List[torch.Tensor]]:
+        return [[getattr(self, f"cross_{li}_{j}") for j in range(n)]
+                for li, n in enumerate(self._cross_shape)]
 
     def plan_indices(self, indices: torch.Tensor) -> torch.Tensor:
         """Config-order [B, num_tables] -> plan-order internal matrix: QR
@@ -177,25 +205,33 @@ class FleetRecModel(nn.Module):
                     stripe_height=lay.stripe_height, dense_dim=lay.dense_dim,
                     with_bad=bool(lay.take_groups))
 
+    def _check_inputs(self, indices: torch.Tensor, dense: Optional[torch.Tensor],
+                      dense_dim: int) -> None:
+        n = self.cfg.num_tables
+        if indices.dim() != 2 or indices.shape[1] != n:
+            raise ValueError(f"indices must be [B, {n}], got {tuple(indices.shape)}")
+        if dense_dim and (dense is None
+                          or tuple(dense.shape) != (indices.shape[0], dense_dim)):
+            raise ValueError(
+                f"dense must be [{indices.shape[0]}, {dense_dim}], got "
+                f"{None if dense is None else tuple(dense.shape)}")
+
     def lookup(self, indices: torch.Tensor, dense: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """Config-order ids [B, num_tables] (int32 or int64) and dense
-        [B, dense_dim] -> (features [B, feature_dim], bad [B] bool or None):
-        ``lookup_concat(packed, plan_indices(indices), dense)`` and
-        ``bad_take_rows``, by one ``lookup_fused`` call.  The features are
-        in the table storage dtype (float32 for int8 storage)."""
-        cfg = self.cfg
-        if indices.dim() != 2 or indices.shape[1] != cfg.num_tables:
-            raise ValueError(
-                f"indices must be [B, {cfg.num_tables}], got {tuple(indices.shape)}")
-        if cfg.dense_dim:
-            if dense is None or tuple(dense.shape) != (indices.shape[0], cfg.dense_dim):
-                raise ValueError(
-                    f"dense must be [{indices.shape[0]}, {cfg.dense_dim}], got "
-                    f"{None if dense is None else tuple(dense.shape)}")
-        else:
-            dense = None
-        return lookup_fused(indices, dense, **self.lookup_operands())
+        """Config-order ids [B, num_tables] (int32 or int64) and the dense
+        tail [B, layout.dense_dim] -> (features [B, layout.feature_dim],
+        bad [B] bool or None): ``lookup_concat(packed, plan_indices(indices),
+        dense)`` and ``bad_take_rows``, by one ``lookup_fused`` call.  The
+        features are in the table storage dtype (float32 for int8 storage).
+        A layout with no dense tail (a DLRM layout: its dense features feed
+        the bottom tower) does not read ``dense``."""
+        self._check_inputs(indices, dense, self.layout.dense_dim)
+        return self._lookup(indices, dense)
+
+    def _lookup(self, indices: torch.Tensor, dense: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        return lookup_fused(indices, dense if self.layout.dense_dim else None,
+                            **self.lookup_operands())
 
     def forward(self, indices: torch.Tensor,
                 dense: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -204,10 +240,56 @@ class FleetRecModel(nn.Module):
 
         A take id outside its table's [0, rows) range, negative included,
         poisons its row's score with NaN, as in the JAX package."""
-        feats, bad = self.lookup(indices, dense)
-        x = feats.to(TORCH_DTYPES[self.cfg.dtype])
-        scores = mlp_apply(self.mlp_weights, x, activation=self.cfg.mlp.activation)
+        cfg = self.cfg
+        # checks the ids and dense against the config, which covers what
+        # lookup would check against the layout
+        self._check_inputs(indices, dense, cfg.dense_dim)
+        feats, bad = self._lookup(indices, dense)
+        if cfg.interaction == "dot":
+            return self.poison_scores(interaction_head(cfg, self, feats, dense), bad)
+        x = feats.to(TORCH_DTYPES[cfg.dtype])
+        if cfg.interaction == "cross":
+            x = cross_network(x, self.cross_weights)
+        scores = mlp_apply(self.mlp_weights, x, activation=cfg.mlp.activation)
         return self.poison_scores(scores[:, 0], bad)
+
+
+def interaction_head(cfg: ModelConfig, model: FleetRecModel, emb_flat: torch.Tensor,
+                     dense: Optional[torch.Tensor]) -> torch.Tensor:
+    """DLRM head: [B, T*D] offset-order embeddings (and the dense features
+    through the bottom tower) -> pairwise dot interaction -> top tower ->
+    scores [B] float32.  The bottom tower applies its activation to every
+    layer but the last, as ``mlp_apply`` does, so its D-wide output has no
+    ReLU (the MLPerf DLRM bottom MLP has one there); the port keeps the JAX
+    package's tower for parity."""
+    dtype = TORCH_DTYPES[cfg.dtype]
+    B = emb_flat.shape[0]
+    vecs = emb_flat.reshape(B, cfg.num_tables, cfg.tables[0].dim).to(dtype)
+    bottom = None
+    if cfg.bottom_mlp is not None:
+        bottom = mlp_apply(model.bottom_weights, dense.to(dtype),
+                           activation=cfg.bottom_mlp.activation, out_dtype=dtype)
+        vecs = torch.cat([bottom[:, None, :], vecs], dim=1)
+    z = dot_interaction(vecs, model.pair_cols)
+    if bottom is not None:
+        z = torch.cat([bottom, z], dim=1)
+    scores = mlp_apply(model.mlp_weights, z, activation=cfg.mlp.activation)
+    return scores[:, 0]
+
+
+def weight_shapes(cfg: ModelConfig) -> dict:
+    """The shapes of the weights a model of ``cfg`` holds, as the JAX
+    package's params tree holds them: "mlp" and "bottom" an [in, out] a
+    layer; "cross" a list a layer, [W [F, F], b [F]] or [U [F, r],
+    V [r, F], b [F]] (empty lists for a head the config lacks)."""
+    def tower(spec):
+        return list(zip(spec.widths[:-1], spec.widths[1:]))
+
+    F, r = cfg.feature_dim, cfg.cross_rank
+    layer = [(F, F), (F,)] if r == 0 else [(F, r), (r, F), (F,)]
+    return {"mlp": tower(cfg.mlp),
+            "bottom": tower(cfg.bottom_mlp) if cfg.bottom_mlp is not None else [],
+            "cross": [layer] * cfg.cross_layers if cfg.interaction == "cross" else []}
 
 
 def init_model(
@@ -220,8 +302,10 @@ def init_model(
     device="cpu",
 ) -> FleetRecModel:
     """Build the model on ``device``.  Default data is the reference parity
-    convention (pm1 tables, all-ones weights), numpy-seeded as in the JAX
-    package; pass tables_np/mlp_np to load real parameters."""
+    convention (pm1 tables, all-ones weights, zero cross biases),
+    numpy-seeded as in the JAX package (the bottom tower in the seed + 1
+    namespace, the cross layers in seed + 2); pass tables_np/mlp_np to load
+    real tables and top-tower weights."""
     plan = ModelPlan.create(cfg)
     specs = plan.spec_tables or tuple(cfg.tables)
     if tables_np is None:
@@ -240,4 +324,11 @@ def init_model(
                for w in mlp_np]
     packed = pack_tables(tables_np, specs, plan.layout, dtype=cfg.table_dtype,
                          device=device)
-    return FleetRecModel(plan, packed, mlp)
+    bottom = cross = ()
+    if cfg.bottom_mlp is not None:
+        bottom = init_mlp_params(cfg.bottom_mlp, scheme=mlp_scheme, seed=seed + 1,
+                                 dtype=dtype, device=device)
+    if cfg.interaction == "cross":
+        cross = init_cross_params(cfg.feature_dim, cfg.cross_layers, rank=cfg.cross_rank,
+                                  scheme=mlp_scheme, seed=seed, dtype=dtype, device=device)
+    return FleetRecModel(plan, packed, mlp, bottom, cross)

@@ -1,5 +1,6 @@
-"""Dense scoring tower, the port of ``fleetrec_tpu/models/mlp.py``: the
-reference's chain of four cublasLtMatmul calls, bias-free by default.
+"""Dense towers, the port of ``fleetrec_tpu/models/mlp.py``: the scoring
+tower (the reference's chain of four cublasLtMatmul calls, bias-free by
+default) and the DLRM bottom tower.
 
 On a CUDA tensor ``mlp_apply`` runs the ``fused_mlp`` kernels (one
 launch a layer, the activations between them in an L2-resident scratch);
@@ -42,7 +43,10 @@ def mlp_apply(
     weights: Sequence[torch.Tensor],
     x: torch.Tensor,
     activation: Optional[str] = None,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """x: [B, input_dim] -> [B, out_dim] float32; fp32 sums whatever the
-    storage dtype.  No TF32: matmuls run in full fp32."""
-    return fused_mlp(weights, x, activation)
+    """x: [B, input_dim] -> [B, out_dim] in ``out_dtype``; fp32 sums
+    whatever the storage dtype.  No TF32: matmuls run in full fp32.  The
+    fp32 sums of the last layer are cast to ``out_dtype`` once, as the JAX
+    package rounds them."""
+    return fused_mlp(weights, x, activation).to(out_dtype)

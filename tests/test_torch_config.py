@@ -22,6 +22,15 @@ from fleetrec_tpu_torch.serving.wire import IndexWireFormat as TWire
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
+def _leaves(tree):
+    """The arrays of nested lists and dicts (dicts in key order), in order."""
+    if isinstance(tree, dict):
+        return [a for k in sorted(tree) for a in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [a for t in tree for a in _leaves(t)]
+    return [tree]
+
+
 @pytest.mark.parametrize("name", sorted(JC.CONFIGS))
 def test_every_config_equal_field_by_field(name):
     j, t = JC.get_config(name), TC.get_config(name)
@@ -69,19 +78,38 @@ def test_oracle_tables_equal(scheme):
 
 
 def test_oracle_forward_equal():
-    cfg_j, cfg_t = JC.micro_test(batch_size=8), TC.micro_test(batch_size=8)
-    tabs = jref.init_tables(cfg_j, "uniform")
-    for scheme in ("ones", "uniform"):
-        wj = jref.init_mlp_weights(cfg_j, scheme, seed=2)
-        wt = tref.init_mlp_weights(cfg_t, scheme, seed=2)
-        for a, b in zip(wj, wt):
-            np.testing.assert_array_equal(a, b)
-        rng = np.random.default_rng(0)
-        idx = np.stack([rng.integers(0, t.rows, 8) for t in cfg_j.tables], 1)
-        dense = rng.uniform(-1, 1, (8, cfg_j.dense_dim)).astype(np.float32)
-        np.testing.assert_array_equal(
-            jref.forward(cfg_j, tabs, wj, idx, dense),
-            tref.forward(cfg_t, tabs, wt, idx, dense))
+    """The oracle's weights and forward, for the plain model and both
+    interaction heads (the bottom tower's and the cross layers' weights,
+    ``dot_interaction_np`` and ``cross_network_np``)."""
+    for kw in ({"name": "micro_test"}, {"name": "micro_dlrm"}, {"name": "micro_cross"},
+               {"name": "micro_cross", "cross_layers": 1, "cross_rank": 4}):
+        cfg_j, cfg_t = JC.get_config(batch_size=8, **kw), TC.get_config(batch_size=8, **kw)
+        tabs = jref.init_tables(cfg_j, "uniform")
+        for scheme in ("ones", "uniform"):
+            wj = jref.init_mlp_weights(cfg_j, scheme, seed=2)
+            wt = tref.init_mlp_weights(cfg_t, scheme, seed=2)
+            heads_j, heads_t = {}, {}
+            if cfg_j.bottom_mlp is not None:
+                heads_j["bottom_weights"] = jref.init_bottom_weights(cfg_j, scheme, seed=2)
+                heads_t["bottom_weights"] = tref.init_bottom_weights(cfg_t, scheme, seed=2)
+            if cfg_j.interaction == "cross":
+                heads_j["cross_weights"] = jref.init_cross_weights(cfg_j, scheme, seed=2)
+                heads_t["cross_weights"] = tref.init_cross_weights(cfg_t, scheme, seed=2)
+            assert heads_j.keys() == heads_t.keys() and len(heads_j) == (kw["name"] != "micro_test")
+            leaves_j, leaves_t = _leaves([wj, heads_j]), _leaves([wt, heads_t])
+            assert len(leaves_j) == len(leaves_t)
+            for a, b in zip(leaves_j, leaves_t):
+                np.testing.assert_array_equal(a, b)
+            rng = np.random.default_rng(0)
+            idx = np.stack([rng.integers(0, t.rows, 8) for t in cfg_j.tables], 1)
+            dense = rng.uniform(-1, 1, (8, cfg_j.dense_dim)).astype(np.float32)
+            np.testing.assert_array_equal(
+                jref.forward(cfg_j, tabs, wj, idx, dense, **heads_j),
+                tref.forward(cfg_t, tabs, wt, idx, dense, **heads_t))
+            if cfg_j.interaction == "dot":
+                vecs = rng.standard_normal((8, 5, 8))
+                np.testing.assert_array_equal(jref.dot_interaction_np(vecs),
+                                              tref.dot_interaction_np(vecs))
 
 
 def test_wire_format_equal():

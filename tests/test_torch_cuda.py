@@ -16,13 +16,14 @@ import torch
 
 from chip_smoke import GB_FLAGS, bits, ids_with_bad, ragged_rings
 from fleetrec_tpu_torch import config as TC
+from fleetrec_tpu_torch import reference as ref
 from fleetrec_tpu_torch.config import MLPSpec
 from fleetrec_tpu_torch.models import init_model
 from fleetrec_tpu_torch.models.mlp import init_mlp_params
 from fleetrec_tpu_torch.ops.gather import gather_rows, gather_rows_grouped, gather_rows_plain
 from fleetrec_tpu_torch.ops.lookup import lookup_fused, lookup_fused_plain
 from fleetrec_tpu_torch.ops.mlp_fused import fused_mlp, fused_mlp_plain
-from torch_variants import LAYOUT_CASES, variant
+from torch_variants import HEADS, LAYOUT_CASES, variant
 
 MODEL1 = (352, 1024, 512, 256, 1)
 RAGGED = (45, 40, 24, 1)
@@ -123,8 +124,11 @@ def test_lookup_kernel_matches_plain_on_card(cuda, name):
         ops = model.lookup_operands()
         for B in (cfg.batch_size, 3000, *((20000,) if name == "micro" else ())):
             ids = ids_with_bad(cfg, B, rng)
-            dense = (torch.from_numpy(rng.uniform(-1, 1, (B, cfg.dense_dim)).astype(np.float32))
-                     .to(cuda) if cfg.dense_dim else None)
+            # the lookup's dense tail (a DLRM layout has none: its dense
+            # features feed the bottom tower)
+            dd = model.layout.dense_dim
+            dense = (torch.from_numpy(rng.uniform(-1, 1, (B, dd)).astype(np.float32))
+                     .to(cuda) if dd else None)
             for idt in (torch.int32, torch.int64):
                 idx = torch.from_numpy(ids).to(cuda, idt)
                 before = lookup_fused.launches
@@ -136,3 +140,28 @@ def test_lookup_kernel_matches_plain_on_card(cuda, name):
                 assert got.dtype == want.dtype and torch.equal(bits(got), bits(want)), what
                 assert (bad is None) == (want_bad is None), what
                 assert bad is None or torch.equal(bad, want_bad), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", HEADS)
+def test_interaction_heads_match_the_oracle_on_card(cuda, name):
+    """The micro DLRM and DCNv2 models on the card, pm1 tables and all-ones
+    weights, small integer dense values: scores bit-equal to the float64
+    oracle, one lookup_fused launch and two fused_mlp calls (DLRM: bottom
+    and top tower) or one (DCNv2) a forward."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = variant(name, TC)
+    rng = np.random.default_rng(10)
+    B = cfg.batch_size
+    idx = np.stack([rng.integers(0, t.rows, B) for t in cfg.tables], 1).astype(np.int32)
+    dense = rng.integers(0, 2, (B, cfg.dense_dim)).astype(np.float32)
+    model = init_model(cfg, device=cuda)
+    before = (lookup_fused.launches, fused_mlp.launches)
+    with torch.inference_mode():
+        got = model(torch.from_numpy(idx).to(cuda), torch.from_numpy(dense).to(cuda)).cpu().numpy()
+    calls = (lookup_fused.launches - before[0], fused_mlp.launches - before[1])
+    assert calls == (1, 2 if cfg.interaction == "dot" else 1)
+    heads = ({"bottom_weights": ref.init_bottom_weights(cfg)} if cfg.interaction == "dot"
+             else {"cross_weights": ref.init_cross_weights(cfg)})
+    want = ref.forward(cfg, ref.init_tables(cfg), ref.init_mlp_weights(cfg), idx, dense, **heads)
+    np.testing.assert_array_equal(got, want.astype(np.float32))

@@ -73,7 +73,7 @@ def test_fused_lookup_bit_equal_to_jax(name, table_dtype, id_dtype):
     with torch.no_grad():
         got, bad = model.lookup(ti, td)
         port = temb.lookup_concat(model.packed, model.plan_indices(ti), td)
-    assert got.dtype == OUT_DTYPE[table_dtype] and got.shape == (B, cfg.feature_dim)
+    assert got.dtype == OUT_DTYPE[table_dtype] and got.shape == (B, lay.feature_dim)
     # the port's own tier-by-tier lookup, every row
     np.testing.assert_array_equal(_bits(got), _bits(port))
     if want_bad is None:
@@ -88,13 +88,15 @@ def test_fused_lookup_bit_equal_to_jax(name, table_dtype, id_dtype):
     np.testing.assert_array_equal(_bits(got)[ok], _bits(want)[ok])
 
 
-@pytest.mark.parametrize("name", LAYOUT_CASES + ["criteo", "model3_full", "criteo_full"])
+@pytest.mark.parametrize("name", LAYOUT_CASES + ["criteo", "model3_full", "criteo_full",
+                                  "dlrm_full"])
 def test_descriptors_cover_each_output_column_once(name):
     """Every output column reads exactly one source: one element of one
     visible table (each once), one dense column (each once) or a zero; a QR
     quotient column adds its remainder table's same element; the plan
     columns' rows hold ids, offsets and limits, no pointer."""
-    full = {"model3_full": TC.fleetrec_model3, "criteo_full": TC.criteo_terabyte}
+    full = {"model3_full": TC.fleetrec_model3, "criteo_full": TC.criteo_terabyte,
+            "dlrm_full": TC.dlrm_terabyte}
     cfg = full[name]() if name in full else variant(name, TC)
     mp = ModelPlan.create(cfg)
     lay = mp.layout
@@ -103,7 +105,7 @@ def test_descriptors_cover_each_output_column_once(name):
     F = tlk._F
     assert cols.dtype == np.int64 and pos.dtype == np.int32
     assert cols.shape == (lay.n_onehot + lay.n_take, len(tlk.LOOKUP_COL_FIELDS))
-    assert pos.shape == (cfg.feature_dim, 2)
+    assert pos.shape == (lay.feature_dim, 2)
     src = ((pos[:, 0] & 0xFFFF) ^ 0x8000) - 0x8000
     add, off = pos[:, 0] >> 16, pos[:, 1] & tlk.OFF_MASK
     table_cols = src >= 0
@@ -122,10 +124,10 @@ def test_descriptors_cover_each_output_column_once(name):
     assert np.all(cols[add[add >= 0], F["op"]] == tlk.OP_MOD)
     # the dense tail, each column once, at the end
     np.testing.assert_array_equal(np.flatnonzero(dense_cols),
-                                  np.arange(cfg.feature_dim - cfg.dense_dim, cfg.feature_dim))
-    np.testing.assert_array_equal(off[dense_cols], np.arange(cfg.dense_dim))
+                                  np.arange(lay.feature_dim - lay.dense_dim, lay.feature_dim))
+    np.testing.assert_array_equal(off[dense_cols], np.arange(lay.dense_dim))
     # a VEC4 / VEC8 bit starts an aligned run of one source (or zeros)
-    widths = np.append(cols[:, F["dim"]], cfg.dense_dim)
+    widths = np.append(cols[:, F["dim"]], lay.dense_dim)
     for bit, n in ((tlk.VEC4, 4), (tlk.VEC8, 8)):
         for p in np.flatnonzero(pos[:, 1] & bit):
             c, a, o = src[p:p + n], add[p:p + n], off[p:p + n]

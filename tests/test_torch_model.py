@@ -61,12 +61,14 @@ def _jax_pair(cfg, tables, mlp_np=None, mlp_scheme="ones"):
 
 # ---- plan and packing -----------------------------------------------------
 
-@pytest.mark.parametrize("name", LAYOUT_CASES + ["criteo_full", "model3_full"])
+@pytest.mark.parametrize("name", LAYOUT_CASES + ["criteo_full", "model3_full", "dlrm_full"])
 def test_layout_and_plan_equal(name):
     if name == "criteo_full":
         jc, tc = JC.criteo_terabyte(), TC.criteo_terabyte()
     elif name == "model3_full":
         jc, tc = JC.fleetrec_model3(), TC.fleetrec_model3()
+    elif name == "dlrm_full":
+        jc, tc = JC.dlrm_terabyte(), TC.dlrm_terabyte()
     else:
         jc, tc = variant(name, JC), variant(name, TC)
     jm, tp = JModel.create(jc), ModelPlan.create(tc)
@@ -280,12 +282,6 @@ def test_end_to_end_vs_oracle(name):
         scores = model(_t(idx), _t(dense)).numpy()
     np.testing.assert_allclose(scores, jref.forward(cfg, tables, ws, idx, dense),
                                rtol=1e-3, atol=2e-3)
-
-
-def test_interaction_heads_not_ported_yet():
-    for name in ("micro_dlrm", "micro_cross"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_model(TC.get_config(name))
 
 
 def test_forward_checks_shapes():

@@ -7,7 +7,10 @@ import dataclasses
 
 PAPER = ["fleetrec_model1", "fleetrec_model2", "fleetrec_model3"]
 LAYOUT_CASES = ["micro", *PAPER, "tiers", "model1_tiers", "striped", "qr",
-                "lanes64", "lanes256"]
+                "lanes64", "lanes256", "micro_dlrm"]
+# the interaction heads at a test size: DLRM with every table one-hot and
+# with both lookup tiers, DCNv2 full rank (2 layers) and rank 4 (1 layer)
+HEADS = ["micro_dlrm_onehot", "micro_dlrm", "micro_cross", "micro_cross_r4"]
 
 
 def cap(cfg, rows):
@@ -17,8 +20,8 @@ def cap(cfg, rows):
 
 
 def variant(name, C):
-    """The config ``name`` of LAYOUT_CASES (or ``criteo``) from the config
-    module ``C``."""
+    """The config ``name`` of LAYOUT_CASES or HEADS (or ``criteo``) from
+    the config module ``C``."""
     if name == "micro":
         return C.micro_test(batch_size=24)
     if name in PAPER:
@@ -46,6 +49,19 @@ def variant(name, C):
     if name.startswith("lanes"):
         return dataclasses.replace(C.micro_test(batch_size=24), onehot_max=0,
                                    take_lanes=int(name[5:]))
+    if name == "micro_dlrm":
+        # the dense-free dot layout with both tiers: table 0 (64 rows)
+        # one-hot, the others (72..88 rows) striped take tables
+        return dataclasses.replace(C.micro_dlrm(batch_size=32, onehot_max=70),
+                                   take_stripes=4)
+    if name == "micro_dlrm_onehot":
+        return C.micro_dlrm(batch_size=32)
+    if name == "micro_cross":
+        return C.micro_cross(batch_size=32)
+    if name == "micro_cross_r4":
+        # one layer: two all-ones rank-4 layers pass 2^24, where fp32
+        # integer sums stop being exact
+        return C.micro_cross(batch_size=32, cross_layers=1, cross_rank=4)
     if name == "criteo":
         # criteo's geometry (bf16, 16 stripes, 845-wide features, a factored
         # class and a take group) with rows capped at 40000

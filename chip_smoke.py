@@ -78,12 +78,30 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
    bit-equal to direct forwards; ``cli bench --stage e2e|lookup|mlp`` at 1M
    rows, and ``cli export`` -> ``io.load_npz`` of micro_dlrm and
    micro_cross bit-equal;
-10. report: the card's name and power limit, each kernel's median time
+10. bags: ``lookup_fused_bags`` (the bag form of the fused lookup, one
+   launch a call) bit-equal to its plain version, features and flags, and
+   within the stated tolerance of the path it replaces
+   (``pooled_lookup_concat(plan_bags(ids))`` and ``pooled_bad_rows``) on
+   model1 at full rows (B = 4096 and 1024, L = 8 and 1), model3 (int8), the
+   criteo-shaped config (bf16, the element path) and the QR variant at
+   L = 4, sum and mean pooling, int32 and int64 ids with padding, empty
+   bags, ids below -1 and out-of-range ids; L = 1 bit-equal to
+   ``lookup_fused``; model1's pooled forward at B = 4096, L = 8 bit-equal
+   to the float64 oracle (sum; mean within rtol 1e-5 and atol 352 * 2^-24 *
+   max|oracle|), NaN on exactly the
+   rows with a bad take id, 1 ``lookup_fused_bags``, 0 ``lookup_fused``, 0
+   gathers and 1 ``fused_mlp`` a forward; served with ``bag_L = 8`` over
+   loopback (4 batches x 1024, also with fuse = 2, and ``cli serve --bag-l``
+   against ``cli loadgen --bag-l``), replies bit-equal to direct
+   ``forward_pooled`` calls; a dot config refused;
+11. report: the card's name and power limit, each kernel's median time
    against its plain version at the model1 shapes and at gatherbench's
    shape and flags, ``fused_mlp`` in both dtypes at model1 and model3
    widths, B = 4096 and 1024, and at dlrm's bottom and top towers (ReLU)
    at B = 4096, ``lookup_fused`` at model1 B = 1024 and 4096, model3 and
-   dlrm B = 4096 beside the path it replaced (CUDA events over
+   dlrm B = 4096, and ``lookup_fused_bags`` at model1 B = 4096 and 1024 for
+   L = 1, 4, 8 and model3 L = 4, each beside the path it replaced (CUDA
+   events over
    CUDA-graph replays, so host
    dispatch is out of the kernel-against-plain comparison; eager
    back-to-back calls and the profiler's device time beside them), each
@@ -99,7 +117,7 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
    time split into the lookup, the bottom tower, the interaction's torch
    ops, the top tower and the poison.
 
-In phases 6-9 the kernels' launch counters are zeroed just before each
+In phases 6-10 the kernels' launch counters are zeroed just before each
 path runs and read just after; each kernel of the path must have launched.
 A counter counts wrapper calls that launched a kernel: eager calls, and
 the calls recorded while a CUDA graph is captured.  Replays of a graph
@@ -136,11 +154,14 @@ from fleetrec_tpu_torch import io as fio
 from fleetrec_tpu_torch import reference as ref
 from fleetrec_tpu_torch.models import init_model
 from fleetrec_tpu_torch.models.embedding import lookup_concat, tier_gathers
+from fleetrec_tpu_torch.models.pooled import (plan_bags, pooled_bad_rows,
+                                              pooled_lookup_concat)
 from fleetrec_tpu_torch.ops import _build
 from fleetrec_tpu_torch.ops.gather import (gather_rows, gather_rows_grouped,
                                           gather_rows_plain)
 from fleetrec_tpu_torch.models.mlp import init_mlp_params
 from fleetrec_tpu_torch.ops.lookup import (LOOKUP_COL_FIELDS, lookup_fused,
+                                          lookup_fused_bags, lookup_fused_bags_plain,
                                           lookup_fused_plain, lookup_offsets_plain,
                                           lookup_out_dtype)
 from fleetrec_tpu_torch.ops.mlp_fused import (PRODUCT, TILES, fused_mlp,
@@ -151,6 +172,9 @@ from fleetrec_tpu_torch.serving import (IngestServer, Loadgen, ServeSpec,
 B_TIME = 4096
 B_SERVE = 1024
 N_SERVE = 4
+# the bag phase: slots a bag at model1 (served and timed) and at the other
+# layouts, and the lengths the report times
+BAG_L, BAG_L_SMALL, BAG_LS = 8, 4, (1, 4, 8)
 # servebench offers this share of the e2e bench's device rate: the served
 # path runs eager forwards, several times the device time (PERF.md)
 SERVE_SHARE = 0.02
@@ -532,6 +556,64 @@ def ids_with_bad(cfg, B, rng):
     return ids.astype(np.int32)
 
 
+def bags_with_bad(cfg, B, L, rng):
+    """Bags [B, T, L] (int32) of uniform in-range ids in random prefix
+    lengths of 0 .. L (0: an empty bag), -1 after the prefix.  Row 0 is
+    empty in every table.  In every third column in turn, slot 0 of rows
+    1-3 holds an id below -1 (padding too), the table's rows (out of
+    range: a take table's flags the row) and 2^31 - 1; row 4 has a hole
+    (-1) in slot 0 of every bag, before its members.  Needs B >= 5."""
+    T = cfg.num_tables
+    rows = np.asarray([t.rows for t in cfg.tables])
+    ids = (rng.random((B, T, L)) * rows[None, :, None]).astype(np.int64)
+    lens = rng.integers(0, L + 1, (B, T))
+    ids[np.arange(L)[None, None, :] >= lens[:, :, None]] = -1
+    ids[0] = -1
+    for j, t in enumerate(cfg.tables):
+        ids[1 + j % 3, j, 0] = (-t.rows - 5, t.rows, 2**31 - 1)[j % 3]
+    ids[4, :, 0] = -1
+    return ids.astype(np.int32)
+
+
+def make_bags(cfg, B, L, seed=0, all_empty_row=None):
+    """(bags [B, T, L] int32, dense [B, dense_dim] of -1 / 1 or None): a
+    random prefix of 1 .. L in-range ids a bag, -1 after it (what ``loadgen
+    --bag-l`` sends); ``all_empty_row``: a batch row whose bags are all
+    empty."""
+    rng = np.random.default_rng(seed)
+    rows = np.asarray([t.rows for t in cfg.tables])
+    idx = (rng.random((B, cfg.num_tables, L)) * rows[None, :, None]).astype(np.int32)
+    lens = rng.integers(1, L + 1, (B, cfg.num_tables))
+    idx[np.arange(L)[None, None, :] >= lens[:, :, None]] = -1
+    if all_empty_row is not None:
+        idx[all_empty_row] = -1
+    dense = (rng.choice([-1.0, 1.0], (B, cfg.dense_dim)).astype(np.float32)
+             if cfg.dense_dim else None)
+    return idx, dense
+
+
+def pooled_oracle(cfg, tables, weights, idx, dense, mean=False):
+    """float64 scores of bags [B, T, L] (a negative id is padding): per
+    table the sum (mean: over its members) of the rows its bag reads at the
+    table's out_offset, the dense tail, the MLP chain."""
+    B, _T, L = idx.shape
+    feats = np.zeros((B, cfg.feature_dim), np.float64)
+    for j, t in enumerate(cfg.tables):
+        pooled = np.zeros((B, t.dim), np.float64)
+        cnt = np.zeros(B)
+        for l in range(L):
+            v = idx[:, j, l] >= 0
+            pooled[v] += tables[j][idx[v, j, l]]
+            cnt += v
+        if mean:
+            nz = cnt > 0
+            pooled[nz] /= cnt[nz, None]
+        feats[:, t.out_offset : t.out_offset + t.dim] = pooled
+    if cfg.dense_dim:
+        feats[:, cfg.feature_dim - cfg.dense_dim :] = dense
+    return ref.mlp_chain(feats, weights, cfg.mlp.activation)[:, 0]
+
+
 def _dense(width, B, rng, dev):
     """Uniform dense features [B, width] on ``dev``, or None for width 0."""
     if not width:
@@ -583,8 +665,8 @@ def phase_lookup(dev, model1, dlrm):
     the fp32 dlrm_terabyte model ``dlrm`` (the dense-free dot layout) at
     B = 1024 (the served batch) and 4096, and on lookup_models at B = 4096,
     int32 and int64 ids with bad ones.  Returns the worst error
-    and model1's, model3's and dlrm's (cfg, model), which the report
-    times."""
+    and every model's (cfg, model), which the bag phase checks and the
+    report times."""
     t0 = time.time()
     rng = np.random.default_rng(10)
     models = {"fleetrec_model1": (model1.cfg, model1), **lookup_models(dev),
@@ -608,8 +690,7 @@ def phase_lookup(dev, model1, dlrm):
         f"the tier-by-tier path, features and flags, int32 and int64 ids with bad "
         f"ones, B={B_TIME} (model1 and dlrm also B={B_SERVE}): {'; '.join(notes)} (max_abs_err {worst}; "
         f"{time.time() - t0:.1f}s)")
-    return worst, {k: models[k] for k in ("fleetrec_model1", "fleetrec_model3",
-                                          "dlrm_terabyte")}
+    return worst, models
 
 
 def _free_port() -> int:
@@ -618,14 +699,16 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def serve_loopback(cfg, model, batches):
+def serve_loopback(cfg, model, batches, **spec_kw):
     """serve() in a thread with replies on, ``batches`` [(ids, dense or
     None)] sent over loopback on one wire; returns the replied scores
     [n, B], the launch counts of the run (every count set to 0 just before
-    serve() starts) and serve()'s summary."""
+    serve() starts) and serve()'s summary.  ``spec_kw``: further ServeSpec
+    fields (``bag_L``, ``fuse``)."""
     B = batches[0][0].shape[0]
     port = _free_port()
-    spec = ServeSpec(batch=B, batches=len(batches), port=port, slots=4, reply=True)
+    spec = ServeSpec(batch=B, batches=len(batches), port=port, slots=4, reply=True,
+                     **spec_kw)
     out = {}
 
     def run():
@@ -675,8 +758,7 @@ def phase_serve(model, tabs, ws):
             raise AssertionError(f"served batch {k} differs from the oracle")
     if launches["lookup_fused"] < 1 or launches["fused_mlp"] < 1:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
-    if launches != {"gather_rows": 0, "gather_rows_grouped": 0, "fused_mlp": N_SERVE,
-                    "lookup_fused": N_SERVE}:
+    if launches != _launches(N_SERVE, N_SERVE):
         raise AssertionError(f"unexpected launch counts {launches}")
     log(f"phase 6 serve: {s['wire_batches']} batches x {B_SERVE} served over "
         f"loopback, replies bit-equal to the oracle; launches in the run: "
@@ -685,7 +767,7 @@ def phase_serve(model, tabs, ws):
     return launches
 
 
-KERNELS = (gather_rows, gather_rows_grouped, fused_mlp, lookup_fused)
+KERNELS = (gather_rows, gather_rows_grouped, fused_mlp, lookup_fused, lookup_fused_bags)
 
 
 def _counted(fn):
@@ -801,8 +883,7 @@ def phase_feature(dev):
     if sorted(outs) != list(range(NB)) or not all(np.array_equal(v, want)
                                                   for v in outs.values()):
         raise AssertionError("feature-mode scores differ from the closed form")
-    if launches != {"gather_rows": 0, "gather_rows_grouped": 0, "fused_mlp": NB,
-                    "lookup_fused": 0}:
+    if launches != _launches(mlp=NB):
         raise AssertionError(f"feature mode launches {launches}, want fused_mlp {NB}")
     log(f"phase 8 feature mode: {summary['batches']} batches x {B} of "
         f"{widths} floats over loopback, scores == closed form "
@@ -832,22 +913,24 @@ def heads_oracle(cfg, tables, idx, dense, scheme):
 @contextlib.contextmanager
 def plain_kernels():
     """The model's wrappers swapped for their plain versions
-    (``lookup_fused_plain``, ``fused_mlp_plain``): inside, a forward is the
-    same forward composed from the plain versions, and launches nothing."""
+    (``lookup_fused_plain``, ``lookup_fused_bags_plain``,
+    ``fused_mlp_plain``): inside, a forward is the same forward composed
+    from the plain versions, and launches nothing."""
     from fleetrec_tpu_torch.models import fleetrec as fr_mod
     from fleetrec_tpu_torch.models import mlp as mlp_mod
 
-    saved = fr_mod.lookup_fused, mlp_mod.fused_mlp
-    fr_mod.lookup_fused, mlp_mod.fused_mlp = lookup_fused_plain, fused_mlp_plain
+    saved = fr_mod.lookup_fused, fr_mod.lookup_fused_bags, mlp_mod.fused_mlp
+    fr_mod.lookup_fused, fr_mod.lookup_fused_bags = lookup_fused_plain, lookup_fused_bags_plain
+    mlp_mod.fused_mlp = fused_mlp_plain
     try:
         yield
     finally:
-        fr_mod.lookup_fused, mlp_mod.fused_mlp = saved
+        fr_mod.lookup_fused, fr_mod.lookup_fused_bags, mlp_mod.fused_mlp = saved
 
 
-def _launches(lookup=0, mlp=0):
+def _launches(lookup=0, mlp=0, bags=0):
     return {"gather_rows": 0, "gather_rows_grouped": 0, "fused_mlp": mlp,
-            "lookup_fused": lookup}
+            "lookup_fused": lookup, "lookup_fused_bags": bags}
 
 
 def micro_heads():
@@ -990,6 +1073,222 @@ def phase_heads(dev, dlrm):
                  f"load_npz of micro_dlrm and micro_cross scores bit-equal")
     log(f"phase 9 interaction heads ({time.time() - t0:.1f}s): " + "; ".join(notes))
     return err_plain, serve_launches
+
+
+def check_bags(model, idx, dense, mean, what) -> float:
+    """model.lookup_pooled (one lookup_fused_bags launch) == its plain
+    version, bit for bit, features and flags; and against the path it
+    replaces (pooled_lookup_concat(plan_bags(ids)) through gather_rows, and
+    pooled_bad_rows): the flags equal, the features bit-equal for int8 sums
+    (exact in int32), else within rtol 2e-6 / atol 1e-6 (float32 and the
+    int8 mean: the same L terms, torch.sum in its own order) or rtol 2e-2 /
+    atol L * 2^-7 (bfloat16: the replaced path rounds a factored class after
+    each of its L adds and multiplies the mean in bfloat16; one bfloat16 ulp
+    of the largest possible sum).  Returns the max abs error against the
+    plain version (0)."""
+    before = lookup_fused_bags.launches
+    got, bad = model.lookup_pooled(idx, dense, mean)
+    if lookup_fused_bags.launches != before + 1:
+        raise AssertionError(f"lookup_fused_bags did not launch once: {what}")
+    want, want_bad = lookup_fused_bags_plain(idx, dense, mean=mean, **model.lookup_operands())
+    gi = plan_bags(model, idx)
+    tiers, tiers_bad = pooled_lookup_concat(model.packed, gi, dense, mean), pooled_bad_rows(
+        model, gi)
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or not torch.equal(bits(got), bits(want)):
+        raise AssertionError(f"lookup_fused_bags features differ from the plain version: {what}")
+    for name, b in (("plain", want_bad), ("replaced", tiers_bad)):
+        if (bad is None) != (b is None) or (bad is not None and not torch.equal(bad, b)):
+            raise AssertionError(f"lookup_fused_bags flags differ from the {name} path: {what}")
+    store = model.lookup_operands()["bufs"][0].dtype
+    if store == torch.int8 and not mean:
+        if not torch.equal(got, tiers):
+            raise AssertionError(f"int8 bag sums differ from the replaced path: {what}")
+    else:
+        tol = ({"rtol": 2e-2, "atol": idx.shape[2] * 2.0 ** -7} if store == torch.bfloat16
+               else {"rtol": 2e-6, "atol": 1e-6})
+        torch.testing.assert_close(got.float(), tiers.float(), **tol,
+                                   msg=lambda m: f"bags against the replaced path, {what}: {m}")
+    return (got.float() - want.float()).abs().max().item()
+
+
+def _take_columns(cfg):
+    """The config-order columns of the take tier's tables."""
+    return [j for j, t in enumerate(cfg.tables)
+            if t.rows > max(cfg.onehot_max, cfg.onehot_factor_max)]
+
+
+def _cli_serve_bags(cfg, L, n_batches):
+    """``cli serve --bag-l`` in a thread and ``cli loadgen --bag-l
+    --read-scores`` against it over loopback, both through ``cli.main``;
+    returns their output and the launch counts of the run."""
+    port = _free_port()
+    common = ["--config", cfg.name, "--batch", str(B_SERVE), "--bag-l", str(L),
+              "--batches", str(n_batches), "--port", str(port)]
+    buf = io.StringIO()
+    errors = []
+
+    def run():
+        try:
+            cli.main(["serve", *common, "--device", "cuda", "--reply", "--slots", "4"])
+        except BaseException as e:  # noqa: BLE001 (reported below)
+            errors.append(e)
+
+    with contextlib.redirect_stdout(buf):
+        for k in KERNELS:
+            k.launches = 0
+        th = threading.Thread(target=run, daemon=True)
+        th.start()
+        # the server builds the model first: wait for its banner, as a
+        # client that keys its connect off it
+        deadline = time.time() + 300
+        while "serving " not in buf.getvalue() and th.is_alive() and time.time() < deadline:
+            time.sleep(0.1)
+        if "serving " in buf.getvalue():
+            cli.main(["loadgen", *common, "--read-scores"])
+        th.join(300)
+    launches = {k.__name__: k.launches for k in KERNELS}
+    if th.is_alive() or errors:
+        raise AssertionError(f"cli serve --bag-l did not finish: {errors}")
+    return buf.getvalue(), launches
+
+
+def phase_bags(dev, model1, tabs, ws, models):
+    """Pooled bags on the card.  (1) ``lookup_fused_bags`` by check_bags on
+    phase 4's model1 (full rows, pm1), B = B_TIME and B_SERVE, L = BAG_L
+    and 1, sum and mean, int32 and int64 ids; on model3 (int8, take tables
+    at 1M rows), the criteo-shaped config (bfloat16, the element path) and
+    micro_test's QR variant at L = BAG_L_SMALL; bags_with_bad's ids: random
+    prefixes with empty bags, an empty row, ids below -1, out-of-range take
+    and class ids, a hole before a bag's members.  L = 1 on non-negative
+    ids bit-equal to ``lookup_fused``, features and flags.  (2) model1's
+    pooled forward at B = B_TIME, L = BAG_L: sum pooling bit-equal to the
+    float64 oracle (pm1 sums through the all-ones tower are integers times a
+    power of two); mean within rtol 1e-5 and atol feature_dim * 2^-24 *
+    max|oracle| (the tower's first layer adds feature_dim non-integer
+    features in float32, one rounding an add, and the layers after it
+    multiply that sum by 2^27, so the absolute term follows the scores);
+    NaN on exactly the rows with a bad take id, a negative id
+    poisoning nothing; 1 lookup_fused_bags, 0 lookup_fused, 0 gathers and 1
+    fused_mlp a forward; bit-equal to the same forward composed from the
+    plain versions.  (3) served: ``serve()`` with bag_L = BAG_L, N_SERVE
+    batches x B_SERVE over loopback, and once with fuse = 2, replies
+    bit-equal to direct ``forward_pooled`` calls; ``cli serve --bag-l`` and
+    ``cli loadgen --bag-l`` against each other; a dot config refused.
+    Returns the worst error against the plain version and the served run's
+    launch counts."""
+    t0 = time.time()
+    rng = np.random.default_rng(12)
+    worst, notes = 0.0, []
+    cfg1 = model1.cfg
+    with torch.inference_mode():
+        cases = [("fleetrec_model1", (cfg1, model1), B, L) for B in (B_TIME, B_SERVE)
+                 for L in (BAG_L, 1)]
+        cases += [(name, models[name], B_TIME, BAG_L_SMALL)
+                  for name in ("fleetrec_model3", "criteo_terabyte", "qr")]
+        n_checks = 0
+        for name, (cfg, model), B, L in cases:
+            ids = bags_with_bad(cfg, B, L, rng)
+            dense = _dense(model.layout.dense_dim, B, rng, dev)
+            for idt in (torch.int32, torch.int64):
+                idx = torch.from_numpy(ids).to(dev, idt)
+                for mean in (False, True):
+                    worst = max(worst, check_bags(model, idx, dense, mean,
+                                                  f"{name} B={B} L={L} {idt} mean={mean}"))
+                    n_checks += 1
+            if L != 1:
+                continue
+            single = torch.from_numpy(ids_with_bad(cfg, B, rng)).clamp(min=0).to(dev)
+            one, one_bad = model.lookup(single, dense)
+            for mean in (False, True):
+                got, bad = model.lookup_pooled(single[:, :, None].contiguous(), dense, mean)
+                same_bad = (bad is None and one_bad is None) or torch.equal(bad, one_bad)
+                if not torch.equal(bits(got), bits(one)) or not same_bad:
+                    raise AssertionError(f"L = 1 differs from lookup_fused: {name} B={B}")
+        notes.append(f"(1) lookup_fused_bags bit-equal to its plain version and within "
+                     f"tolerance of the replaced path in {n_checks} checks: model1 full rows "
+                     f"B={B_TIME} / {B_SERVE} x L={BAG_L} / 1, model3 (int8), criteo-shaped "
+                     f"(bf16, element path) and the QR variant at B={B_TIME} L={BAG_L_SMALL}, "
+                     f"each int32 / int64 ids x sum / mean, with padding, empty bags, ids "
+                     f"below -1 and out-of-range ids; L=1 == lookup_fused (max_abs_err {worst})")
+
+        idx, _ = make_bags(cfg1, B_TIME, BAG_L, seed=13, all_empty_row=3)
+        idx_t = torch.from_numpy(idx).to(dev)
+        scores, launches = _counted(lambda: model1.forward_pooled(idx_t))
+        if launches != _launches(mlp=1, bags=1):
+            raise AssertionError(f"launches a pooled forward {launches}, want 1 "
+                                 f"lookup_fused_bags, 1 fused_mlp")
+        golden = pooled_oracle(cfg1, tabs, ws, idx, None)
+        if not np.array_equal(scores.cpu().numpy(), golden.astype(np.float32)):
+            raise AssertionError("pooled model1 pm1/ones scores are not bit-equal to the oracle")
+        with plain_kernels():
+            plain, plain_launches = _counted(lambda: model1.forward_pooled(idx_t))
+        if plain_launches != _launches() or not torch.equal(scores, plain):
+            raise AssertionError(f"the pooled forward differs from its plain composition "
+                                 f"(which launched {plain_launches})")
+        s_mean = model1.forward_pooled(idx_t, mean=True).cpu().numpy()
+        g_mean = pooled_oracle(cfg1, tabs, ws, idx, None, mean=True)
+        np.testing.assert_allclose(s_mean, g_mean, rtol=1e-5,
+                                   atol=cfg1.feature_dim * 2.0 ** -24 * np.abs(g_mean).max())
+        err_mean = float(np.abs(s_mean - g_mean).max() / np.abs(g_mean).max())
+        bad = idx.copy()
+        take_cols = _take_columns(cfg1)
+        bad[5, take_cols[-1], 2] = cfg1.tables[take_cols[-1]].rows
+        bad[9, take_cols[0], 0] = 2**31 - 1
+        bad[11, take_cols[0], 0] = -7  # padding: one member fewer, no poison
+        sb = model1.forward_pooled(torch.from_numpy(bad).to(dev)).cpu().numpy()
+        nan_rows = np.flatnonzero(np.isnan(sb)).tolist()
+        keep = np.delete(np.arange(B_TIME), [5, 9, 11])
+        if nan_rows != [5, 9] or not np.array_equal(sb[keep], scores.cpu().numpy()[keep]):
+            raise AssertionError(f"pooled bad-id poison rows {nan_rows}, want [5, 9]")
+        notes.append(f"(2) model1 pooled forward, full rows, pm1 / all-ones, B={B_TIME} "
+                     f"L={BAG_L}: sum bit-equal to the float64 oracle and to its plain "
+                     f"composition; mean within rtol 1e-5 / atol {cfg1.feature_dim} * 2^-24 * "
+                     f"max|oracle| (max err "
+                     f"{err_mean:.3g} of max|oracle|); bad take ids -> NaN rows {nan_rows}, a "
+                     f"negative id none; launches a forward {launches}")
+
+    cfg = C.fleetrec_model1(batch_size=B_SERVE)
+    batches = [make_bags(cfg, B_SERVE, BAG_L, seed=14 + k) for k in range(N_SERVE)]
+    runs = {}
+    for fuse in (1, 2):
+        served, runs[fuse], summary = serve_loopback(cfg, model1, batches, bag_L=BAG_L,
+                                                     fuse=fuse)
+        with torch.inference_mode():
+            for k, (i, _) in enumerate(batches):
+                direct = model1.forward_pooled(torch.from_numpy(i).to(dev))
+                if not np.array_equal(served[k], direct.cpu().numpy()):
+                    raise AssertionError(f"served bag batch {k} (fuse {fuse}) differs from a "
+                                         f"direct forward_pooled")
+        if runs[fuse] != _launches(mlp=N_SERVE // fuse, bags=N_SERVE // fuse):
+            raise AssertionError(f"bag serve launches (fuse {fuse}) {runs[fuse]}")
+        if summary["wire_batches"] != N_SERVE or summary["fuse"] != fuse:
+            raise AssertionError(f"bag serve summary {summary}")
+    text, cli_launches = _cli_serve_bags(cfg, BAG_L, N_SERVE)
+    for line in text.strip().splitlines():
+        log(line)
+    if (f"scores received: {N_SERVE * B_SERVE}" not in text
+            or f'"wire_batches": {N_SERVE}' not in text
+            or cli_launches != _launches(mlp=N_SERVE, bags=N_SERVE)):
+        raise AssertionError(f"cli serve / loadgen --bag-l: launches {cli_launches}")
+    dcfg, dmodel = models["dlrm_terabyte"]
+    for refused in (lambda: ServingEngine.from_model(dmodel, batch_size=B_SERVE, bag_L=BAG_L),
+                    lambda: dmodel.forward_pooled(torch.zeros(
+                        (8, dcfg.num_tables, BAG_L), dtype=torch.int32, device=dev))):
+        try:
+            refused()
+        except ValueError as e:
+            if "interaction" not in str(e):
+                raise
+        else:
+            raise AssertionError("a dot config was not refused pooled bags")
+    notes.append(f"(3) serve() with bag_L={BAG_L}: {N_SERVE} batches x {B_SERVE} of bags over "
+                 f"loopback, replies bit-equal to direct forward_pooled calls, launches "
+                 f"{runs[1]}; with fuse=2 {runs[2]}; cli serve --bag-l {BAG_L} against cli "
+                 f"loadgen --bag-l {BAG_L} --read-scores: {N_SERVE * B_SERVE} scores, launches "
+                 f"{cli_launches}; dlrm_terabyte (dot) refused")
+    log(f"phase 10 bags ({time.time() - t0:.1f}s): " + "; ".join(notes))
+    return worst, runs[1]
 
 
 def _ms(fn, iters: int = 20) -> float:
@@ -1158,15 +1457,17 @@ def gather_bytes(table, idx) -> int:
 
 
 def lookup_bytes(model, idx, dense) -> int:
-    """Bytes the fused lookup must move, each counted once: its ids and
-    descriptors, the distinct table rows these ids read (a (buffer, row)
-    pair once), the dense features, the features and the flags it writes."""
+    """Bytes the fused lookup must move, each counted once: its ids
+    ([B, T], or bags [B, T, L]) and descriptors, the distinct table rows
+    these ids read (a (buffer, row) pair once), the dense features, the
+    features and the flags it writes."""
     ops = model.lookup_operands()
     cols = ops["cols"]
     off, _ = lookup_offsets_plain(idx, cols, ops["stripes"], ops["stripe_height"])
     read = off >= 0
-    buf = cols[:, LOOKUP_COL_FIELDS.index("buf")].expand_as(off)[read]
-    dim = cols[:, LOOKUP_COL_FIELDS.index("dim")].expand_as(off)[read]
+    per_col = (-1, 1) if idx.dim() == 3 else (-1,)  # a plan column's field, over its slots
+    buf = cols[:, LOOKUP_COL_FIELDS.index("buf")].view(per_col).expand_as(off)[read]
+    dim = cols[:, LOOKUP_COL_FIELDS.index("dim")].view(per_col).expand_as(off)[read]
     rows = torch.unique(torch.stack([buf, off[read], dim], 1), dim=0)
     B, F = idx.shape[0], ops["pos"].shape[0]
     out = torch.empty((), dtype=lookup_out_dtype(ops["bufs"])).element_size()
@@ -1309,11 +1610,38 @@ def phase_report(cfg, model, dev, gb, lookups):
                           f"{lcfg.num_tables} tables ({lcfg.table_dtype}), "
                           f"{m.layout.feature_dim} wide, dense {m.layout.dense_dim}, int32 ids, "
                           f"{nbytes} B counted once", None, bound(nbytes), replaced))
+        # the bag lookups: bags as loadgen --bag-l draws them (a prefix of
+        # 1 .. L members), beside the path the kernel replaced and the same
+        # kernel with every id 0 (every slot a member reading one cached row)
+        for name, B, L in [("fleetrec_model1", B, L) for B in (B_TIME, 1024) for L in BAG_LS
+                           ] + [("fleetrec_model3", B_TIME, BAG_L_SMALL)]:
+            lcfg, m = lookups[name]
+            ids = torch.from_numpy(make_bags(lcfg, B, L, seed=15 + L)[0]).to(dev)
+            dense = _dense(m.layout.dense_dim, B, rng, dev)
+            nbytes = lookup_bytes(m, ids, dense)
+            members = int((ids >= 0).sum())
+
+            def replaced(m=m, ids=ids, dense=dense):
+                gi = plan_bags(m, ids)
+                return pooled_lookup_concat(m.packed, gi, dense), pooled_bad_rows(m, gi)
+
+            label = f"lookup_fused_bags {name} B={B} L={L}"
+            ids0[label] = functools.partial(m.lookup_pooled, torch.zeros_like(ids), dense)
+            cases.append((label, functools.partial(m.lookup_pooled, ids, dense),
+                          functools.partial(lookup_fused_bags_plain, ids, dense,
+                                            **m.lookup_operands()),
+                          f"{lcfg.num_tables} tables ({lcfg.table_dtype}), "
+                          f"{m.layout.feature_dim} wide, dense {m.layout.dense_dim}, int32 ids, "
+                          f"sum pooling, {members} members in {B * lcfg.num_tables} bags, "
+                          f"{nbytes} B counted once", None, bound(nbytes), replaced))
         d_idx = torch.from_numpy(_rand_ids(dcfg, B_TIME, rng)).to(dev)
         d_dense = _dense(dcfg.dense_dim, B_TIME, rng, dev)
+        bag_idx = torch.from_numpy(make_bags(cfg, B_TIME, BAG_L, seed=16)[0]).to(dev)
         fwds = {}
         for B in (1024, B_TIME):
             fwds["model1", B] = functools.partial(model, idx[:B].contiguous())
+            fwds[f"model1 pooled L={BAG_L}", B] = functools.partial(
+                model.forward_pooled, bag_idx[:B].contiguous())
             fwds["dlrm_terabyte", B] = functools.partial(
                 dmodel, d_idx[:B].contiguous(), d_dense[:B].contiguous())
 
@@ -1381,7 +1709,7 @@ def phase_report(cfg, model, dev, gb, lookups):
             for kname, ms in rows[:8]:
                 log(f"  device time per forward B={B}: {ms:.4f} ms  {kname[:80]}")
             mlp_ms = sum(ms for kname, ms in rows if any(k in kname for k in MLP_KERNELS))
-            if name == "model1":
+            if name.startswith("model1"):
                 log(f"  fused_mlp kernels per forward B={B}: {mlp_ms:.4f} ms (profiler; alone "
                     f"over graph replays: {graphed[f'fused_mlp fp32 model1 B={B}'][0]:.4f} ms)")
             else:
@@ -1426,6 +1754,7 @@ def main() -> int:
     phase_feature(dev)
     err_dlrm, dlrm_launches = phase_heads(dev, dlrm)
     del dlrm  # the host tables; the model stays in lookups
+    err_bags, bag_launches = phase_bags(dev, model, tabs, ws, lookups)
     stats = phase_report(cfg, model, dev, gb, lookups)
     tiers, gb_a = stats["gather_rows all tiers"], stats["gather_rows gatherbench shape"]
     mlp, mlp_bf = stats[f"fused_mlp fp32 model1 B={B_TIME}"], stats[f"fused_mlp bf16 model1 B={B_TIME}"]
@@ -1471,6 +1800,20 @@ def main() -> int:
          "ms_ids0_model3": stats[f"lookup_fused fleetrec_model3 B={B_TIME}"]["ms_ids0"],
          "launches_dlrm_serve": dlrm_launches["lookup_fused"],
          **{f"{k}_dlrm": stats[f"lookup_fused dlrm_terabyte B={B_TIME}"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "replaced_ms", "ms_ids0")}},
+        # the bag form of the fused lookup: launches of the served pooled run
+        # (bag_L = BAG_L, one a batch); the top-level times are model1's at
+        # B_TIME and BAG_L; no one PyTorch call computes it (embedding_bag
+        # pools one table of one dtype, with no QR, int8, stripes or layout)
+        {"name": "lookup_fused_bags", "route": "cuda",
+         "source": "fleetrec_tpu_torch/ops/csrc/lookup_fused.cu",
+         "replaces": "fleetrec_tpu/ops/gather_pallas.py:182",
+         "launches": bag_launches["lookup_fused_bags"], "max_abs_err": err_bags,
+         **stats[f"lookup_fused_bags fleetrec_model1 B={B_TIME} L={BAG_L}"],
+         **{f"{k}_{tag}": stats[label][k]
+            for tag, label in [(f"b{B}_l{L}", f"lookup_fused_bags fleetrec_model1 B={B} L={L}")
+                               for B in (B_TIME, 1024) for L in BAG_LS]
+            + [("model3", f"lookup_fused_bags fleetrec_model3 B={B_TIME} L={BAG_L_SMALL}")]
             for k in ("ms", "plain_ms", "bound_ms", "replaced_ms", "ms_ids0")}},
     ]}
     print(json.dumps(record), flush=True)

@@ -9,6 +9,8 @@
   python -m fleetrec_tpu_torch.cli netbench
   python -m fleetrec_tpu_torch.cli export  --config fleetrec_model1 --out m.npz
   python -m fleetrec_tpu_torch.cli bench   --config dlrm_terabyte --max-rows 1000000 --batch 4096
+  python -m fleetrec_tpu_torch.cli serve   --config fleetrec_model1 --batch 1024 --reply --bag-l 8
+  python -m fleetrec_tpu_torch.cli loadgen --config fleetrec_model1 --batch 1024 --read-scores --bag-l 8
 
 Every command that builds a model or times a kernel runs on ``--device``
 (default ``cuda``; nothing moves to the CPU when no card is found — pass
@@ -116,7 +118,10 @@ def cmd_serve(args):
     --senders 1 (default): one sender ships int32 ids [B, T] then float32
     dense [B, dense_dim].  --senders N > 1: the reference 3-node topology
     (serving/wire.py): sender 0 ships the dense slice, the others int32 ids
-    for contiguous config-order table ranges, on ports base..base+N-1."""
+    for contiguous config-order table ranges, on ports base..base+N-1.
+    --bag-l L: the ids are pooled bags, int32 [B, T, L] with -1 padding
+    (models/pooled.py), sum-pooled, or mean-pooled with --bag-mean; one
+    sender only, and no interaction head."""
     from .serving.compose import ServeSpec, serve
 
     cfg, model = _build(args)
@@ -125,7 +130,7 @@ def cmd_serve(args):
         slots=args.slots, senders=args.senders, fuse=args.fuse,
         bg_drain=args.bg_drain, reply=args.reply,
         scatter=tuple(args.scatter.split(",")) if args.scatter else (),
-        warm=args.warm,
+        warm=args.warm, bag_L=args.bag_l, bag_mean=args.bag_mean,
     )
     print(json.dumps(serve(cfg, model, spec)))
 
@@ -133,9 +138,15 @@ def cmd_serve(args):
 def cmd_loadgen(args):
     """Send synthetic index batches to a serve instance.  --senders N > 1
     emulates the reference's N-node sender fleet from one process: one TCP
-    connection per role, each streaming only its slice of every batch."""
+    connection per role, each streaming only its slice of every batch.
+    --bag-l L sends pooled bags [B, T, L] (match serve --bag-l): a prefix
+    of 1 .. L ids a bag, -1 after it; one sender only (the multi-sender
+    wire frames single ids)."""
     from .serving.wire import IndexWireFormat
 
+    if args.bag_l and args.senders > 1:
+        raise SystemExit("--bag-l: pooled bags go over a single-sender wire "
+                         "(--senders 1)")
     cfg = _make_cfg(args)
     B = args.batch
     rng = np.random.default_rng(args.seed)
@@ -148,7 +159,18 @@ def cmd_loadgen(args):
         return rng.integers(0, rows, B)
 
     def gen_batch():
-        idx = np.stack([draw(t.rows) for t in cfg.tables], 1).astype(np.int32)
+        if args.bag_l:
+            # pooled bags: random valid prefix lengths in [1, L], -1 padding
+            L = args.bag_l
+            idx = np.full((B, cfg.num_tables, L), -1, np.int32)
+            for j, t in enumerate(cfg.tables):
+                lens = rng.integers(1, L + 1, B)
+                for l in range(L):
+                    rowv = draw(t.rows)
+                    take = lens > l
+                    idx[take, j, l] = rowv[take]
+        else:
+            idx = np.stack([draw(t.rows) for t in cfg.tables], 1).astype(np.int32)
         dense = (rng.uniform(-1, 1, (B, cfg.dense_dim)).astype(np.float32)
                  if cfg.dense_dim else None)
         return idx, dense
@@ -512,6 +534,12 @@ def main(argv=None):
                    help="run the scoring path once on dummy data before "
                    "accepting traffic (kernel builds stay out of the "
                    "latency records)")
+    s.add_argument("--bag-l", type=int, default=0,
+                   help="pooled bag serving: slots carry int32 [B, T, L] "
+                   "multi-hot bags (-1 padding) pooled on the device "
+                   "(models/pooled.py; single sender, no interaction head)")
+    s.add_argument("--bag-mean", action="store_true",
+                   help="mean pooling instead of sum (with --bag-l)")
     s.set_defaults(fn=cmd_serve)
 
     s = sub.add_parser("loadgen", parents=[common])
@@ -528,6 +556,9 @@ def main(argv=None):
     s.add_argument("--qps", type=float, default=0,
                    help="offered load in queries/s (paced open-loop); "
                    "0 = send as fast as TCP accepts")
+    s.add_argument("--bag-l", type=int, default=0,
+                   help="send pooled [B, T, L] bags (match serve --bag-l; "
+                   "single sender only)")
     s.set_defaults(fn=cmd_loadgen)
 
     s = sub.add_parser("bench", parents=[common, device])

@@ -12,7 +12,9 @@ head (``mlp_apply``, the fused-MLP kernel; a DCNv2 cross network before it,
 or the DLRM ``interaction_head``: bottom tower, pairwise dots, top tower)
 and the NaN poison.  ``plan_indices``, ``bad_take_rows`` and
 ``lookup_concat`` (one gather a tier) stay as the ports of the JAX
-functions that ``lookup`` computes.
+functions that ``lookup`` computes.  ``lookup_pooled`` / ``forward_pooled``
+are the same for multi-hot bags ``[B, num_tables, L]`` (``models/pooled.py``):
+one ``lookup_fused_bags`` launch, then the tower.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from .embedding import (
 )
 from .interaction import cross_network, dot_interaction, init_cross_params, pair_columns
 from .mlp import init_mlp_params, mlp_apply
-from ..ops.lookup import lookup_fused
+from ..ops.lookup import lookup_fused, lookup_fused_bags
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,10 +208,11 @@ class FleetRecModel(nn.Module):
                     with_bad=bool(lay.take_groups))
 
     def _check_inputs(self, indices: torch.Tensor, dense: Optional[torch.Tensor],
-                      dense_dim: int) -> None:
+                      dense_dim: int, bags: bool = False) -> None:
         n = self.cfg.num_tables
-        if indices.dim() != 2 or indices.shape[1] != n:
-            raise ValueError(f"indices must be [B, {n}], got {tuple(indices.shape)}")
+        if indices.dim() != 2 + bags or indices.shape[1] != n:
+            raise ValueError(f"indices must be [B, {n}{', L' if bags else ''}], got "
+                             f"{tuple(indices.shape)}")
         if dense_dim and (dense is None
                           or tuple(dense.shape) != (indices.shape[0], dense_dim)):
             raise ValueError(
@@ -252,6 +255,46 @@ class FleetRecModel(nn.Module):
             x = cross_network(x, self.cross_weights)
         scores = mlp_apply(self.mlp_weights, x, activation=cfg.mlp.activation)
         return self.poison_scores(scores[:, 0], bad)
+
+
+    def lookup_pooled(self, indices: torch.Tensor, dense: Optional[torch.Tensor] = None,
+                      mean: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Config-order bag ids [B, num_tables, L] (int32 or int64; a
+        negative id is padding) and the dense tail -> (pooled features [B,
+        layout.feature_dim], bad [B] bool or None):
+        ``pooled_lookup_concat(packed, plan_bags(indices), dense, mean)``
+        and ``pooled_bad_rows`` (``models/pooled.py``), by one
+        ``lookup_fused_bags`` call."""
+        self._check_inputs(indices, dense, self.layout.dense_dim, bags=True)
+        return lookup_fused_bags(indices, dense if self.layout.dense_dim else None,
+                                 mean=mean, **self.lookup_operands())
+
+    def forward_pooled(self, indices: torch.Tensor, dense: Optional[torch.Tensor] = None,
+                       mean: bool = False) -> torch.Tensor:
+        """indices: [B, num_tables, L] bags in config table order, a
+        negative id marking an empty slot; dense: [B, dense_dim].  Each
+        table's bag is sum-pooled (``mean``: mean-pooled over its
+        non-negative slots; an empty bag gives zeros).  Returns scores [B]
+        (float32).
+
+        A non-negative take id ``>=`` its table's rows poisons its row's
+        score with NaN; padding never does.  A config with an interaction
+        head raises: the JAX package's pooled forward runs the plain tower
+        whatever ``cfg.interaction`` says, which this port does not
+        repeat."""
+        cfg = self.cfg
+        check_pooled_config(cfg)
+        feats, bad = self.lookup_pooled(indices, dense, mean)
+        scores = mlp_apply(self.mlp_weights, feats.to(TORCH_DTYPES[cfg.dtype]),
+                           activation=cfg.mlp.activation)
+        return self.poison_scores(scores[:, 0], bad)
+
+
+def check_pooled_config(cfg: ModelConfig) -> None:
+    """Pooled bags feed the plain tower only."""
+    if cfg.interaction != "none":
+        raise ValueError(f"pooled bags are not defined for interaction "
+                         f"{cfg.interaction!r} ({cfg.name}): only for 'none'")
 
 
 def interaction_head(cfg: ModelConfig, model: FleetRecModel, emb_flat: torch.Tensor,

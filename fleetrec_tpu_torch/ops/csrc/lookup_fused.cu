@@ -51,6 +51,35 @@
 // `emb += ...` does; the dense tail rounds to the output type to nearest
 // even.  No atomics, no memset: every output element and flag is written
 // once.
+//
+// The bag kernel (lookup_bags_kernel, entry point fr_lookup_fused_bags) is the
+// same lookup for pooled bags, config-order ids [B, T, L] with a negative id
+// as padding: the features of pooled_lookup_concat(packed, plan_bags(ids),
+// dense, mean) and the flags of pooled_bad_rows, the port of
+// fleetrec_tpu/models/pooled.py, over the same descriptors.  One rule fixes
+// its arithmetic (ops/lookup.py::lookup_fused_bags_plain follows it to the
+// bit).  For each output element, walk the slots l = 0 .. L-1 in order.  A
+// slot whose source id is negative, or whose id after the QR split is not in
+// [0, lim), adds nothing; the second kind still counts as a member of the bag
+// and, on a take column, flags the row.  The first slot that adds starts the
+// sum with its element widened to float (float(q) * scale for int8); each
+// later one is added in float.  A bag in which no slot adds gives +0.  For
+// mean pooling the sum is multiplied by inv, the float 1 / count of the
+// column's non-negative slots (0 for an empty bag).  A QR quotient column
+// then adds its remainder column's pooled (and mean-scaled) value in float,
+// and the result is rounded once to the output type.  Every product and sum
+// is an _rn intrinsic, so none is contracted into a fused multiply-add.  L = 1
+// with no negative id gives the single-id kernel's bits.
+//
+// What bounds it: the random row reads, L of them an element.  Pass 1 gives a
+// thread each (row, plan column, slot): its address in shared memory (null
+// when the slot adds nothing), the bag's count by a shared-memory add (mean
+// only), a take id out of range the row's flag.  Pass 2 walks the output
+// chunks as the single-id kernel does; a thread keeps its chunk's sums in
+// registers and loads kSlots slots' words before it adds them, in order.  L
+// is an argument, bounded only by shared memory: 8 bytes a (row, plan column,
+// slot) and 4 a (row, plan column) on top of the descriptors, so a tile holds
+// fewer rows as L grows (ops/lookup.py::launch_shape).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,6 +99,7 @@ constexpr int kMaxBufs = 16;   // ops/lookup.py::MAX_BUFS
 constexpr int kThreads = 256;
 constexpr int kUnroll = 2;     // 16-byte chunks a thread loads before it stores
 constexpr int kUnrollOne = 4;  // elements, when the output moves element by element
+constexpr int kSlots = 4;      // bag slots a thread loads before it adds them
 // ops/lookup.py::SMEM_BYTES: a block's 227 KB less 1 KB for the static
 // s_buf / s_sc (the two limits are summed)
 constexpr int kSmemMax = 232448 - 1024;
@@ -126,6 +156,8 @@ struct Elem<float> {
   __device__ static Out value(Raw r, float) { return r; }
   __device__ static Out add(Raw a, Raw b, float, float) { return __fadd_rn(a, b); }
   __device__ static Out dense(float d) { return d; }
+  __device__ static float widen(Raw r, float) { return r; }
+  __device__ static Out round(float x) { return x; }
 };
 
 template <>
@@ -139,6 +171,10 @@ struct Elem<__nv_bfloat16> {
                                       __bfloat162float(__ushort_as_bfloat16(b)))));
   }
   __device__ static Out dense(float d) { return __bfloat16_as_ushort(__float2bfloat16_rn(d)); }
+  __device__ static float widen(Raw r, float) {
+    return __bfloat162float(__ushort_as_bfloat16(r));
+  }
+  __device__ static Out round(float x) { return __bfloat16_as_ushort(__float2bfloat16_rn(x)); }
 };
 
 template <>
@@ -150,6 +186,8 @@ struct Elem<int8_t> {
     return __fadd_rn(__fmul_rn((float)a, sa), __fmul_rn((float)b, sb));
   }
   __device__ static Out dense(float d) { return d; }
+  __device__ static float widen(Raw r, float s) { return __fmul_rn((float)r, s); }
+  __device__ static Out round(float x) { return x; }
 };
 
 // element o of a row, or 0 for a zero row (null)
@@ -185,6 +223,67 @@ __host__ __device__ constexpr int smem_bytes(int F, int n_plan, int rows) {
   // ops/lookup.py::smem_bytes: the output columns' descriptors (8 B), the
   // plan columns (Col), a row address a (row, plan column), a flag a row
   return 8 * F + (int)sizeof(Col) * n_plan + 8 * rows * n_plan + 4 * rows;
+}
+
+__host__ __device__ constexpr int smem_bytes_bags(int F, int n_plan, int rows, int L) {
+  // ops/lookup.py::smem_bytes with L: a row address a (row, plan column,
+  // slot), the bag's count (then its inverse) a (row, plan column)
+  return 8 * F + (int)sizeof(Col) * n_plan + 8 * rows * n_plan * L + 4 * rows * n_plan +
+         4 * rows;
+}
+
+// Stages the buffers' pointers, the output columns' descriptors and the plan
+// columns in shared memory; the caller synchronizes before it reads s_col.
+__device__ __forceinline__ void stage(const Buffers& bufs, const int64_t* __restrict__ cols,
+                                      const int2* __restrict__ pos, int n_plan, int F,
+                                      int2* s_pos, Col* s_col, const void** s_buf,
+                                      const float** s_sc) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < kMaxBufs; ++i) {
+      s_buf[i] = bufs.ptr[i];
+      s_sc[i] = bufs.scale[i];
+    }
+  }
+#pragma unroll 4
+  for (int p = threadIdx.x; p < F; p += kThreads) s_pos[p] = __ldg(pos + p);
+  __syncthreads();
+  for (int k = threadIdx.x; k < n_plan; k += kThreads) {
+    const int64_t* c = cols + (int64_t)k * kColFields;
+    const float* sc = s_sc[c[kBuf]];
+    Col col;
+    col.base = c[kBase];
+    col.lim = (int32_t)c[kLim];
+    col.src = (int32_t)c[kSrc];
+    col.rem = (int32_t)c[kRem];
+    col.s = (int32_t)c[kS];
+    col.dim = (int32_t)c[kDim];
+    col.scale = sc ? sc[c[kScale]] : 1.f;
+    col.op = (int16_t)c[kOp];
+    col.take = c[kKind] == kTake;
+    col.buf = (int16_t)c[kBuf];
+    col.pad = 0;
+    s_col[k] = col;
+  }
+}
+
+// The address of the row plan column c reads for the id x in [0, lim) (int64
+// offsets: a take buffer can pass 2^31 elements).
+template <typename TS>
+__device__ __forceinline__ const void* row_address(const Col& c, uint32_t x,
+                                                   const void* const* s_buf, uint32_t S,
+                                                   int64_t stripe_height) {
+  int64_t flat;
+  if (c.take) {
+    const uint32_t s = (uint32_t)c.s;
+    const uint32_t p = x / s, sub = x - p * s;
+    const int64_t phys =
+        c.base + (S > 1 ? (int64_t)(p % S) * stripe_height + p / S : (int64_t)p);
+    flat = phys * s + sub;
+  } else {
+    flat = c.base + x;
+  }
+  return static_cast<const TS*>(s_buf[c.buf]) + flat * c.dim;
 }
 
 // output column e of one batch row: its plan column's element (dequantized,
@@ -225,33 +324,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ const void* s_buf[kMaxBufs];
   __shared__ const float* s_sc[kMaxBufs];
 
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int i = 0; i < kMaxBufs; ++i) {
-      s_buf[i] = bufs.ptr[i];
-      s_sc[i] = bufs.scale[i];
-    }
-  }
-#pragma unroll 4
-  for (int p = threadIdx.x; p < F; p += kThreads) s_pos[p] = __ldg(pos + p);
-  __syncthreads();
-  for (int k = threadIdx.x; k < n_plan; k += kThreads) {
-    const int64_t* c = cols + (int64_t)k * kColFields;
-    const float* sc = s_sc[c[kBuf]];
-    Col col;
-    col.base = c[kBase];
-    col.lim = (int32_t)c[kLim];
-    col.src = (int32_t)c[kSrc];
-    col.rem = (int32_t)c[kRem];
-    col.s = (int32_t)c[kS];
-    col.dim = (int32_t)c[kDim];
-    col.scale = sc ? sc[c[kScale]] : 1.f;
-    col.op = (int16_t)c[kOp];
-    col.take = c[kKind] == kTake;
-    col.buf = (int16_t)c[kBuf];
-    col.pad = 0;
-    s_col[k] = col;
-  }
+  stage(bufs, cols, pos, n_plan, F, s_pos, s_col, s_buf, s_sc);
   const uint32_t S = (uint32_t)stripes;
   const int tiles = (B + rows - 1) / rows;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -272,17 +345,7 @@ __global__ void __launch_bounds__(kThreads)
       else if (c.op == kOpMod) id = floor_mod(id, c.rem);
       const void* row = nullptr;
       if (id >= 0 && id < c.lim) {  // then 0 <= id < 2^31
-        int64_t flat;
-        if (c.take) {
-          const uint32_t x = (uint32_t)id, s = (uint32_t)c.s;
-          const uint32_t p = x / s, sub = x - p * s;
-          const int64_t phys =
-              c.base + (S > 1 ? (int64_t)(p % S) * stripe_height + p / S : (int64_t)p);
-          flat = phys * s + sub;
-        } else {
-          flat = c.base + id;
-        }
-        row = static_cast<const TS*>(s_buf[c.buf]) + flat * c.dim;
+        row = row_address<TS>(c, (uint32_t)id, s_buf, S, stripe_height);
       } else if (c.take) {
         s_bad[r] = 1;
       }
@@ -400,6 +463,211 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// N neighbouring elements of a row (N > 1: one aligned word), zeros for null
+template <typename Raw, int N>
+__device__ __forceinline__ void load_elems(const void* row, int o, Raw (&x)[N]) {
+  if constexpr (N == 1) {
+    x[0] = load1<Raw>(row, o);
+  } else {
+    const Vec<Raw, N> w = loadn<Raw, N>(row, o);
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = w.v[i];
+  }
+}
+
+// The pooled value of N neighbouring elements of one plan column of one batch
+// row: its L slots' rows (`slot`; null: the slot adds nothing) summed in slot
+// order in float, the first that adds starting the sum (+0 when none adds),
+// times the bag's inverse count when `inv` is given.  kSlots slots' loads are
+// in flight before the first is added.
+template <typename E, int N>
+__device__ __forceinline__ void pool(const void* const* slot, int L, int o, float scale,
+                                     const float* inv, float (&acc)[N]) {
+  using Raw = typename E::Raw;
+  bool some = false;
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = 0.f;
+  for (int l0 = 0; l0 < L; l0 += kSlots) {
+    const void* row[kSlots];
+    Raw x[kSlots][N];
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      row[j] = l0 + j < L ? slot[l0 + j] : nullptr;
+      load_elems<Raw, N>(row[j], o, x[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      if (row[j] == nullptr) continue;
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const float w = E::widen(x[j][i], scale);
+        acc[i] = some ? __fadd_rn(acc[i], w) : w;
+      }
+      some = true;
+    }
+  }
+  if (inv != nullptr) {
+    const float f = *inv;
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc[i] = __fmul_rn(acc[i], f);
+  }
+}
+
+// N neighbouring output columns of one batch row that read plan column `col`
+// (>= 0) at offset o, the QR remainder column `add` (or -1) added: pooled, and
+// rounded once.  rp: the row's slot addresses [n_plan][L]; inv: its inverse
+// counts [n_plan], or null for sum pooling.
+template <typename E, int N>
+__device__ __forceinline__ void pooled_columns(const void* const* rp, const Col* s_col,
+                                               const float* inv, int L, int col, int add,
+                                               int o, typename E::Out (&v)[N]) {
+  float a[N];
+  pool<E, N>(rp + col * L, L, o, s_col[col].scale, inv ? inv + col : nullptr, a);
+  if (add >= 0) {
+    float b[N];
+    pool<E, N>(rp + add * L, L, o, s_col[add].scale, inv ? inv + add : nullptr, b);
+#pragma unroll
+    for (int i = 0; i < N; ++i) a[i] = __fadd_rn(a[i], b[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = E::round(a[i]);
+}
+
+// output column e of one batch row of bags: pooled, its dense element, or 0
+template <typename E>
+__device__ __forceinline__ typename E::Out element_bags(const void* const* rp,
+                                                        const Col* s_col, const float* inv,
+                                                        int L, int2 e,
+                                                        const float* dense_row) {
+  const int col = (short)(e.x & 0xFFFF), add = e.x >> 16;  // low half sign-extended
+  const int o = e.y & kOffMask;
+  if (col >= 0) {
+    typename E::Out v[1];
+    pooled_columns<E, 1>(rp, s_col, inv, L, col, add, o, v);
+    return v[0];
+  }
+  if (col == kPosDense) return E::dense(__ldg(dense_row + o));
+  return typename E::Out(0);
+}
+
+// The bag kernel: ids [B, T, L], a negative id padding.  VEC as above.
+template <typename TS, typename I, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    lookup_bags_kernel(Buffers bufs, const I* __restrict__ ids,
+                       const float* __restrict__ dense, const int64_t* __restrict__ cols,
+                       const int2* __restrict__ pos, typename Elem<TS>::Out* __restrict__ out,
+                       bool* __restrict__ bad, int B, int T, int L, int n_plan, int F,
+                       int dense_dim, int rows, int mean, int64_t stripes,
+                       int64_t stripe_height) {
+  using E = Elem<TS>;
+  using Out = typename E::Out;
+  constexpr int kV = 16 / sizeof(Out);  // output columns a 16-byte chunk
+  constexpr int kVecBit = kV == 4 ? kVec4 : kVec8;
+  const int per_row = n_plan * L;  // slot addresses a batch row
+  extern __shared__ __align__(16) unsigned char smem[];
+  int2* s_pos = reinterpret_cast<int2*>(smem);
+  Col* s_col = reinterpret_cast<Col*>(s_pos + F);
+  const void** s_row = reinterpret_cast<const void**>(s_col + n_plan);
+  int* s_cnt = reinterpret_cast<int*>(s_row + rows * per_row);  // then s_inv
+  float* s_inv = reinterpret_cast<float*>(s_cnt);
+  int* s_bad = s_cnt + rows * n_plan;
+  __shared__ const void* s_buf[kMaxBufs];
+  __shared__ const float* s_sc[kMaxBufs];
+
+  stage(bufs, cols, pos, n_plan, F, s_pos, s_col, s_buf, s_sc);
+  const uint32_t S = (uint32_t)stripes;
+  const int tiles = (B + rows - 1) / rows;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int b0 = tile * rows;
+    const int nr = min(rows, B - b0);
+    __syncthreads();  // s_col is staged; the last tile is done with s_row, s_inv, s_bad
+    for (int r = threadIdx.x; r < nr; r += kThreads) s_bad[r] = 0;
+    if (mean)
+      for (int i = threadIdx.x; i < nr * n_plan; i += kThreads) s_cnt[i] = 0;
+    __syncthreads();
+
+    // pass 1: a row address a (row, plan column, slot), null where the slot
+    // adds nothing; the bags' counts; flags of bad take ids
+    const I* tile_ids = ids + (int64_t)b0 * T * L;
+#pragma unroll 2
+    for (int u = threadIdx.x; u < nr * per_row; u += kThreads) {
+      const int r = u / per_row;
+      const int k = (u - r * per_row) / L;
+      const int l = u - r * per_row - k * L;
+      const Col& c = s_col[k];
+      int64_t id = (int64_t)tile_ids[((int64_t)r * T + c.src) * L + l];
+      const void* row = nullptr;
+      if (id >= 0) {  // a member of the bag: the QR split of an id >= 0 is >= 0
+        if (mean) atomicAdd(&s_cnt[r * n_plan + k], 1);
+        if (c.op == kOpDiv) id /= c.rem;
+        else if (c.op == kOpMod) id %= c.rem;
+        if (id < c.lim) row = row_address<TS>(c, (uint32_t)id, s_buf, S, stripe_height);
+        else if (c.take) s_bad[r] = 1;
+      }
+      s_row[u] = row;
+    }
+    __syncthreads();
+    if (bad != nullptr)
+      for (int r = threadIdx.x; r < nr; r += kThreads) bad[b0 + r] = s_bad[r] != 0;
+    if (mean) {  // each count becomes its inverse, in place
+      for (int i = threadIdx.x; i < nr * n_plan; i += kThreads) {
+        const int n = s_cnt[i];
+        s_inv[i] = n > 0 ? __fdiv_rn(1.f, (float)n) : 0.f;
+      }
+      __syncthreads();
+    }
+
+    // pass 2: the tile's output in order, each thread its chunk's L slots
+    Out* tile_out = out + (int64_t)b0 * F;
+    const float* tile_dense = dense + (int64_t)b0 * dense_dim;
+    if constexpr (VEC) {  // chunks of kV columns
+      const int chunks = F / kV, total = nr * chunks;
+      for (int u = threadIdx.x; u < total; u += kThreads) {
+        const int r = u / chunks;
+        const int p0 = (u - r * chunks) * kV;
+        const int2 q = s_pos[p0];
+        const void* const* rp = s_row + r * per_row;
+        const float* inv = mean ? s_inv + r * n_plan : nullptr;
+        const float* dense_row = tile_dense + (int64_t)r * dense_dim;
+        Out* dst = tile_out + (int64_t)r * F + p0;
+        if (q.y & kVecBit) {  // one aligned run of one source
+          const int col = (short)(q.x & 0xFFFF), add = q.x >> 16;
+          const int o = q.y & kOffMask;
+          Vec<Out, kV> v;
+          if (col >= 0) {
+            pooled_columns<E, kV>(rp, s_col, inv, L, col, add, o, v.v);
+          } else if (col == kPosDense) {
+            const float4* run = reinterpret_cast<const float4*>(dense_row + o);
+#pragma unroll
+            for (int h = 0; h < kV / 4; ++h) {
+              const float4 d = __ldg(run + h);
+              v.v[4 * h] = E::dense(d.x);
+              v.v[4 * h + 1] = E::dense(d.y);
+              v.v[4 * h + 2] = E::dense(d.z);
+              v.v[4 * h + 3] = E::dense(d.w);
+            }
+          } else {
+#pragma unroll
+            for (int i = 0; i < kV; ++i) v.v[i] = Out(0);
+          }
+          *reinterpret_cast<int4*>(dst) = v.w;
+        } else {
+          for (int i = 0; i < kV; ++i)
+            dst[i] = element_bags<E>(rp, s_col, inv, L, s_pos[p0 + i], dense_row);
+        }
+      }
+    } else {  // element by element
+      const int total = nr * F;
+      for (int u = threadIdx.x; u < total; u += kThreads) {
+        const int r = u / F;
+        tile_out[u] = element_bags<E>(s_row + r * per_row, s_col,
+                                      mean ? s_inv + r * n_plan : nullptr, L,
+                                      s_pos[u - r * F], tile_dense + (int64_t)r * dense_dim);
+      }
+    }
+  }
+}
+
 // Raises the kernel's dynamic shared-memory limit to the block's maximum,
 // once per device: `done` holds one bit a device.
 template <typename Kernel>
@@ -420,6 +688,7 @@ struct Args {
   void *out, *bad;
   int B, T, n_plan, F, dense_dim, rows, grid, vec;
   int64_t stripes, stripe_height;
+  int L, mean;  // the bag kernel's
 };
 
 template <typename TS, typename I, bool VEC>
@@ -435,33 +704,48 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename TS>
-cudaError_t launch_ids(int ids_64, const Args& a, cudaStream_t st) {
-  if (a.vec) return ids_64 ? launch<TS, int64_t, true>(a, st) : launch<TS, int32_t, true>(a, st);
-  return ids_64 ? launch<TS, int64_t, false>(a, st) : launch<TS, int32_t, false>(a, st);
+template <typename TS, typename I, bool VEC>
+cudaError_t launch_bags(const Args& a, cudaStream_t st) {
+  static unsigned long long smem_set = 0;
+  cudaError_t err = allow_smem(lookup_bags_kernel<TS, I, VEC>, smem_set);
+  if (err != cudaSuccess) return err;
+  lookup_bags_kernel<TS, I, VEC>
+      <<<a.grid, kThreads, smem_bytes_bags(a.F, a.n_plan, a.rows, a.L), st>>>(
+          a.bufs, static_cast<const I*>(a.ids), static_cast<const float*>(a.dense),
+          static_cast<const int64_t*>(a.cols), static_cast<const int2*>(a.pos),
+          static_cast<typename Elem<TS>::Out*>(a.out), static_cast<bool*>(a.bad), a.B, a.T,
+          a.L, a.n_plan, a.F, a.dense_dim, a.rows, a.mean, a.stripes, a.stripe_height);
+  return cudaGetLastError();
 }
 
-}  // namespace
+// a.L == 0: the single-id kernel; else the bag kernel
+template <typename TS, typename I, bool VEC>
+cudaError_t launch_kind(const Args& a, cudaStream_t st) {
+  return a.L ? launch_bags<TS, I, VEC>(a, st) : launch<TS, I, VEC>(a, st);
+}
 
-// One launch on `stream`.  bufs / scales: n_bufs pointers (the class buffers,
-// then the take buffer; scales only for int8 storage, else null); storage: 0
-// float32, 1 bfloat16, 2 int8; ids [B, T] int32 (ids_64 = 0) or int64;
-// dense [B, dense_dim] float32 or null; cols / pos: lookup_tensors'
-// descriptors; out [B, F] (float32 for int8 storage); bad [B] bool or null.
-// rows: batch rows a tile; grid: blocks (ops/lookup.py::launch_shape); vec:
-// chunks of 16 output bytes may move as words (F a multiple of the chunk,
-// every buffer, dense and out 16-byte aligned).
-extern "C" int fr_lookup_fused(const void* const* bufs, const void* const* scales,
-                               int n_bufs, int storage, const void* ids, int ids_64,
-                               const void* dense, const void* cols, const void* pos,
-                               void* out, void* bad, int64_t B, int T, int n_plan, int F,
-                               int dense_dim, int rows, int grid, int64_t stripes,
-                               int64_t stripe_height, int vec, void* stream) {
+template <typename TS>
+cudaError_t launch_ids(int ids_64, const Args& a, cudaStream_t st) {
+  if (a.vec)
+    return ids_64 ? launch_kind<TS, int64_t, true>(a, st)
+                  : launch_kind<TS, int32_t, true>(a, st);
+  return ids_64 ? launch_kind<TS, int64_t, false>(a, st)
+                : launch_kind<TS, int32_t, false>(a, st);
+}
+
+// Checks the arguments the two entry points share (L == 0: the single-id
+// kernel) and launches.
+int run(const void* const* bufs, const void* const* scales, int n_bufs, int storage,
+        const void* ids, int ids_64, const void* dense, const void* cols, const void* pos,
+        void* out, void* bad, int64_t B, int T, int n_plan, int F, int dense_dim, int rows,
+        int grid, int64_t stripes, int64_t stripe_height, int vec, int L, int mean,
+        void* stream) {
   const int chunk = storage == 1 ? 8 : 4;
   if (n_bufs < 0 || n_bufs > kMaxBufs || B < 1 || B > INT32_MAX || rows < 1 || grid < 1 ||
-      (int64_t)rows * F > INT32_MAX / 2 || (int64_t)rows * n_plan > INT32_MAX / 2 ||
-      smem_bytes(F, n_plan, rows) > kSmemMax || stripes < 1 ||
-      (dense == nullptr && dense_dim != 0) || (vec && F % chunk != 0))
+      L < 0 || (int64_t)rows * F > INT32_MAX / 2 ||
+      (int64_t)rows * n_plan * (L ? L : 1) > INT32_MAX / 2 ||
+      (L ? smem_bytes_bags(F, n_plan, rows, L) : smem_bytes(F, n_plan, rows)) > kSmemMax ||
+      stripes < 1 || (dense == nullptr && dense_dim != 0) || (vec && F % chunk != 0))
     return (int)cudaErrorInvalidValue;
   Args a = {};
   for (int i = 0; i < n_bufs; ++i) {
@@ -484,6 +768,8 @@ extern "C" int fr_lookup_fused(const void* const* bufs, const void* const* scale
   a.vec = vec;
   a.stripes = stripes;
   a.stripe_height = stripe_height;
+  a.L = L;
+  a.mean = mean;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (storage) {
     case 0:
@@ -495,4 +781,40 @@ extern "C" int fr_lookup_fused(const void* const* bufs, const void* const* scale
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// One launch on `stream`.  bufs / scales: n_bufs pointers (the class buffers,
+// then the take buffer; scales only for int8 storage, else null); storage: 0
+// float32, 1 bfloat16, 2 int8; ids [B, T] int32 (ids_64 = 0) or int64;
+// dense [B, dense_dim] float32 or null; cols / pos: lookup_tensors'
+// descriptors; out [B, F] (float32 for int8 storage); bad [B] bool or null.
+// rows: batch rows a tile; grid: blocks (ops/lookup.py::launch_shape); vec:
+// chunks of 16 output bytes may move as words (F a multiple of the chunk,
+// every buffer, dense and out 16-byte aligned).
+extern "C" int fr_lookup_fused(const void* const* bufs, const void* const* scales,
+                               int n_bufs, int storage, const void* ids, int ids_64,
+                               const void* dense, const void* cols, const void* pos,
+                               void* out, void* bad, int64_t B, int T, int n_plan, int F,
+                               int dense_dim, int rows, int grid, int64_t stripes,
+                               int64_t stripe_height, int vec, void* stream) {
+  return run(bufs, scales, n_bufs, storage, ids, ids_64, dense, cols, pos, out, bad, B, T,
+             n_plan, F, dense_dim, rows, grid, stripes, stripe_height, vec, 0, 0, stream);
+}
+
+// The bag kernel, one launch on `stream`: fr_lookup_fused's arguments with
+// ids [B, T, L] (L >= 1; a negative id is padding) and mean (0: sum pooling,
+// 1: mean pooling); rows / grid from ops/lookup.py::launch_shape with L.
+extern "C" int fr_lookup_fused_bags(const void* const* bufs, const void* const* scales,
+                                    int n_bufs, int storage, const void* ids, int ids_64,
+                                    const void* dense, const void* cols, const void* pos,
+                                    void* out, void* bad, int64_t B, int T, int n_plan,
+                                    int F, int dense_dim, int rows, int grid,
+                                    int64_t stripes, int64_t stripe_height, int vec, int L,
+                                    int mean, void* stream) {
+  if (L < 1) return (int)cudaErrorInvalidValue;
+  return run(bufs, scales, n_bufs, storage, ids, ids_64, dense, cols, pos, out, bad, B, T,
+             n_plan, F, dense_dim, rows, grid, stripes, stripe_height, vec, L, mean != 0,
+             stream);
 }

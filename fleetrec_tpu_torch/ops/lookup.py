@@ -19,6 +19,29 @@ same descriptors with PyTorch ops (and, using no data-dependent shapes,
 can be captured in a CUDA graph).  ``lookup_fused.launches`` counts the
 calls that launched the kernel: eager calls, and calls recorded while a
 CUDA graph is captured; replaying a graph adds nothing.
+
+``lookup_fused_bags`` is the same for pooled bags, the port of
+``fleetrec_tpu/models/pooled.py``: config-order ids [B, T, L] (a negative
+id is padding) -> the features of ``pooled_lookup_concat(packed,
+plan_bags(ids), dense, mean)`` and the flags of ``pooled_bad_rows``, over
+the same descriptors, by the second kernel of ``lookup_fused.cu``.  One
+rule fixes its arithmetic, and ``lookup_fused_bags_plain`` follows it
+exactly, so the two are bit-equal on every input.  For each output
+element, walk the slots l = 0 .. L-1 in order.  A slot whose source id is
+negative, or whose id (after the QR split) is not in [0, lim), adds
+nothing; the second kind still counts as a member of the bag and, on a
+take column, flags the row.  The first slot that adds starts the sum with
+its element widened to float32 (``float(q) * scale`` for int8); each later
+one is added in float32.  A bag in which no slot adds gives +0.  For mean
+pooling the sum is multiplied by ``inv``, the float32 ``1 / count`` of the
+column's non-negative slots (0 for an empty bag).  A QR quotient column
+then adds its remainder column's pooled (and mean-scaled) value in
+float32, and the result is rounded once to the output type.  The JAX
+package rounds more often in bfloat16 (a factored class adds L lookups in
+bfloat16, the take tier sums in bfloat16, the mean multiplies in
+bfloat16); on float32 and int8 storage, and on small-integer data in any
+dtype, the two agree to the last bit or to a float32 sum's order.  L = 1
+with no negative id reproduces ``lookup_fused`` bit for bit.
 """
 
 from __future__ import annotations
@@ -27,6 +50,7 @@ import ctypes
 import functools
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import _build
@@ -74,15 +98,24 @@ def lookup_out_dtype(bufs: Sequence[torch.Tensor]) -> torch.dtype:
 def lookup_offsets_plain(ids: torch.Tensor, cols: torch.Tensor, stripes: int,
                          stripe_height: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """([B, n_plan] int64 element offset of each plan column's row in its
-    buffer, -1 for a zero row; [B] bool, a take id out of range)."""
-    f = {name: cols[:, i] for name, i in _F.items()}
-    x = ids.long().index_select(1, f["src"])
+    buffer, -1 for a zero row; [B] bool, a take id out of range).  Bags,
+    ids [B, T, L]: offsets [B, n_plan, L], -1 also for a padding slot (a
+    negative source id, whatever its QR split gives), which flags no
+    row."""
+    bags = ids.dim() == 3
+    f = {name: (cols[:, i, None] if bags else cols[:, i]) for name, i in _F.items()}
+    x = ids.long().index_select(1, cols[:, _F["src"]])
+    valid = x >= 0
     rem = f["rem"].clamp(min=1)
     x = torch.where(f["op"] == OP_DIV, torch.div(x, rem, rounding_mode="floor"),
                     torch.where(f["op"] == OP_MOD, torch.remainder(x, rem), x))
     ok = (x >= 0) & (x < f["lim"])
     take = f["kind"] == KIND_TAKE
-    bad = (~ok & take).any(dim=1)
+    if bags:
+        bad = (valid & ~ok & take).any(dim=2).any(dim=1)
+        ok = ok & valid
+    else:
+        bad = (~ok & take).any(dim=1)
     x = torch.where(ok, x, 0)
     s = f["s"]
     p, sub = torch.div(x, s, rounding_mode="floor"), torch.remainder(x, s)
@@ -110,6 +143,46 @@ def _check_dense(ids: torch.Tensor, dense: Optional[torch.Tensor], dense_dim: in
                          f"{None if dense is None else tuple(dense.shape)}")
 
 
+def _column_scales(scales: Optional[Sequence[torch.Tensor]],
+                   cols: torch.Tensor) -> Optional[torch.Tensor]:
+    """[n_plan] float32: each plan column's int8 dequant scale (None for
+    float storage)."""
+    if scales is None:
+        return None
+    buf_of, scale_at = cols[:, _F["buf"]], cols[:, _F["scale"]]
+    scale_of = torch.zeros(cols.shape[0], device=cols.device)
+    for i, sc in enumerate(scales):
+        mine = buf_of == i
+        scale_of = torch.where(mine, sc[torch.where(mine, scale_at, 0)], scale_of)
+    return scale_of
+
+
+def _elements(bufs: Sequence[torch.Tensor], cols: torch.Tensor, c: torch.Tensor,
+              off: torch.Tensor, o: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """([B, F] elements, in the storage dtype, of plan columns ``c`` [F]
+    (-1: none) at row offsets ``off`` [B, n_plan] plus ``o`` [F], 0 where
+    no row is read; [B, F] bool, a row is read)."""
+    buf_of = cols[:, _F["buf"]]
+    k = c.clamp(min=0)
+    at = off.index_select(1, k)
+    live = (c >= 0) & (at >= 0)
+    v = torch.zeros(at.shape, dtype=bufs[0].dtype, device=off.device)
+    for i, buf in enumerate(bufs):
+        m = live & (buf_of[k] == i)
+        idx = torch.where(m, at + o, 0).reshape(-1)
+        v = torch.where(m, buf.reshape(-1).index_select(0, idx).view(at.shape), v)
+    return v, live
+
+
+def _place_dense(out: torch.Tensor, dense: Optional[torch.Tensor], col: torch.Tensor,
+                 o: torch.Tensor) -> torch.Tensor:
+    """``out`` with the dense tail, cast to its dtype, in its columns."""
+    if dense is None or not dense.shape[1]:
+        return out
+    dv = dense.to(out.dtype).index_select(1, torch.where(col == POS_DENSE, o, 0))
+    return torch.where(col == POS_DENSE, dv, out)
+
+
 def lookup_fused_plain(ids: torch.Tensor, dense: Optional[torch.Tensor],
                        bufs: Sequence[torch.Tensor],
                        scales: Optional[Sequence[torch.Tensor]],
@@ -123,53 +196,90 @@ def lookup_fused_plain(ids: torch.Tensor, dense: Optional[torch.Tensor],
     elsewhere."""
     _check_dense(ids, dense, dense_dim)
     B = ids.shape[0]
-    out_dtype = lookup_out_dtype(bufs)
     col, add, o = _decode_pos(pos)
     off, bad = lookup_offsets_plain(ids, cols, stripes, stripe_height)
-    buf_of, scale_at = cols[:, _F["buf"]], cols[:, _F["scale"]]
-    scale_of = None
-    if scales is not None:  # each plan column's scale
-        scale_of = torch.zeros(cols.shape[0], device=cols.device)
-        for i, sc in enumerate(scales):
-            mine = buf_of == i
-            scale_of = torch.where(mine, sc[torch.where(mine, scale_at, 0)], scale_of)
+    scale_of = _column_scales(scales, cols)
 
     def values(c):
         """[B, F] elements of plan columns ``c`` (-1: none) at offsets o."""
-        k = c.clamp(min=0)
-        at = off.index_select(1, k)
-        live = (c >= 0) & (at >= 0)
-        v = torch.zeros((B, c.shape[0]), dtype=bufs[0].dtype, device=ids.device)
-        for i, buf in enumerate(bufs):
-            m = live & (buf_of[k] == i)
-            idx = torch.where(m, at + o, 0).reshape(-1)
-            v = torch.where(m, buf.reshape(-1).index_select(0, idx).view(B, -1), v)
-        if scale_of is not None:
-            v = v.float() * scale_of[k]
-        return v
+        v, _ = _elements(bufs, cols, c, off, o)
+        return v if scale_of is None else v.float() * scale_of[c.clamp(min=0)]
 
     # a zero or dense output column reads no row: its value is 0 until the
     # dense tail is placed
-    out = torch.zeros((B, pos.shape[0]), dtype=out_dtype, device=ids.device)
+    out = torch.zeros((B, pos.shape[0]), dtype=lookup_out_dtype(bufs), device=ids.device)
     if bufs and cols.shape[0]:
         v = values(col)
         out = torch.where(add >= 0, v + values(add), v)
-    if dense is not None and dense.shape[1]:
-        dv = dense.to(out_dtype).index_select(1, torch.where(col == POS_DENSE, o, 0))
-        out = torch.where(col == POS_DENSE, dv, out)
-    return out, (bad if with_bad else None)
+    return _place_dense(out, dense, col, o), (bad if with_bad else None)
+
+
+def lookup_fused_bags_plain(ids: torch.Tensor, dense: Optional[torch.Tensor],
+                            bufs: Sequence[torch.Tensor],
+                            scales: Optional[Sequence[torch.Tensor]],
+                            cols: torch.Tensor, pos: torch.Tensor, stripes: int = 1,
+                            stripe_height: int = 0, dense_dim: int = 0,
+                            mean: bool = False, with_bad: bool = True
+                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``lookup_fused_bags`` with PyTorch ops, by the module docstring's
+    rule to the bit: per output column the slots' elements summed in slot
+    order in float32 from the first that adds, times the float32 ``1 /
+    count`` for mean pooling, plus the QR remainder column's pooled value,
+    rounded once to the output dtype."""
+    _check_dense(ids, dense, dense_dim)
+    B, _T, L = ids.shape
+    col, add, o = _decode_pos(pos)
+    off, bad = lookup_offsets_plain(ids, cols, stripes, stripe_height)
+    scale_of = _column_scales(scales, cols)
+    inv = None
+    if mean:
+        # 1 / count, rounded to float32 on the host: the same bits on any device
+        table = np.zeros(L + 1, np.float32)
+        table[1:] = np.float32(1) / np.arange(1, L + 1, dtype=np.float32)
+        table = torch.from_numpy(table).to(ids.device)
+        inv = table[(ids.index_select(1, cols[:, _F["src"]]) >= 0).sum(dim=2)]
+
+    def pooled(c):
+        """[B, F] float32 pooled values of plan columns ``c`` (-1: none)."""
+        k = c.clamp(min=0)
+        acc = torch.zeros((B, c.shape[0]), device=ids.device)
+        some = torch.zeros((B, c.shape[0]), dtype=torch.bool, device=ids.device)
+        for l in range(L):
+            v, live = _elements(bufs, cols, c, off[:, :, l], o)
+            v = v.float() if scale_of is None else v.float() * scale_of[k]
+            acc = torch.where(live, torch.where(some, acc + v, v), acc)
+            some = some | live
+        return acc if inv is None else acc * inv.index_select(1, k)
+
+    out = torch.zeros((B, pos.shape[0]), dtype=lookup_out_dtype(bufs), device=ids.device)
+    if bufs and cols.shape[0]:
+        v = pooled(col)
+        out = torch.where(add >= 0, v + pooled(add), v).to(out.dtype)
+    return _place_dense(out, dense, col, o), (bad if with_bad else None)
+
+
+_LOOKUP_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_int]
 
 
 @functools.cache
 def _entry():
     fn = _build.kernels().fr_lookup_fused
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [*_LOOKUP_ARGS, ctypes.c_void_p]
+    return fn
+
+
+@functools.cache
+def _entry_bags():
+    fn = _build.kernels().fr_lookup_fused_bags
+    fn.restype = ctypes.c_int
+    # fr_lookup_fused's arguments, then L, mean and the stream
+    fn.argtypes = [*_LOOKUP_ARGS, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return fn
 
 
@@ -178,26 +288,104 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def smem_bytes(F: int, n_plan: int, rows: int) -> int:
+def smem_bytes(F: int, n_plan: int, rows: int, L: int = 0) -> int:
     """Dynamic shared memory of one block (lookup_fused.cu's smem_bytes):
     8 bytes an output column, 40 a plan column, a row pointer a (row, plan
-    column) and a flag a row."""
+    column) and a flag a row; for bags of L slots (L >= 1: smem_bytes_bags)
+    a row pointer a (row, plan column, slot) and 4 bytes a (row, plan
+    column) for the bag's count."""
+    if L:
+        return 8 * F + 40 * n_plan + 8 * rows * n_plan * L + 4 * rows * n_plan + 4 * rows
     return 8 * F + 40 * n_plan + 8 * rows * n_plan + 4 * rows
 
 
 def launch_shape(B: int, F: int, n_plan: int, sm_count: int, rows: Optional[int] = None,
-                 blocks_per_sm: int = BLOCKS_PER_SM) -> Tuple[int, int]:
+                 blocks_per_sm: int = BLOCKS_PER_SM, L: int = 0) -> Tuple[int, int]:
     """(rows a tile, blocks): ``rows`` (by default see TILE_ELEMS) halved
     until a tile's shared memory fits a block, and at most
-    ``blocks_per_sm`` blocks an SM."""
+    ``blocks_per_sm`` blocks an SM.  ``L``: the bag kernel's slots (0: the
+    single-id kernel)."""
     if rows is None:
         rows = max(1, min(16, TILE_ELEMS // max(F, 1), B // (TILES_PER_SM * sm_count)))
-    while rows > 1 and smem_bytes(F, n_plan, rows) > SMEM_BYTES:
+    while rows > 1 and smem_bytes(F, n_plan, rows, L) > SMEM_BYTES:
         rows //= 2
-    if smem_bytes(F, n_plan, rows) > SMEM_BYTES:
-        raise ValueError(f"feature_dim {F} with {n_plan} index columns does "
-                         f"not fit one block's shared memory")
+    if smem_bytes(F, n_plan, rows, L) > SMEM_BYTES:
+        raise ValueError(f"feature_dim {F} with {n_plan} index columns"
+                         f"{f' of {L} slots' if L else ''} does not fit one block's "
+                         f"shared memory")
     return rows, max(1, min(-(-B // rows), blocks_per_sm * sm_count))
+
+
+def _launch(ids: torch.Tensor, dense: Optional[torch.Tensor],
+            bufs: Sequence[torch.Tensor], scales: Optional[Sequence[torch.Tensor]],
+            cols: torch.Tensor, pos: torch.Tensor, stripes: int, stripe_height: int,
+            dense_dim: int, with_bad: bool, tile: Optional[Tuple[int, int]],
+            mean: Optional[bool]) -> Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+    """What ``lookup_fused`` (ids [B, T], ``mean`` None) and
+    ``lookup_fused_bags`` (ids [B, T, L]) share: the checks of their
+    operands, then, for CUDA tensors, one launch of the kernel.  Returns
+    None for CPU tensors: the caller runs its plain version."""
+    bags = mean is not None
+    if ids.dim() != 2 + bags or ids.dtype not in _IDX_DTYPES or (bags and ids.shape[2] < 1):
+        raise TypeError(f"ids must be [B, T{', L >= 1' if bags else ''}] int32 or int64, got "
+                        f"{tuple(ids.shape)} {ids.dtype}")
+    if cols.dim() != 2 or cols.shape[1] != len(LOOKUP_COL_FIELDS) or pos.dim() != 2:
+        raise ValueError("cols / pos are not lookup_tensors' descriptors")
+    if len({b.dtype for b in bufs}) > 1 or any(b.dtype not in _STORAGE for b in bufs):
+        raise TypeError(f"buffers of one storage dtype in {list(_STORAGE)}, got "
+                        f"{[b.dtype for b in bufs]}")
+    if (scales is not None) != (bool(bufs) and bufs[0].dtype == torch.int8):
+        raise ValueError("int8 buffers need their scales, and only they")
+    tensors = [ids, cols, pos, *bufs, *(scales or []),
+               *([] if dense is None else [dense])]
+    if any(t.device != ids.device for t in tensors):
+        raise ValueError("the lookup's tensors lie on more than one device")
+    _check_dense(ids, dense, dense_dim)
+    if ids.device.type == "cpu":
+        return None
+    if ids.device.type != "cuda":
+        raise ValueError(f"no lookup kernel for device {ids.device}")
+    if len(bufs) > MAX_BUFS:
+        raise ValueError(f"{len(bufs)} buffers: the kernel takes {MAX_BUFS}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the lookup kernel needs contiguous tensors")
+    if dense is not None and dense.dtype != torch.float32:
+        if dense.dtype not in (torch.bfloat16, torch.float16):
+            raise TypeError(f"dense must be float32 (or exactly widened), got {dense.dtype}")
+        dense = dense.float()
+    B, T = ids.shape[:2]
+    L = ids.shape[2] if bags else 0
+    n_plan, F = cols.shape[0], pos.shape[0]
+    dev = ids.device
+    out = torch.empty((B, F), dtype=lookup_out_dtype(bufs), device=dev)
+    bad = torch.empty(B, dtype=torch.bool, device=dev) if with_bad else None
+    if B == 0:
+        return out, bad
+    rows, grid = launch_shape(B, F, n_plan, _sm_count(dev.index or 0), *(tile or ()), L=L)
+    # 16-byte words of output (4 float32 or 8 bfloat16 columns) when every
+    # row of the output starts one and every buffer is aligned for them
+    chunk = 16 // out.element_size()
+    vec = F % chunk == 0 and all(t.data_ptr() % 16 == 0 for t in [out, *bufs, *(
+        [] if dense is None else [dense])])
+    vp = ctypes.c_void_p * max(len(bufs), 1)
+    ptrs = vp(*[b.data_ptr() for b in bufs])
+    sptrs = None if scales is None else vp(*[s.data_ptr() for s in scales])
+    storage = _STORAGE[bufs[0].dtype] if bufs else 0
+    args = [ptrs, sptrs, len(bufs), storage, ids.data_ptr(),
+            int(ids.dtype == torch.int64),
+            None if dense is None else dense.data_ptr(),
+            cols.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            None if bad is None else bad.data_ptr(),
+            B, T, n_plan, F, dense_dim if dense is not None else 0,
+            rows, grid, stripes, stripe_height, int(vec)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if bags:
+            rc = _entry_bags()(*args, L, int(mean), stream)
+        else:
+            rc = _entry()(*args, stream)
+    _build.check(rc, "lookup_fused_bags" if bags else "lookup_fused")
+    return out, bad
 
 
 def lookup_fused(ids: torch.Tensor, dense: Optional[torch.Tensor],
@@ -216,63 +404,42 @@ def lookup_fused(ids: torch.Tensor, dense: Optional[torch.Tensor],
     ``with_bad``).  ``tile``: (rows a tile, blocks an SM) in place of
     ``launch_shape``'s defaults, for timing sweeps
     (``utils/lookup_sweep.py``)."""
-    if ids.dim() != 2 or ids.dtype not in _IDX_DTYPES:
-        raise TypeError(f"ids must be [B, T] int32 or int64, got "
-                        f"{tuple(ids.shape)} {ids.dtype}")
-    if cols.dim() != 2 or cols.shape[1] != len(LOOKUP_COL_FIELDS) or pos.dim() != 2:
-        raise ValueError("cols / pos are not lookup_tensors' descriptors")
-    if len({b.dtype for b in bufs}) > 1 or any(b.dtype not in _STORAGE for b in bufs):
-        raise TypeError(f"buffers of one storage dtype in {list(_STORAGE)}, got "
-                        f"{[b.dtype for b in bufs]}")
-    if (scales is not None) != (bool(bufs) and bufs[0].dtype == torch.int8):
-        raise ValueError("int8 buffers need their scales, and only they")
-    tensors = [ids, cols, pos, *bufs, *(scales or []),
-               *([] if dense is None else [dense])]
-    if any(t.device != ids.device for t in tensors):
-        raise ValueError("the lookup's tensors lie on more than one device")
-    _check_dense(ids, dense, dense_dim)
-    if ids.device.type == "cpu":
+    res = _launch(ids, dense, bufs, scales, cols, pos, stripes, stripe_height,
+                  dense_dim, with_bad, tile, None)
+    if res is None:
         return lookup_fused_plain(ids, dense, bufs, scales, cols, pos, stripes,
                                   stripe_height, dense_dim, with_bad)
-    if ids.device.type != "cuda":
-        raise ValueError(f"no lookup kernel for device {ids.device}")
-    if len(bufs) > MAX_BUFS:
-        raise ValueError(f"{len(bufs)} buffers: the kernel takes {MAX_BUFS}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("the lookup kernel needs contiguous tensors")
-    if dense is not None and dense.dtype != torch.float32:
-        if dense.dtype not in (torch.bfloat16, torch.float16):
-            raise TypeError(f"dense must be float32 (or exactly widened), got {dense.dtype}")
-        dense = dense.float()
-    B, T = ids.shape
-    n_plan, F = cols.shape[0], pos.shape[0]
-    dev = ids.device
-    out = torch.empty((B, F), dtype=lookup_out_dtype(bufs), device=dev)
-    bad = torch.empty(B, dtype=torch.bool, device=dev) if with_bad else None
-    if B == 0:
-        return out, bad
-    rows, grid = launch_shape(B, F, n_plan, _sm_count(dev.index or 0), *(tile or ()))
-    # 16-byte words of output (4 float32 or 8 bfloat16 columns) when every
-    # row of the output starts one and every buffer is aligned for them
-    chunk = 16 // out.element_size()
-    vec = F % chunk == 0 and all(t.data_ptr() % 16 == 0 for t in [out, *bufs, *(
-        [] if dense is None else [dense])])
-    vp = ctypes.c_void_p * max(len(bufs), 1)
-    ptrs = vp(*[b.data_ptr() for b in bufs])
-    sptrs = None if scales is None else vp(*[s.data_ptr() for s in scales])
-    storage = _STORAGE[bufs[0].dtype] if bufs else 0
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _entry()(ptrs, sptrs, len(bufs), storage, ids.data_ptr(),
-                      int(ids.dtype == torch.int64),
-                      None if dense is None else dense.data_ptr(),
-                      cols.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                      None if bad is None else bad.data_ptr(),
-                      B, T, n_plan, F, dense_dim if dense is not None else 0,
-                      rows, grid, stripes, stripe_height, int(vec), stream)
-    _build.check(rc, "lookup_fused")
-    lookup_fused.launches += 1
-    return out, bad
+    if ids.shape[0]:
+        lookup_fused.launches += 1
+    return res
 
 
 lookup_fused.launches = 0
+
+
+def lookup_fused_bags(ids: torch.Tensor, dense: Optional[torch.Tensor],
+                      bufs: Sequence[torch.Tensor],
+                      scales: Optional[Sequence[torch.Tensor]],
+                      cols: torch.Tensor, pos: torch.Tensor, stripes: int = 1,
+                      stripe_height: int = 0, dense_dim: int = 0, mean: bool = False,
+                      with_bad: bool = True, tile: Optional[Tuple[int, int]] = None
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Pooled bags: ids [B, T, L] int32 or int64 (config order, L >= 1, a
+    negative id is padding) and ``lookup_fused``'s other operands ->
+    (features [B, feature_dim]: per table the sum, or with ``mean`` the
+    mean, of the rows its bag's ids read; bad [B] bool, a non-negative
+    take id out of range, or None when not ``with_bad``), by the module
+    docstring's rule.  On a CUDA tensor it launches the bag kernel of
+    ``lookup_fused.cu`` or raises; on a CPU tensor it runs
+    ``lookup_fused_bags_plain``."""
+    res = _launch(ids, dense, bufs, scales, cols, pos, stripes, stripe_height,
+                  dense_dim, with_bad, tile, bool(mean))
+    if res is None:
+        return lookup_fused_bags_plain(ids, dense, bufs, scales, cols, pos, stripes,
+                                       stripe_height, dense_dim, bool(mean), with_bad)
+    if ids.shape[0]:
+        lookup_fused_bags.launches += 1
+    return res
+
+
+lookup_fused_bags.launches = 0

@@ -1,8 +1,8 @@
 """Serve-tier assembly, the port of ``fleetrec_tpu/serving/compose.py``:
 bind the ingest ports, build the scoring engine over one device, then pump
 n batches from the wire through the device and back out (replies /
-scatter fan-out).  Serving over a mesh is not ported yet (ROADMAP.md
-queue 1, 'Multi-device')."""
+scatter fan-out); single ids or pooled bags (``ServeSpec.bag_L``).  Serving
+over a mesh is not ported yet (ROADMAP.md queue 1, 'Multi-device')."""
 
 from __future__ import annotations
 
@@ -30,13 +30,18 @@ class ServeSpec:
     reply: bool = False             # stream fp32 scores back to sender 0
     scatter: Tuple[str, ...] = ()   # "host:port" fan-out consumers
     warm: bool = False              # run the path once before traffic
+    # pooled bag serving (models/pooled.py): slots carry int32 [B, T, L]
+    # bags (-1 padding); single-sender wire only
+    bag_L: int = 0
+    bag_mean: bool = False          # mean pooling instead of sum
 
 
 def build_engine(model, spec: ServeSpec) -> ServingEngine:
     """The scoring half of the assembly: a one-device engine."""
     return ServingEngine.from_model(model, batch_size=spec.batch,
                                     background_drain=spec.bg_drain,
-                                    fuse=spec.fuse)
+                                    fuse=spec.fuse, bag_L=spec.bag_L,
+                                    bag_mean=spec.bag_mean)
 
 
 def serve(cfg, model, spec: ServeSpec) -> dict:
@@ -44,6 +49,8 @@ def serve(cfg, model, spec: ServeSpec) -> dict:
     summary (engine.run_from_ingest's dict + per-sender rx counters +
     scatter stats).  Prints the 'serving ...' banner once the ingest ports
     are bound — clients key their connects off it."""
+    if spec.bag_L and spec.senders > 1:
+        raise ValueError("pooled bag serving is single-sender wire only")
     eng = build_engine(model, spec)
     if spec.warm:
         t0 = time.time()
@@ -55,7 +62,7 @@ def serve(cfg, model, spec: ServeSpec) -> dict:
         wire = IndexWireFormat.plan(cfg, B, spec.senders)
         nbytes = wire.bytes_per_sender()
     else:
-        nbytes = [B * (cfg.num_tables + cfg.dense_dim) * 4]
+        nbytes = [B * (cfg.num_tables * max(spec.bag_L, 1) + cfg.dense_dim) * 4]
     scatter = None
     if spec.scatter:
         scatter = ScatterEgress(queue_blocks=spec.slots)

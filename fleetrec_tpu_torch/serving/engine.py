@@ -7,13 +7,15 @@ first batch, average).
 Two modes, as in the JAX engine:
 
 * index mode (``from_model``): batches of table ids (+ the dense slice) are
-  scored by the whole forward (lookup + concat + MLP) on the device;
+  scored by the whole forward (lookup + concat + MLP) on the device; with
+  ``bag_L=L`` the ids are pooled bags ``[B, T, L]`` (``models/pooled.py``:
+  -1 is padding) scored by the pooled forward;
 * feature mode (``mlp_only``): batches arrive as pre-gathered feature
   vectors, the reference's wire, and only the MLP tower runs (the
   ``fused_mlp`` kernel on CUDA).
 
-Pooled bags (``bag_L``), sharded serving (``from_sharded``) and the
-``PeerWatchdog`` are not ported yet (ROADMAP.md queue 1).
+Sharded serving (``from_sharded``) and the ``PeerWatchdog`` are not ported
+yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..models.fleetrec import check_pooled_config
 from ..models.mlp import mlp_apply
 
 
@@ -100,6 +103,7 @@ class ServingEngine:
         self.batch_size = batch_size
         self.max_in_flight = max_in_flight
         self.fuse = 1  # ingest batches per device call (from_model(fuse=K))
+        self.bag_L = 0  # > 0: pooled bag serving (from_model(bag_L=L))
         self.stats = LatencyStats()
         self._in_flight: "queue.Queue" = queue.Queue()
         self._batch_id = 0
@@ -119,28 +123,42 @@ class ServingEngine:
     # -- construction ----------------------------------------------------
     @classmethod
     def from_model(cls, model, batch_size: int, max_in_flight: int = 2,
-                   background_drain: bool = False, fuse: int = 1):
+                   background_drain: bool = False, fuse: int = 1,
+                   bag_L: int = 0, bag_mean: bool = False):
         """Serve a FleetRecModel on its device.  Each call copies the numpy
         ids (and dense features) to the device and runs the module.
 
         fuse=K > 1 scores K ingest batches per call: the [K, B, T] ids are
         reshaped to [K*B, T] for one forward, which is exact because rows
-        are independent, and the [K*B] scores reshaped back to [K, B]."""
+        are independent, and the [K*B] scores reshaped back to [K, B].
+
+        bag_L=L > 0 serves the pooled forward (``forward_pooled``): slots
+        carry int32 [B, T, L] bag ids (-1 = padding) instead of [B, T], sum-
+        pooled, or mean-pooled with ``bag_mean``; fused dispatch reshapes
+        [K, B, T, L] to [K*B, T, L].  A config with an interaction head is
+        refused."""
+        if bag_L < 0:
+            raise ValueError(f"bag_L must be >= 0, got {bag_L}")
+        if bag_L:
+            check_pooled_config(model.cfg)
         dev = model.device
+        n_id = 2 if bag_L else 1  # trailing axes of one query's ids
 
         def score(indices_np, dense_np):
             i = torch.from_numpy(np.ascontiguousarray(indices_np)).to(dev)
             d = (None if dense_np is None
                  else torch.from_numpy(np.ascontiguousarray(dense_np)).to(dev))
-            lead = i.shape[:-1]
+            lead = i.shape[:-n_id]
+            i = i.reshape(-1, *i.shape[-n_id:])
+            d = None if d is None else d.reshape(-1, d.shape[-1])
             with torch.inference_mode():
-                s = model(i.reshape(-1, i.shape[-1]),
-                          None if d is None else d.reshape(-1, d.shape[-1]))
+                s = model.forward_pooled(i, d, mean=bag_mean) if bag_L else model(i, d)
             return s.reshape(lead)
 
         eng = cls(score, model.cfg.num_tables, model.cfg.dense_dim, batch_size,
                   max_in_flight, background_drain)
         eng.fuse = fuse
+        eng.bag_L = bag_L
         return eng
 
     @classmethod
@@ -167,19 +185,32 @@ class ServingEngine:
         if self.num_tables == 0:
             raise ValueError("warmup is for index-mode engines")
         lead = (self.fuse, self.batch_size) if self.fuse > 1 else (self.batch_size,)
-        idx = np.zeros(lead + (self.num_tables,), np.int32)
+        shape = lead + (self.num_tables,) + ((self.bag_L,) if self.bag_L else ())
+        idx = np.zeros(shape, np.int32)
         dense = (np.zeros(lead + (self.dense_dim,), np.float32)
                  if self.dense_dim else None)
         _to_np(self.score_fn(idx, dense))  # readback forces completion
 
     # -- validation (host-side guard against out-of-range ids) -----------
     def validate_indices(self, indices: np.ndarray, row_limits: Sequence[int]):
-        """[B, T]: every id must be in [0, rows) of its table."""
-        if indices.ndim != 2 or indices.shape[1] != len(row_limits):
-            raise ValueError(f"expected [B, {len(row_limits)}] index columns, "
-                             f"got {indices.shape}")
+        """Single ids [B, T]: every id must be in [0, rows) of its table.
+        Pooled bags [B, T, L] (a ``bag_L`` engine): -1 marks padding and is
+        allowed; anything else must be in range."""
+        ndim = 3 if self.bag_L else 2
+        if indices.ndim != ndim or indices.shape[1] != len(row_limits):
+            raise ValueError(f"expected [B, {len(row_limits)}{', L' if self.bag_L else ''}] "
+                             f"index columns, got {indices.shape}")
         lim = np.minimum(np.asarray(row_limits, dtype=np.int64),
                          np.iinfo(indices.dtype).max).astype(indices.dtype)
+        if self.bag_L:
+            lo, hi = indices.min(axis=(0, 2)), indices.max(axis=(0, 2))
+            if (lo >= -1).all() and (hi < lim).all():
+                return
+            bad = (indices < -1) | (indices >= lim[None, :, None])
+            b, t, sl = np.argwhere(bad)[0]
+            raise ValueError(
+                f"bag index out of range: batch row {b}, table {t}, slot {sl}, "
+                f"id {indices[b, t, sl]} (limit {lim[t]}; -1 = padding)")
         # hot path: two column reductions instead of full [B, T] masks; the
         # full scan runs only on the error path to name the offender
         mn, mx = indices.min(axis=0), indices.max(axis=0)
@@ -287,7 +318,8 @@ class ServingEngine:
         block is its [B, width] slice, so the slot is their concatenation
         only when the features are all equal (the parity data).
         Index mode, single sender (wire=None): slot floats are bit-cast
-        int32 [B, num_tables] ids followed by [B, dense_dim] floats.
+        int32 [B, num_tables] ids (a ``bag_L`` engine: [B, num_tables, L]
+        bags, -1 padding) followed by [B, dense_dim] floats.
         Index mode, multi-sender: pass an IndexWireFormat (serving/wire.py)
         describing the per-sender slot layout — the reference's 3-node
         topology.
@@ -313,6 +345,9 @@ class ServingEngine:
                 raise ValueError("feature mode needs feature_dim")
         if n_batches % fuse:
             raise ValueError(f"n_batches={n_batches} must divide by fuse={fuse}")
+        if self.bag_L and (wire is not None or mode != "index"):
+            raise ValueError("pooled bag serving is index mode on a single-sender "
+                             "wire only (no IndexWireFormat)")
         if reply_to is not None or scatter is not None:
             user_on_done = on_done
 
@@ -330,8 +365,9 @@ class ServingEngine:
         def parse_index_slot(view):
             if wire is not None:
                 return wire.parse(view)
-            n_idx = B * self.num_tables
-            idx = view[:n_idx].view(np.int32).reshape(B, self.num_tables).copy()
+            ishape = (B, self.num_tables) + ((self.bag_L,) if self.bag_L else ())
+            n_idx = int(np.prod(ishape))
+            idx = view[:n_idx].view(np.int32).reshape(ishape).copy()
             dense = (view[n_idx : n_idx + B * self.dense_dim]
                      .reshape(B, self.dense_dim).copy()
                      if self.dense_dim else None)
@@ -357,7 +393,7 @@ class ServingEngine:
                 denses.append(dense)
                 t_firsts.append(t_first)
             if fuse > 1:
-                idx = np.stack(idxs)  # [K, B, T]
+                idx = np.stack(idxs)  # [K, B, T] ([K, B, T, L] bags)
                 dense = None if denses[0] is None else np.stack(denses)
             else:
                 idx, dense = idxs[0], denses[0]

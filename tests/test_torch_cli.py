@@ -167,3 +167,32 @@ def test_cli_device_is_not_moved_without_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises((RuntimeError, AssertionError)):
         main(["bench", "--config", "micro_test", "--batch", "16", "--iters", "1"])
+
+
+def test_cli_serve_and_loadgen_bags_loopback(capsys):
+    """`cli serve --bag-l 3 --bag-mean --device cpu` against `cli loadgen
+    --bag-l 3 --read-scores` over loopback: every batch of pooled bags is
+    scored and its scores are read back; `loadgen --bag-l` refuses
+    --senders 2."""
+    import socket
+    import threading
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    common = ["--config", "micro_test", "--batch", "16", "--bag-l", "3"]
+    th = threading.Thread(target=main, args=(
+        ["serve", *common, "--bag-mean", "--device", "cpu", "--batches", "4", "--port",
+         str(port), "--slots", "2", "--reply", "--fuse", "2", "--warm"],), daemon=True)
+    th.start()
+    main(["loadgen", *common, "--batches", "4", "--port", str(port), "--read-scores"])
+    th.join(60)
+    assert not th.is_alive()
+    text = capsys.readouterr().out
+    assert "scores received: 64" in text
+    assert '"wire_batches": 4' in text and '"fuse": 2' in text
+    # 16 queries x (8 tables x 3 slots of int32 + the dense floats)
+    cfg = TC.get_config("micro_test", batch_size=16)
+    assert f"[{16 * (cfg.num_tables * 3 + cfg.dense_dim) * 4}] B/batch" in text
+    with pytest.raises(SystemExit, match="--senders 1"):
+        main(["loadgen", *common, "--senders", "2", "--port", str(port)])

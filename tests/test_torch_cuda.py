@@ -14,14 +14,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import GB_FLAGS, bits, ids_with_bad, ragged_rings
+from chip_smoke import GB_FLAGS, bags_with_bad, bits, ids_with_bad, ragged_rings
 from fleetrec_tpu_torch import config as TC
 from fleetrec_tpu_torch import reference as ref
 from fleetrec_tpu_torch.config import MLPSpec
 from fleetrec_tpu_torch.models import init_model
 from fleetrec_tpu_torch.models.mlp import init_mlp_params
 from fleetrec_tpu_torch.ops.gather import gather_rows, gather_rows_grouped, gather_rows_plain
-from fleetrec_tpu_torch.ops.lookup import lookup_fused, lookup_fused_plain
+from fleetrec_tpu_torch.ops.lookup import (lookup_fused, lookup_fused_bags,
+                                          lookup_fused_bags_plain, lookup_fused_plain)
 from fleetrec_tpu_torch.ops.mlp_fused import fused_mlp, fused_mlp_plain
 from torch_variants import HEADS, LAYOUT_CASES, variant
 
@@ -140,6 +141,43 @@ def test_lookup_kernel_matches_plain_on_card(cuda, name):
                 assert got.dtype == want.dtype and torch.equal(bits(got), bits(want)), what
                 assert (bad is None) == (want_bad is None), what
                 assert bad is None or torch.equal(bad, want_bad), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", LAYOUT_CASES + ["criteo"])
+def test_bag_lookup_kernel_matches_plain_on_card(cuda, name):
+    """FleetRecModel.lookup_pooled (one lookup_fused_bags launch) bit-equal
+    to lookup_fused_bags_plain on the same operands: features and flags,
+    sum and mean pooling, every storage dtype, int32 and int64 ids, L = 1,
+    3 and 8 with padding, empty bags, ids below -1 and out-of-range ids
+    among them; and L = 1 without negative ids bit-equal to lookup_fused."""
+    rng = np.random.default_rng(12)
+    for table_dtype in ("bfloat16",) if name == "criteo" else ("float32", "bfloat16", "int8"):
+        cfg = dataclasses.replace(variant(name, TC), table_dtype=table_dtype)
+        model = init_model(cfg, table_scheme="uniform", device=cuda)
+        ops = model.lookup_operands()
+        dd = model.layout.dense_dim
+        for B, L in ((cfg.batch_size, 3), (3000, 1), (3000, 8)):
+            dense = (torch.from_numpy(rng.uniform(-1, 1, (B, dd)).astype(np.float32))
+                     .to(cuda) if dd else None)
+            ids = bags_with_bad(cfg, B, L, rng)
+            for idt, mean in ((torch.int32, False), (torch.int64, True)):
+                idx = torch.from_numpy(ids).to(cuda, idt)
+                before = lookup_fused_bags.launches
+                got, bad = model.lookup_pooled(idx, dense, mean)
+                assert lookup_fused_bags.launches == before + 1
+                want, want_bad = lookup_fused_bags_plain(idx, dense, mean=mean, **ops)
+                torch.cuda.synchronize()
+                what = (name, table_dtype, B, L, idt, mean)
+                assert got.dtype == want.dtype and torch.equal(bits(got), bits(want)), what
+                assert (bad is None) == (want_bad is None), what
+                assert bad is None or torch.equal(bad, want_bad), what
+        single = torch.from_numpy(ids_with_bad(cfg, 3000, rng)).clamp(min=0).to(cuda)
+        one, one_bad = model.lookup(single, dense)
+        for mean in (False, True):
+            got, bad = model.lookup_pooled(single[:, :, None].contiguous(), dense, mean)
+            assert torch.equal(bits(got), bits(one)), (name, table_dtype, mean)
+            assert bad is None or torch.equal(bad, one_bad)
 
 
 @pytest.mark.cuda

@@ -3,15 +3,26 @@ cli.py) end to end over loopback on the CPU, scores held against the
 float64 oracle — twins of the loopback tests of test_compose.py and
 test_multisender.py — and the engine's feature mode and servebench,
 twins of test_ingest.py's.  Ports 21380-21480 are used by no other test
-file (xdist runs files in parallel)."""
+file (xdist runs files in parallel).  The ScatterEgress tests at the end are
+twins of tests/test_scatter.py's (slow, dead, restarted and reattached
+consumers, 11-way fan-out) and the QR test a twin of
+tests/test_qr.py::test_qr_serving_engine_end_to_end; each of those runs
+under its own time limit (``within``) on ports the system hands out."""
 
+import dataclasses
+import functools
 import socket
 import threading
 import time
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
+from fleetrec_tpu import config as JC
+from fleetrec_tpu.models import init_model as j_init_model
 from fleetrec_tpu_torch import config as C
 from fleetrec_tpu_torch import reference as ref
 from fleetrec_tpu_torch.cli import main
@@ -21,6 +32,7 @@ from fleetrec_tpu_torch.serving import (
     IndexWireFormat,
     IngestServer,
     Loadgen,
+    ScatterEgress,
     ServeSpec,
     ServingEngine,
     build_engine,
@@ -365,3 +377,327 @@ def test_servebench_cpu_smoke():
     assert r.n_queries > 500
     assert 0.5 * r.offered_qps < r.achieved_qps < 2 * r.offered_qps
     assert 0 < r.latency_ms_p50 <= r.latency_ms_p99 <= r.latency_ms_max
+
+
+# -- ScatterEgress: twins of tests/test_scatter.py ----------------------------
+
+def within(seconds):
+    """Run the test in a daemon thread and fail it after ``seconds``: a
+    socket that never answers fails one test instead of hanging the run."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def run(*args, **kw):
+            box = {}
+
+            def body():
+                try:
+                    fn(*args, **kw)
+                except BaseException as e:  # noqa: BLE001 (re-raised below)
+                    box["error"] = e
+
+            th = threading.Thread(target=body, daemon=True)
+            th.start()
+            th.join(seconds)
+            assert not th.is_alive(), f"{fn.__name__} still running after {seconds} s"
+            if "error" in box:
+                raise box["error"]
+        return run
+    return deco
+
+
+def _free_ports(n):
+    """n distinct ports the system just handed out (each bound once, then
+    released; the consumers rebind them with SO_REUSEADDR)."""
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+class _Consumer(threading.Thread):
+    """Listening consumer: accepts one producer connection and drains fixed
+    blocks.  paused=True reads nothing until ``resume`` is set; with a small
+    receive buffer that defeats kernel socket buffering, so the producer
+    sees backpressure."""
+
+    def __init__(self, port, block_bytes, paused=False):
+        super().__init__(daemon=True)
+        self.block_bytes = block_bytes
+        self.blocks = []
+        self.resume = threading.Event()
+        if not paused:
+            self.resume.set()
+        self.srv = socket.socket()
+        self.srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        if paused:
+            # inherited by the accepted socket: caps what the kernel absorbs
+            self.srv.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 16)
+        self.srv.bind(("127.0.0.1", port))
+        self.srv.listen(1)
+        self.srv.settimeout(30)
+        self.stop = False
+
+    def run(self):
+        try:
+            conn, _ = self.srv.accept()
+        except OSError:
+            self.srv.close()
+            return
+        conn.settimeout(0.2)
+        self.resume.wait()
+        buf = b""
+        while not self.stop:
+            try:
+                chunk = conn.recv(1 << 16)
+            except socket.timeout:
+                continue
+            except OSError:
+                break
+            if not chunk:
+                break
+            buf += chunk
+            while len(buf) >= self.block_bytes:
+                self.blocks.append(np.frombuffer(buf[: self.block_bytes], np.float32))
+                buf = buf[self.block_bytes:]
+        conn.close()
+        self.srv.close()
+
+
+def _wait(cond, seconds):
+    deadline = time.time() + seconds
+    while time.time() < deadline and not cond():
+        time.sleep(0.05)
+
+
+@within(60)
+def test_scatter_slow_consumer_isolated():
+    """A consumer that reads nothing must not stall the others: its bounded
+    queue fills, the round-robin skips it, and the fast pair carries the
+    rest while the producer never blocks."""
+    B = 1 << 18  # 1 MiB blocks defeat socket buffering
+    ports = _free_ports(3)
+    fast = [_Consumer(ports[0], B * 4), _Consumer(ports[1], B * 4)]
+    slow = _Consumer(ports[2], B * 4, paused=True)
+    for c in fast + [slow]:
+        c.start()
+    NBLK = 30
+    with ScatterEgress(queue_blocks=2) as eg:
+        for p in ports:
+            eg.connect("127.0.0.1", p)
+        t0 = time.time()
+        for i in range(NBLK):
+            eg.send(np.full(B, float(i), np.float32))
+        send_time = time.time() - t0
+        stats = eg.stats()
+        slow.resume.set()  # so that close() can drain its queue
+    _wait(lambda: sum(len(c.blocks) for c in fast + [slow]) >= NBLK, 10)
+    for c in fast + [slow]:
+        c.stop = True
+    assert send_time < 10.0, f"producer stalled behind the slow consumer: {send_time:.1f}s"
+    assert stats["skipped"] > 0  # the isolation engaged
+    got = [len(c.blocks) for c in fast + [slow]]
+    assert sum(got) == NBLK  # nothing lost
+    # the stalled consumer absorbs at most its queue (2), a block in flight
+    # and a couple of MiB of kernel buffers before every further block skips
+    assert got[2] <= 10, f"the stalled consumer absorbed too much: {got}"
+    assert got[0] + got[1] >= NBLK - 10
+
+
+@within(60)
+def test_scatter_dead_consumer_skipped():
+    """A consumer whose connection dies is skipped; the stream continues to
+    the survivor, and send() never raises."""
+    B = 32
+    ports = _free_ports(2)
+    c0, c1 = _Consumer(ports[0], B * 4), _Consumer(ports[1], B * 4)
+    c0.start()
+    c1.start()
+    with ScatterEgress(queue_blocks=1) as eg:
+        for p in ports:
+            eg.connect("127.0.0.1", p)
+        eg.send(np.zeros(B, np.float32))
+        eg.send(np.zeros(B, np.float32))
+        c0.stop = True
+        c0.join(5)
+        time.sleep(0.3)
+        for _ in range(10):
+            eg.send(np.ones(B, np.float32))
+            time.sleep(0.02)  # let the sender thread hit the reset
+        stats = eg.stats()
+    # TCP can absorb a block or two before the reset surfaces
+    assert stats["per_consumer_blocks"][1] >= 8, stats
+    c1.stop = True
+
+
+@within(60)
+def test_scatter_consumer_reconnect_mid_stream():
+    """Kill a consumer mid-stream and restart it on the same port: the
+    sender thread redials in-band and delivery resumes, whole blocks only."""
+    B = 64
+    (port,) = _free_ports(1)
+    first = _Consumer(port, B * 4)
+    first.start()
+    with ScatterEgress(queue_blocks=4) as eg:
+        eg.connect("127.0.0.1", port)
+        for i in range(5):
+            eg.send(np.full(B, float(i), np.float32))
+        _wait(lambda: len(first.blocks) >= 5, 5)
+        assert len(first.blocks) == 5
+        first.stop = True
+        first.join(5)
+        second = _Consumer(port, B * 4)
+        second.start()
+        for i in range(5, 15):
+            eg.send(np.full(B, float(i), np.float32))
+            time.sleep(0.05)  # let the sender thread hit the reset and redial
+        # blocks flushed into the dead socket before the reset surfaced are
+        # lost, as with any TCP peer crash; what follows the redial arrives
+        _wait(lambda: len(second.blocks) >= 8, 10)
+        stats = eg.stats()
+    second.stop = True
+    assert stats["reconnects"][0] >= 1, stats
+    assert not stats["dead"][0], stats
+    assert len(second.blocks) >= 8, len(second.blocks)
+    assert sorted(int(b[0]) for b in second.blocks)[-1] == 14  # resumed to the end
+    for b in second.blocks:
+        assert np.all(b == b[0])  # no torn block
+
+
+@within(90)
+def test_scatter_dead_consumer_reattach():
+    """An outage longer than the redial window marks the consumer dead;
+    reattach revives it once the destination is back."""
+    B = 32
+    (port,) = _free_ports(1)
+    c0 = _Consumer(port, B * 4)
+    c0.start()
+    with ScatterEgress(queue_blocks=2) as eg:
+        eg.connect("127.0.0.1", port)
+        eg.send(np.zeros(B, np.float32))
+        c0.stop = True
+        c0.join(5)
+        # the sender thread notices on its next send, then redials for ~5 s
+        deadline = time.time() + 20
+        while time.time() < deadline and not eg.stats()["dead"][0]:
+            try:
+                eg.send(np.zeros(B, np.float32))
+            except OSError:  # no live consumer remains
+                pass
+            time.sleep(0.1)
+        assert eg.stats()["dead"][0]
+        with pytest.raises(OSError):
+            eg.reattach(0)  # the destination is still down: stays dead
+        c1 = _Consumer(port, B * 4)
+        c1.start()
+        eg.reattach(0)
+        assert not eg.stats()["dead"][0]
+        for i in range(3):
+            eg.send(np.full(B, float(i), np.float32))
+        _wait(lambda: len(c1.blocks) >= 3, 5)
+    c1.stop = True
+    assert len(c1.blocks) >= 3
+
+
+@within(120)
+def test_scatter_eleven_consumer_fanout_with_slow_and_killed():
+    """The reference's 11-way fan-out with one consumer that reads nothing
+    and one killed mid-stream: the 9 healthy ones carry the load, the slow
+    one sheds only its own share, the dead one is marked dead and skipped,
+    and the producer never stalls."""
+    B = 1 << 18
+    N, SLOW, DEAD, NBLK = 11, 9, 10, 110
+    ports = _free_ports(N)
+    consumers = [_Consumer(ports[c], B * 4, paused=(c == SLOW)) for c in range(N)]
+    for c in consumers:
+        c.start()
+    with ScatterEgress(queue_blocks=2) as eg:
+        for p in ports:
+            eg.connect("127.0.0.1", p)
+        t0 = time.time()
+        for i in range(NBLK):
+            eg.send(np.full(B, float(i), np.float32))
+            if i == 22:
+                consumers[DEAD].stop = True
+                consumers[DEAD].join(5)
+                time.sleep(0.2)  # let the reset surface at the producer
+        send_time = time.time() - t0
+        # the killed consumer's sender redials its closed port for ~5 s
+        _wait(lambda: eg.stats()["dead"][DEAD], 20)
+        stats = eg.stats()
+        consumers[SLOW].resume.set()
+    _wait(lambda: sum(len(c.blocks) for c in consumers) >= NBLK - 5, 15)
+    for c in consumers:
+        c.stop = True
+    got = [len(c.blocks) for c in consumers]
+    assert send_time < 20.0, f"producer stalled: {send_time:.1f}s"
+    assert stats["dead"][DEAD] and sum(stats["dead"]) == 1, stats
+    assert stats["skipped"] > 0, stats
+    assert got[SLOW] <= 8, f"the slow consumer absorbed too much: {got}"
+    assert got[DEAD] <= 22 // N + 3, got
+    healthy = sum(got[c] for c in range(N) if c not in (SLOW, DEAD))
+    assert healthy >= NBLK - got[SLOW] - got[DEAD] - stats["skipped"], (got, stats)
+    assert healthy >= NBLK * 0.7, (got, stats)
+    for c in consumers:
+        for blk in c.blocks:
+            assert np.all(blk == blk[0])
+
+
+@within(60)
+def test_qr_serving_engine_end_to_end():
+    """A QR config through the TCP serving tier (3-sender index mode): the
+    wire carries config-order ids (the QR expansion is inside the forward);
+    the engine's scores equal the port's direct forward and, bit for bit on
+    pm1 / all-ones data, the JAX package's jitted QR forward."""
+    def qr_cfg(mod):
+        cfg = dataclasses.replace(mod.micro_test(batch_size=8), qr_threshold=100, qr_rem=16)
+        cfg.validate()
+        return cfg
+
+    cfg = qr_cfg(C)
+    B, NB = 8, 4
+    model = init_model(cfg, table_scheme="pm1", mlp_scheme="ones")
+    assert model.plan.qr_positions
+    eng = ServingEngine.from_model(model, batch_size=B)
+    wire = IndexWireFormat.plan(cfg, B, 3)
+    batches = [(idx, np.sign(d).astype(np.float32)) for idx, d in _batches(cfg, B, NB, 6)]
+    streams = [b"" for _ in range(3)]
+    for idx, dense in batches:
+        for s, p in enumerate(wire.payloads(idx, dense)):
+            streams[s] += p
+    outs = {}
+    for _ in range(20):  # three consecutive free ports
+        (port,) = _free_ports(1)
+        try:
+            ing = IngestServer(wire.bytes_per_sender(), n_slots=4, port_base=port)
+            break
+        except OSError:
+            continue
+    else:
+        raise AssertionError("no three consecutive free ports")
+    with ing:
+        def send(s):
+            with socket.create_connection(("127.0.0.1", port + s), timeout=5) as sock:
+                sock.sendall(streams[s])
+
+        ths = [threading.Thread(target=send, args=(s,), daemon=True) for s in range(3)]
+        for t in ths:
+            t.start()
+        summary = eng.run_from_ingest(
+            ing, NB, mode="index", wire=wire, timeout_ms=10_000,
+            row_limits=[t.rows for t in cfg.tables],
+            on_done=lambda bid, sc: outs.__setitem__(bid, sc))
+        for t in ths:
+            t.join(5)
+    assert summary["batches"] == NB
+    jmodel, jparams = j_init_model(qr_cfg(JC), table_scheme="pm1", mlp_scheme="ones")
+    jforward = jax.jit(jmodel.forward)
+    for b, (idx, dense) in enumerate(batches):
+        with torch.no_grad():
+            direct = model(torch.from_numpy(idx), torch.from_numpy(dense)).numpy()
+        np.testing.assert_array_equal(outs[b], direct)
+        want = np.asarray(jforward(jparams, jnp.asarray(idx), jnp.asarray(dense)))
+        np.testing.assert_array_equal(outs[b], want)

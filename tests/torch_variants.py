@@ -19,6 +19,12 @@ def cap(cfg, rows):
         dataclasses.replace(t, rows=min(t.rows, rows)) for t in cfg.tables))
 
 
+def mixed(C, batch_size=16, **kw):
+    """micro_test with onehot_max=70: dims 4 / 8 split across the plain
+    one-hot classes and the take tier (tests/test_pooled.py's config)."""
+    return dataclasses.replace(C.micro_test(batch_size=batch_size), onehot_max=70, **kw)
+
+
 def variant(name, C):
     """The config ``name`` of LAYOUT_CASES or HEADS (or ``criteo``) from
     the config module ``C``."""

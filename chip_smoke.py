@@ -94,7 +94,25 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
    loopback (4 batches x 1024, also with fuse = 2, and ``cli serve --bag-l``
    against ``cli loadgen --bag-l``), replies bit-equal to direct
    ``forward_pooled`` calls; a dot config refused;
-11. report: the card's name and power limit, each kernel's median time
+11. training: ``lookup_fused_backward`` (the lookup's backward kernel)
+   against its plain version on phase 4's model1 and on dlrm_terabyte's
+   dense-free layout at B = 4096 and on micro_test's striped, QR and bf16
+   layouts, int32 and int64 ids with bad ones: integer cotangents
+   bit-equal, uniform ones within rtol 1e-5 / atol 1e-4 (bf16: rtol 2^-7);
+   ``Trainer`` (Adagrad 1e-2) on model1 at full rows (uniform fp32 tables
+   and weights) for 10 steps and on dlrm_terabyte at 1M rows a table for
+   3, each on one seeded batch of 4096: the loss falls, every step
+   launches 1 ``lookup_fused`` and 1 ``lookup_fused_backward`` and calls no
+   plain version, and the first step matches the same step through the
+   plain lookup and backward (loss bit-equal, every tensor within rtol
+   1e-5 / atol 1e-6); the trained model1 served over loopback, replies
+   bit-equal to direct forwards, ``forward_train`` within rtol / atol 1e-5
+   of ``forward``; then each step's wall time and its device time by part
+   (lookup fwd, towers and heads fwd, loss, towers and heads bwd, gradient
+   zeroing, lookup bwd, Adagrad), the backward kernel against its plain
+   version, ``index_add_`` and its byte bound; the step's device busy time,
+   idle share and split from the profiler after the report's timings;
+12. report: the card's name and power limit, each kernel's median time
    against its plain version at the model1 shapes and at gatherbench's
    shape and flags, ``fused_mlp`` in both dtypes at model1 and model3
    widths, B = 4096 and 1024, and at dlrm's bottom and top towers (ReLU)
@@ -117,7 +135,7 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
    time split into the lookup, the bottom tower, the interaction's torch
    ops, the top tower and the poison.
 
-In phases 6-10 the kernels' launch counters are zeroed just before each
+In phases 6-11 the kernels' launch counters are zeroed just before each
 path runs and read just after; each kernel of the path must have launched.
 A counter counts wrapper calls that launched a kernel: eager calls, and
 the calls recorded while a CUDA graph is captured.  Replays of a graph
@@ -154,13 +172,17 @@ from fleetrec_tpu_torch import io as fio
 from fleetrec_tpu_torch import reference as ref
 from fleetrec_tpu_torch.models import init_model
 from fleetrec_tpu_torch.models.embedding import lookup_concat, tier_gathers
+from fleetrec_tpu_torch.models.fleetrec import trainable_tensors
 from fleetrec_tpu_torch.models.pooled import (plan_bags, pooled_bad_rows,
                                               pooled_lookup_concat)
 from fleetrec_tpu_torch.ops import _build
 from fleetrec_tpu_torch.ops.gather import (gather_rows, gather_rows_grouped,
                                           gather_rows_plain)
 from fleetrec_tpu_torch.models.mlp import init_mlp_params
+from fleetrec_tpu_torch.models.train import Trainer, bce_with_logits
+from fleetrec_tpu_torch.ops import lookup as lookup_mod
 from fleetrec_tpu_torch.ops.lookup import (LOOKUP_COL_FIELDS, lookup_fused,
+                                          lookup_fused_backward, lookup_fused_backward_plain,
                                           lookup_fused_bags, lookup_fused_bags_plain,
                                           lookup_fused_plain, lookup_offsets_plain,
                                           lookup_out_dtype)
@@ -480,7 +502,8 @@ def check_tier_gathers(model, idx_t):
 
 def phase_model1(dev):
     """Full-size model1 against the float64 oracle; returns the pm1 model,
-    its tables and weights, and the worst gather error on the tiers."""
+    its tables and weights, the worst gather error on the tiers and the
+    model of uniform tables and weights (which the training phase trains)."""
     cfg = C.fleetrec_model1(batch_size=B_TIME)
     rng = np.random.default_rng(2)
     idx = _rand_ids(cfg, B_TIME, rng)
@@ -497,8 +520,7 @@ def phase_model1(dev):
     err_u = float(np.abs(s_u - golden_u).max())
     with torch.inference_mode():
         err_g, err_gg = check_tier_gathers(model_u, idx_t)
-    del model_u, tabs_u
-    torch.cuda.empty_cache()
+    del tabs_u
 
     tabs = ref.init_tables(cfg, "pm1")
     ws = ref.init_mlp_weights(cfg, "ones")
@@ -537,7 +559,7 @@ def phase_model1(dev):
         f"inputs (uniform tables, with -1 / out-of-range ids; max_abs_err "
         f"{err_g} / {err_gg}) "
         f"({time.time() - t0:.1f}s)")
-    return cfg, model, tabs, ws, err_g, err_gg
+    return cfg, model, tabs, ws, err_g, err_gg, model_u
 
 
 def _cap(cfg, rows):
@@ -767,7 +789,8 @@ def phase_serve(model, tabs, ws):
     return launches
 
 
-KERNELS = (gather_rows, gather_rows_grouped, fused_mlp, lookup_fused, lookup_fused_bags)
+KERNELS = (gather_rows, gather_rows_grouped, fused_mlp, lookup_fused, lookup_fused_bags,
+           lookup_fused_backward)
 
 
 def _counted(fn):
@@ -914,23 +937,30 @@ def heads_oracle(cfg, tables, idx, dense, scheme):
 def plain_kernels():
     """The model's wrappers swapped for their plain versions
     (``lookup_fused_plain``, ``lookup_fused_bags_plain``,
-    ``fused_mlp_plain``): inside, a forward is the same forward composed
-    from the plain versions, and launches nothing."""
+    ``fused_mlp_plain``, and in ``LookupFunction`` ``lookup_fused_plain``
+    and ``lookup_fused_backward_plain``): inside, a forward or a training
+    step is the same one composed from the plain versions, and launches
+    nothing."""
     from fleetrec_tpu_torch.models import fleetrec as fr_mod
     from fleetrec_tpu_torch.models import mlp as mlp_mod
 
-    saved = fr_mod.lookup_fused, fr_mod.lookup_fused_bags, mlp_mod.fused_mlp
+    saved = (fr_mod.lookup_fused, fr_mod.lookup_fused_bags, mlp_mod.fused_mlp,
+             lookup_mod.lookup_fused, lookup_mod.lookup_fused_backward)
     fr_mod.lookup_fused, fr_mod.lookup_fused_bags = lookup_fused_plain, lookup_fused_bags_plain
     mlp_mod.fused_mlp = fused_mlp_plain
+    lookup_mod.lookup_fused = lookup_fused_plain
+    lookup_mod.lookup_fused_backward = lookup_fused_backward_plain
     try:
         yield
     finally:
-        fr_mod.lookup_fused, fr_mod.lookup_fused_bags, mlp_mod.fused_mlp = saved
+        (fr_mod.lookup_fused, fr_mod.lookup_fused_bags, mlp_mod.fused_mlp,
+         lookup_mod.lookup_fused, lookup_mod.lookup_fused_backward) = saved
 
 
-def _launches(lookup=0, mlp=0, bags=0):
+def _launches(lookup=0, mlp=0, bags=0, backward=0):
     return {"gather_rows": 0, "gather_rows_grouped": 0, "fused_mlp": mlp,
-            "lookup_fused": lookup, "lookup_fused_bags": bags}
+            "lookup_fused": lookup, "lookup_fused_bags": bags,
+            "lookup_fused_backward": backward}
 
 
 def micro_heads():
@@ -1289,6 +1319,205 @@ def phase_bags(dev, model1, tabs, ws, models):
                  f"{cli_launches}; dlrm_terabyte (dot) refused")
     log(f"phase 10 bags ({time.time() - t0:.1f}s): " + "; ".join(notes))
     return worst, runs[1]
+
+
+# the training phase: Adagrad steps of model1 and of dlrm_terabyte on one
+# seeded batch each, and the steps each timing averages
+TRAIN_STEPS, DLRM_TRAIN_STEPS, TIME_STEPS = 10, 3, 5
+# lookup_fused_backward against its plain version on uniform cotangents:
+# float32 sums of up to B terms of |x| <= 1 in another order; bfloat16: one
+# bfloat16 rounding of those sums
+BACKWARD_TOL = {torch.float32: {"rtol": 1e-5, "atol": 1e-4},
+                torch.bfloat16: {"rtol": 2.0 ** -7, "atol": 1e-4}}
+# a training step against the same step through the plain lookup and
+# backward: the tables' float32 gradients differ in the order of their sums
+STEP_TOL = {"rtol": 1e-5, "atol": 1e-6}
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Counts the calls of ``lookup_fused_plain`` and
+    ``lookup_fused_backward_plain`` made through the kernels' wrappers
+    (which call them only for CPU tensors) inside the block."""
+    names = ("lookup_fused_plain", "lookup_fused_backward_plain")
+    counts = dict.fromkeys(names, 0)
+    saved = {n: getattr(lookup_mod, n) for n in names}
+
+    def counted(name):
+        def call(*a, **kw):
+            counts[name] += 1
+            return saved[name](*a, **kw)
+        return call
+
+    for n in names:
+        setattr(lookup_mod, n, counted(n))
+    try:
+        yield counts
+    finally:
+        for n in names:
+            setattr(lookup_mod, n, saved[n])
+
+
+def train_batch(cfg, B, seed, dev):
+    """(ids [B, T] int32, dense [B, dense_dim] or None, labels [B] of 0 / 1)
+    on ``dev``, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(_rand_ids(cfg, B, rng)).to(dev)
+    dense = _dense(cfg.dense_dim, B, rng, dev)
+    return idx, dense, torch.from_numpy(rng.integers(0, 2, B).astype(np.float32)).to(dev)
+
+
+def check_backward(model, idx, ct, exact, what) -> float:
+    """lookup_fused_backward (one launch) against lookup_fused_backward_plain
+    on the same operands and cotangents ``ct``: bit-equal when ``exact``
+    (integer cotangents: every float32 sum exact in any order), else within
+    BACKWARD_TOL.  Returns the max abs error."""
+    ops = model.lookup_operands()
+    args = (ops["bufs"], ops["cols"], ops["pos"], ops["stripes"], ops["stripe_height"])
+    before = lookup_fused_backward.launches
+    got = lookup_fused_backward(ct, idx, *args)
+    if lookup_fused_backward.launches != before + 1:
+        raise AssertionError(f"lookup_fused_backward did not launch once: {what}")
+    want = lookup_fused_backward_plain(ct, idx, *args)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"backward gradients of another dtype or shape: {what}")
+        if exact and not torch.equal(bits(a), bits(b)):
+            raise AssertionError(f"backward kernel differs from its plain version: {what}")
+        if not exact:
+            torch.testing.assert_close(a.float(), b.float(), **BACKWARD_TOL[a.dtype],
+                                       msg=lambda m: f"backward kernel, {what}: {m}")
+        worst = max(worst, (a.float() - b.float()).abs().max().item())
+    return worst
+
+
+def train_and_check(name, model, batch, steps, dev):
+    """``steps`` Trainer steps of ``model`` (Adagrad 1e-2) on ``batch``:
+    first one step through the plain lookup and plain backward from the same
+    start, then the kernel steps; each must launch 1 lookup_fused and 1
+    lookup_fused_backward and call no plain version, the first must match
+    the plain step (its loss bit-equal, every tensor within STEP_TOL) and
+    the loss must fall.  Returns the losses, the launch counts of the run
+    and the Trainer."""
+    tensors = trainable_tensors(model)
+    start = {k: v.clone() for k, v in tensors.items()}
+    with plain_kernels():
+        plain_loss, plain_launches = _counted(
+            lambda: Trainer(model, device=dev).step(*batch))
+    if plain_launches != _launches():
+        raise AssertionError(f"{name}: the plain step launched {plain_launches}")
+    after_plain = {k: v.clone() for k, v in tensors.items()}
+    for k, v in tensors.items():
+        v.copy_(start[k])
+    del start
+    trainer = Trainer(model, device=dev)
+    losses, run = [], _launches()
+    for step in range(steps):
+        with plain_calls() as plain:
+            loss, launches = _counted(lambda: trainer.step(*batch))
+        if launches != _launches(lookup=1, backward=1) or any(plain.values()):
+            raise AssertionError(f"{name} step {step}: launches {launches}, plain calls {plain}")
+        run = {k: run[k] + launches[k] for k in run}
+        losses.append(loss.item())
+        if step == 0:
+            if loss.item() != plain_loss.item():
+                raise AssertionError(f"{name}: loss {loss.item()} against the plain step's "
+                                     f"{plain_loss.item()}")
+            for k, v in tensors.items():
+                torch.testing.assert_close(v, after_plain[k], **STEP_TOL, msg=lambda m: (
+                    f"{name}: {k} after a step against the plain step: {m}"))
+            del after_plain
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{name}: the loss did not fall: {losses}")
+    return losses, run, trainer
+
+
+def phase_train(dev, model1_pm1, model1, dlrm):
+    """Training on the card.  (1) lookup_fused_backward against its plain
+    version: phase 4's pm1 model1 (full rows) and the fp32 dlrm_terabyte
+    model ``dlrm`` (the dense-free layout) at B = B_TIME, integer cotangents
+    bit-equal and uniform ones within BACKWARD_TOL, ids with bad ones; the
+    same on micro_test's striped and QR variants and a bf16 one.  (2)
+    ``model1`` (full rows, uniform fp32 tables and weights) trained
+    TRAIN_STEPS Adagrad steps and (3) ``dlrm`` DLRM_TRAIN_STEPS, by
+    train_and_check.  (4) the trained model1 served over loopback, replies
+    bit-equal to direct forwards; forward_train's scores within rtol / atol
+    1e-5 of forward's (a matmul chain against the fused_mlp kernels).
+    Returns the backward's worst errors (fp32, bf16), the model1 run's
+    launch counts and the two Trainers (which the timing reuses)."""
+    t0 = time.time()
+    rng = np.random.default_rng(17)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = [("fleetrec_model1 pm1", model1_pm1), ("dlrm_terabyte", dlrm)]
+    for tag, cfg in (("striped", dataclasses.replace(C.micro_test(batch_size=B_TIME),
+                                                     onehot_max=70, take_stripes=4)),
+                     ("qr", dataclasses.replace(C.micro_test(batch_size=B_TIME), onehot_max=8,
+                                                qr_threshold=80, qr_rem=16)),
+                     ("bf16", dataclasses.replace(C.micro_test(batch_size=B_TIME),
+                                                  onehot_max=70, table_dtype="bfloat16"))):
+        cases.append((f"micro_test {tag}", init_model(cfg, table_scheme="uniform", device=dev)))
+    n_checks = 0
+    for name, m in cases:
+        ids = ids_with_bad(m.cfg, B_TIME, rng)
+        dtype = m.lookup_operands()["bufs"][0].dtype
+        F = m.layout.feature_dim
+        for idt in (torch.int32, torch.int64):
+            idx = torch.from_numpy(ids).to(dev, idt)
+            for exact in (True, False):
+                ct = (rng.integers(-3, 4, (B_TIME, F)) if exact
+                      else rng.uniform(-1, 1, (B_TIME, F))).astype(np.float32)
+                err = check_backward(m, idx, torch.from_numpy(ct).to(dev, dtype), exact,
+                                     f"{name} {idt} {'integer' if exact else 'uniform'}")
+                worst[dtype] = max(worst[dtype], err)
+                n_checks += 1
+    del cases
+    notes = [f"(1) lookup_fused_backward against its plain version in {n_checks} checks "
+             f"(model1 pm1 full rows, dlrm_terabyte at {DLRM_ROWS} rows, micro_test striped / "
+             f"QR / bf16; B={B_TIME}, int32 / int64 ids with bad ones): integer cotangents "
+             f"bit-equal, uniform ones within {BACKWARD_TOL[torch.float32]} (fp32 max_abs_err "
+             f"{worst[torch.float32]:.3g}) and {BACKWARD_TOL[torch.bfloat16]} (bf16 "
+             f"{worst[torch.bfloat16]:.3g})"]
+
+    cfg1 = model1.cfg
+    batch1 = train_batch(cfg1, B_TIME, 18, dev)
+    losses1, run1, trainer1 = train_and_check("fleetrec_model1", model1, batch1, TRAIN_STEPS, dev)
+    dcfg = dlrm.cfg
+    batch_d = train_batch(dcfg, B_TIME, 19, dev)
+    losses_d, run_d, trainer_d = train_and_check("dlrm_terabyte", dlrm, batch_d,
+                                                 DLRM_TRAIN_STEPS, dev)
+    for tag, cfg, m, losses, run in (("(2)", cfg1, model1, losses1, run1),
+                                     ("(3)", dcfg, dlrm, losses_d, run_d)):
+        nbytes = sum(t.numel() * t.element_size() for t in trainable_tensors(m).values())
+        notes.append(f"{tag} {cfg.name} trained at full widths ({nbytes / 1e9:.3f} GB of fp32 "
+                     f"tables and weights), B={B_TIME}, Adagrad 1e-2, {len(losses)} steps on "
+                     f"one batch: loss {losses[0]:.6f} -> {losses[-1]:.6f} ({losses}); a step "
+                     f"launches 1 lookup_fused and 1 lookup_fused_backward and calls no plain "
+                     f"version (run: {run}); the first step's loss bit-equal to the plain "
+                     f"step's, its tensors within {STEP_TOL}")
+
+    cfg_s = C.fleetrec_model1(batch_size=B_SERVE)
+    batches = [(_rand_ids(cfg_s, B_SERVE, rng), None) for _ in range(N_SERVE)]
+    served, serve_launches, _ = serve_loopback(cfg_s, model1, batches)
+    with torch.inference_mode():
+        for k, (i, _) in enumerate(batches):
+            if not np.array_equal(served[k], model1(torch.from_numpy(i).to(dev)).cpu().numpy()):
+                raise AssertionError(f"served trained batch {k} differs from a direct forward")
+    if serve_launches != _launches(N_SERVE, N_SERVE):
+        raise AssertionError(f"trained model1 serve launches {serve_launches}")
+    idx1 = batch1[0]
+    with torch.no_grad():
+        s_train, s_fwd = model1.forward_train(idx1), model1(idx1)
+    torch.testing.assert_close(s_train, s_fwd, rtol=1e-5, atol=1e-5,
+                               msg=lambda m: f"forward_train against forward: {m}")
+    notes.append(f"(4) the trained model1 served ({N_SERVE} batches x {B_SERVE} over loopback), "
+                 f"replies bit-equal to direct forwards, launches {serve_launches}; "
+                 f"forward_train's scores within rtol / atol 1e-5 of forward's (max abs err "
+                 f"{(s_train - s_fwd).abs().max().item():.3g})")
+    log(f"phase 11 training ({time.time() - t0:.1f}s): " + "; ".join(notes))
+    return worst, run1, {"fleetrec_model1": (model1, trainer1, batch1),
+                         "dlrm_terabyte": (dlrm, trainer_d, batch_d)}
 
 
 def _ms(fn, iters: int = 20) -> float:
@@ -1721,6 +1950,186 @@ def phase_report(cfg, model, dev, gb, lookups):
     return stats
 
 
+# the parts of a training step, in order (staged_step)
+TRAIN_PARTS = ("lookup fwd", "towers and heads fwd", "loss", "towers and heads bwd",
+               "gradient zeroing", "lookup bwd", "Adagrad")
+
+
+def staged_step(model, trainer, batch, mark):
+    """One Trainer.step's work split into TRAIN_PARTS, each run inside
+    ``mark(part)`` (which closes it with a synchronize): the same functions
+    on the same tensors (``forward_train`` is ``head_train(*lookup_train)``;
+    the lookup's backward is called as LookupFunction calls it, with its
+    zeroed float32 sums made apart)."""
+    idx, dense, labels = batch
+    if trainer.state is None:
+        trainer.init()
+    tensors = trainable_tensors(model)
+    leaves = {k: v.detach().requires_grad_() for k, v in tensors.items()}
+    with mark("lookup fwd"):
+        feats, bad = model.lookup_train(idx, dense, leaves)
+    feats_in = feats.detach().requires_grad_()
+    with mark("towers and heads fwd"):
+        scores = model.head_train(feats_in, bad, dense, leaves)
+    scores_in = scores.detach().requires_grad_()
+    with mark("loss"):
+        (g_scores,) = torch.autograd.grad(bce_with_logits(scores_in, labels), scores_in)
+    ops = model.lookup_operands()
+    n_tab = len(ops["bufs"])
+    weights = list(leaves.values())[n_tab:]
+    with mark("towers and heads bwd"):
+        g_feats, *g_weights = torch.autograd.grad(scores, [feats_in, *weights], g_scores)
+    with mark("gradient zeroing"):
+        sums = [torch.zeros(b.numel(), dtype=torch.float32, device=b.device) for b in ops["bufs"]]
+    with mark("lookup bwd"):
+        lookup_fused_backward(g_feats, idx, ops["bufs"], ops["cols"], ops["pos"], ops["stripes"],
+                              ops["stripe_height"], out=sums)
+        g_tables = [g.view(b.shape).to(b.dtype) for g, b in zip(sums, ops["bufs"])]
+    with mark("Adagrad"):
+        trainer.opt.update(list(tensors.values()), g_tables + g_weights, trainer.state)
+
+
+def backward_yardstick(model, ct, idx):
+    """(``index_add_`` of the live cotangents at precomputed flat offsets into
+    one float32 buffer of every packed buffer's elements: the one PyTorch
+    call that computes the backward's sums, as a callable; the bytes the
+    backward must move, each counted once: the cotangents, ids and
+    descriptors read, the distinct touched elements read and written)."""
+    ops = model.lookup_operands()
+    cols, pos = ops["cols"], ops["pos"]
+    col, add, o = lookup_mod._decode_pos(pos)
+    off, _ = lookup_offsets_plain(idx, cols, ops["stripes"], ops["stripe_height"])
+    sizes = torch.tensor([0] + [b.numel() for b in ops["bufs"]], device=idx.device)
+    base = sizes.cumsum(0)[cols[:, LOOKUP_COL_FIELDS.index("buf")]]
+    where, vals = [], []
+    for c in (col, add):
+        k = c.clamp(min=0)
+        at = off.index_select(1, k)
+        live = (c >= 0) & (at >= 0)
+        where.append((base[k] + at + o)[live])
+        vals.append(ct[live])
+    where, vals = torch.cat(where), torch.cat(vals)
+    flat = torch.zeros(int(sizes.sum()), dtype=torch.float32, device=idx.device)
+    nbytes = (ct.numel() * 4 + idx.numel() * idx.element_size() + cols.numel() * 8
+              + pos.numel() * 4 + torch.unique(where).numel() * 4 * 2)
+    return functools.partial(flat.index_add_, 0, where, vals), nbytes
+
+
+def time_training(runs, dev):
+    """CUDA-event and host-clock timings of the training step (before any
+    profiled pass), per model of ``runs`` ({name: (model, trainer, batch)}):
+    the step's wall time (host clock around TIME_STEPS steps ending in a
+    synchronize); each part of staged_step (CUDA events, each part closed
+    by a synchronize, so a part's time includes the gaps host dispatch
+    leaves in it; median of TIME_STEPS); the backward kernel over graph
+    replays and eagerly against its plain version (eager, CUDA events: its
+    boolean masks have data-dependent shapes, no graph), on uniform
+    cotangents with preallocated sums; the index_add_ yardstick over graph
+    replays; the byte bound."""
+    out = {}
+    rng = np.random.default_rng(20)
+    for name, (model, trainer, batch) in runs.items():
+        for _ in range(2):
+            trainer.step(*batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIME_STEPS):
+            trainer.step(*batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / TIME_STEPS
+        parts = {p: [] for p in TRAIN_PARTS}
+
+        @contextlib.contextmanager
+        def mark(part):
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield
+            end.record()
+            end.synchronize()
+            parts[part].append(start.elapsed_time(end))
+
+        for _ in range(TIME_STEPS):
+            staged_step(model, trainer, batch, mark)
+        idx = batch[0]
+        ops = model.lookup_operands()
+        F = model.layout.feature_dim
+        ct = torch.from_numpy(rng.uniform(-1, 1, (idx.shape[0], F)).astype(np.float32)).to(dev)
+        args = (ct, idx, ops["bufs"], ops["cols"], ops["pos"], ops["stripes"], ops["stripe_height"])
+        sums_k = [torch.zeros(b.numel(), device=dev) for b in ops["bufs"]]
+        sums_p = [torch.zeros(b.numel(), device=dev) for b in ops["bufs"]]
+        kernel = functools.partial(lookup_fused_backward, *args, out=sums_k)
+        plain = functools.partial(lookup_fused_backward_plain, *args, out=sums_p)
+        ke, pe = _pair(kernel, plain)
+        kg = _graph_ms(kernel)
+        library, nbytes = backward_yardstick(model, ct, idx)
+        lib_ms = _graph_ms(library)
+        del sums_k, sums_p
+        bound_ms, bound_by = bound(nbytes)
+        out[name] = {"wall_ms": wall,
+                     "parts_ms": {p: float(np.median(v)) for p, v in parts.items()}, "ms": kg, "ms_eager": ke, "plain_ms": pe, "library_ms": lib_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
+        r = out[name]
+        log(f"time training step {name} B={B_TIME}: {wall:.4f} ms a step (host clock over "
+            f"{TIME_STEPS} steps, synchronized); by part (CUDA events, each part closed by a "
+            f"synchronize): " + ", ".join(f"{p} {ms:.4f} ms" for p, ms in r["parts_ms"].items()))
+        log(f"time lookup_fused_backward {name} B={B_TIME}: kernel {kg:.4f} ms (CUDA events over "
+            f"graph replays; eager back-to-back {ke:.4f} ms), plain {pe:.4f} ms (eager), "
+            f"index_add_ {lib_ms:.4f} ms (graph replays); bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{nbytes} B counted once), kernel at {bound_ms / kg:.3f} of it")
+    return out
+
+
+def profile_training(runs, timed):
+    """Profiled passes of the training step (after every CUDA-event timing):
+    the device busy time of a Trainer.step (device events summed over
+    TIME_STEPS steps) and its idle share against the wall time of
+    ``timed``; the device time of each part of staged_step (each device
+    event in the last part that began before it), their launches, and the
+    backward kernel's time inside the step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for name, (model, trainer, batch) in runs.items():
+        busy, _, rows, n_launch = _profile(lambda: trainer.step(*batch), TIME_STEPS)
+
+        @contextlib.contextmanager
+        def mark(part):
+            with record_function(f"train: {part}"):
+                yield
+                torch.cuda.synchronize()
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(TIME_STEPS):
+                staged_step(model, trainer, batch, mark)
+        events = prof.events()
+        # the parts' host ranges (the profiler may mirror them on the device
+        # timeline as annotations: those are no device work)
+        starts = sorted((e.time_range.start, e.name[len("train: "):]) for e in events
+                        if e.name.startswith("train: ") and e.device_type == DeviceType.CPU)
+        parts = {p: [0.0, 0] for p in TRAIN_PARTS}
+        for e in events:
+            if e.device_type != DeviceType.CUDA or e.name.startswith("train: "):
+                continue
+            before = [p for t, p in starts if t <= e.time_range.start]
+            if before:
+                parts[before[-1]][0] += e.time_range.elapsed_us() / 1e3 / TIME_STEPS
+                parts[before[-1]][1] += 1
+        wall = timed[name]["wall_ms"]
+        idle = "not measured" if busy is None else f"{max(0.0, 1 - busy / wall):.3f}"
+        timed[name]["busy_ms"] = busy
+        timed[name]["device_parts_ms"] = {p: ms for p, (ms, _) in parts.items()}
+        bwd = sum(ms for k, ms in rows if "lookup_backward" in k)
+        log(f"time training step {name} B={B_TIME} (profiled): device busy {_fmt(busy)} a step, "
+            f"wall {wall:.4f} ms, device idle share {idle}, {n_launch:g} kernel launches; "
+            f"lookup_backward_kernel {bwd:.4f} ms of it; device time by part (profiler, staged "
+            f"step): " + ", ".join(f"{p} {ms:.4f} ms ({n / TIME_STEPS:g} launches)"
+                                   for p, (ms, n) in parts.items()))
+        for kname, ms in rows[:10]:
+            log(f"  device time per training step: {ms:.4f} ms  {kname[:80]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no result",
@@ -1741,7 +2150,7 @@ def main() -> int:
     err_g = phase_gather(dev)
     err_gg = phase_grouped(dev, gb)
     err_m, err_mb, err_towers = phase_mlp(dev)
-    cfg, model, tabs, ws, err_tiers, err_tiers_gg = phase_model1(dev)
+    cfg, model, tabs, ws, err_tiers, err_tiers_gg, model_u = phase_model1(dev)
     err_g = max(err_g, err_tiers)
     err_gg = max(err_gg, err_tiers_gg)
     t_dlrm = time.perf_counter()
@@ -1755,7 +2164,11 @@ def main() -> int:
     err_dlrm, dlrm_launches = phase_heads(dev, dlrm)
     del dlrm  # the host tables; the model stays in lookups
     err_bags, bag_launches = phase_bags(dev, model, tabs, ws, lookups)
+    err_bwd, train_launches, runs = phase_train(dev, model, model_u,
+                                                lookups["dlrm_terabyte"][1])
+    trained = time_training(runs, dev)
     stats = phase_report(cfg, model, dev, gb, lookups)
+    profile_training(runs, trained)
     tiers, gb_a = stats["gather_rows all tiers"], stats["gather_rows gatherbench shape"]
     mlp, mlp_bf = stats[f"fused_mlp fp32 model1 B={B_TIME}"], stats[f"fused_mlp bf16 model1 B={B_TIME}"]
     lk = stats[f"lookup_fused fleetrec_model1 B={B_TIME}"]
@@ -1815,6 +2228,23 @@ def main() -> int:
                                for B in (B_TIME, 1024) for L in BAG_LS]
             + [("model3", f"lookup_fused_bags fleetrec_model3 B={B_TIME} L={BAG_L_SMALL}")]
             for k in ("ms", "plain_ms", "bound_ms", "replaced_ms", "ms_ids0")}},
+        # the lookup's backward (training): launches of model1's training run
+        # (one a step); times at model1 B_TIME (plain eager: its masks have
+        # data-dependent shapes), then dlrm; library_ms one index_add_ of the
+        # live cotangents at precomputed offsets; no TPU kernel: it computes
+        # XLA's VJP of lookup_concat
+        {"name": "lookup_fused_backward", "route": "cuda",
+         "source": "fleetrec_tpu_torch/ops/csrc/lookup_fused.cu",
+         "replaces": "fleetrec_tpu/models/embedding.py:531",
+         "launches": train_launches["lookup_fused_backward"],
+         "max_abs_err": err_bwd[torch.float32], "max_abs_err_bf16": err_bwd[torch.bfloat16],
+         **{k: trained["fleetrec_model1"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         **{f"{k}_dlrm": trained["dlrm_terabyte"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         **{f"step_{k}_{tag}": trained[name][k]
+            for tag, name in (("model1", "fleetrec_model1"), ("dlrm", "dlrm_terabyte"))
+            for k in ("wall_ms", "busy_ms")}},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ kernel, ``ops/csrc/lookup_fused.cu``), an optional interaction head (DLRM's
 pairwise dots with its bottom tower, or DCNv2's cross layers) and the
 bias-free MLP tower (the fused-MLP kernel, ``ops/csrc/fused_mlp.cu``) to [B]
 scores, served over the native ingest tier; feature mode serves the tower
-alone.  ``io.py`` reads
+alone.  ``models/train.py`` trains a model in place on one device (BCE,
+Adagrad; the lookup's backward is a hand-written kernel too).  ``io.py`` reads
 and writes the JAX package's npz checkpoints, and the CLI's ``bench``,
 ``gatherbench`` (with the grouped gather kernel,
 ``ops/csrc/gather_grouped.cu``), ``autotune``, ``servebench``,

@@ -17,7 +17,7 @@ import torch
 
 from .config import ModelConfig
 from .models.embedding import PackedTables, plan_tensors
-from .models.fleetrec import FleetRecModel, ModelPlan, weight_shapes
+from .models.fleetrec import FleetRecModel, ModelPlan, resolve_device, weight_shapes
 
 
 def tensor_from_numpy(arr: np.ndarray, device="cpu") -> torch.Tensor:
@@ -29,9 +29,10 @@ def tensor_from_numpy(arr: np.ndarray, device="cpu") -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def params_from_jax(cfg: ModelConfig, params_np: Mapping, device="cpu") -> FleetRecModel:
+def params_from_jax(cfg: ModelConfig, params_np: Mapping, device="cuda") -> FleetRecModel:
     """The JAX package's ``(model, params)`` for ``cfg`` -> the port's
-    FleetRecModel on ``device``.
+    FleetRecModel on ``device`` (the card unless the caller asks for the
+    CPU; without a card, "cuda" raises).
 
     params_np: ``{"tables": PackedTables, "mlp": [...]}`` as the JAX
     ``init_model`` returns it, with numpy leaves, and for the interaction
@@ -39,6 +40,7 @@ def params_from_jax(cfg: ModelConfig, params_np: Mapping, device="cpu") -> Fleet
     is checked against ``cfg``.  The JAX PackedTables is read by its fields
     (onehot_buffers, take_buffer, onehot_scales, take_scales); its class is
     not imported."""
+    device = resolve_device(device)
     plan = ModelPlan.create(cfg)
     lay = plan.layout
     tables = params_np["tables"]

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from .models.embedding import TORCH_DTYPES, PackedTables, _pow2_scale, plan_tensors
-from .models.fleetrec import FleetRecModel, ModelPlan, weight_shapes
+from .models.fleetrec import FleetRecModel, ModelPlan, resolve_device, weight_shapes
 
 
 def config_fingerprint(cfg) -> str:
@@ -193,11 +193,13 @@ def _expected_arrays(plan: ModelPlan) -> Dict[str, Tuple[int, ...]]:
     return out
 
 
-def load_npz(path: str, cfg, device="cpu") -> FleetRecModel:
-    """Build the FleetRecModel for ``cfg`` on ``device`` from a save_npz
-    file (of either package).  Raises ConfigMismatchError when the stored
+def load_npz(path: str, cfg, device="cuda") -> FleetRecModel:
+    """Build the FleetRecModel for ``cfg`` on ``device`` (the card unless
+    the caller asks for the CPU; without a card, "cuda" raises) from a
+    save_npz file (of either package).  Raises ConfigMismatchError when the stored
     fingerprint is not ``cfg``'s, or an array is missing or has a shape
     other than the layout's."""
+    device = resolve_device(device)
     tdtype, mdtype = TORCH_DTYPES[cfg.table_dtype], TORCH_DTYPES[cfg.dtype]
     got = {}
     with np.load(path) as data:

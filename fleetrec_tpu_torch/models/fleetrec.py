@@ -5,12 +5,16 @@ bias-free MLP -> [B] scores, on one device.
 ``ModelPlan`` is the static half (the JAX package's frozen
 ``FleetRecModel``: layout, index permutation, QR plan).  ``FleetRecModel``
 is an ``nn.Module`` that owns the packed tables, the towers' and cross
-layers' weights and the lookup descriptors as buffers (inference only)
-and runs the forward: ``lookup`` (the fused lookup kernel: ``plan_indices``,
+layers' weights and the lookup descriptors as buffers (``parameters()``
+is empty; training reads the weights through ``trainable_tensors``) and
+runs the forward: ``lookup`` (the fused lookup kernel: ``plan_indices``,
 every tier, ``take_bad_rows`` and the feature layout in one launch), the
 head (``mlp_apply``, the fused-MLP kernel; a DCNv2 cross network before it,
 or the DLRM ``interaction_head``: bottom tower, pairwise dots, top tower)
-and the NaN poison.  ``plan_indices``, ``bad_take_rows`` and
+and the NaN poison.  ``forward_train`` is the same forward under autograd
+for training (``models/train.py``): ``LookupFunction`` (the fused lookup
+and its backward kernel) and the ``mlp_train`` matmul chain, over the
+tensors ``trainable_tensors`` names.  ``plan_indices``, ``bad_take_rows`` and
 ``lookup_concat`` (one gather a tier) stay as the ports of the JAX
 functions that ``lookup`` computes.  ``lookup_pooled`` / ``forward_pooled``
 are the same for multi-hot bags ``[B, num_tables, L]`` (``models/pooled.py``):
@@ -20,7 +24,7 @@ one ``lookup_fused_bags`` launch, then the tower.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,8 +43,8 @@ from .embedding import (
     take_bad_rows,
 )
 from .interaction import cross_network, dot_interaction, init_cross_params, pair_columns
-from .mlp import init_mlp_params, mlp_apply
-from ..ops.lookup import lookup_fused, lookup_fused_bags
+from .mlp import init_mlp_params, mlp_apply, mlp_train
+from ..ops.lookup import LookupFunction, lookup_fused, lookup_fused_bags
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,13 +253,60 @@ class FleetRecModel(nn.Module):
         self._check_inputs(indices, dense, cfg.dense_dim)
         feats, bad = self._lookup(indices, dense)
         if cfg.interaction == "dot":
-            return self.poison_scores(interaction_head(cfg, self, feats, dense), bad)
+            return self.poison_scores(interaction_head(
+                cfg, self.pair_cols, feats, dense, self.bottom_weights, self.mlp_weights), bad)
         x = feats.to(TORCH_DTYPES[cfg.dtype])
         if cfg.interaction == "cross":
             x = cross_network(x, self.cross_weights)
         scores = mlp_apply(self.mlp_weights, x, activation=cfg.mlp.activation)
         return self.poison_scores(scores[:, 0], bad)
 
+    def forward_train(self, indices: torch.Tensor, dense: Optional[torch.Tensor] = None,
+                      tensors: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """``forward`` for training, under autograd: the same checks, heads
+        and NaN poison (out of place, so a poisoned row's gradient is 0):
+        ``head_train(*lookup_train(...))``.  ``tensors``:
+        ``trainable_tensors``' names -> the tensors read in their place (the
+        Trainer passes leaves that alias the buffers and require grad); None
+        reads the buffers.  int8 tables raise."""
+        self._check_inputs(indices, dense, self.cfg.dense_dim)
+        t = trainable_tensors(self) if tensors is None else tensors
+        feats, bad = self.lookup_train(indices, dense, t)
+        return self.head_train(feats, bad, dense, t)
+
+    def lookup_train(self, indices: torch.Tensor, dense: Optional[torch.Tensor],
+                     tensors: Dict[str, torch.Tensor]
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``lookup`` through ``LookupFunction`` (``lookup_fused``, with
+        ``lookup_fused_backward`` as its backward) over the packed buffers of
+        ``tensors``; int8 tables raise."""
+        ops = self.lookup_operands()
+        bufs = [tensors[f"onehot_{i}"] for i in range(self._n_onehot)]
+        if self.take is not None:
+            bufs.append(tensors["take"])
+        return LookupFunction.apply(
+            indices, dense if self.layout.dense_dim else None, ops["cols"], ops["pos"],
+            ops["stripes"], ops["stripe_height"], ops["dense_dim"], ops["with_bad"], *bufs)
+
+    def head_train(self, feats: torch.Tensor, bad: Optional[torch.Tensor],
+                   dense: Optional[torch.Tensor], tensors: Dict[str, torch.Tensor]
+                   ) -> torch.Tensor:
+        """The forward after the lookup, from the weights of ``tensors``:
+        the head with ``mlp_train`` towers (a matmul chain, never the
+        ``fused_mlp`` kernels), then the NaN poison out of place."""
+        cfg = self.cfg
+        mlp = [tensors[f"mlp_{i}"] for i in range(self._n_mlp)]
+        if cfg.interaction == "dot":
+            scores = interaction_head(cfg, self.pair_cols, feats, dense,
+                                      [tensors[f"bottom_{i}"] for i in range(self._n_bottom)],
+                                      mlp, tower=mlp_train)
+        else:
+            x = feats.to(TORCH_DTYPES[cfg.dtype])
+            if cfg.interaction == "cross":
+                x = cross_network(x, [[tensors[f"cross_{li}_{j}"] for j in range(n)]
+                                      for li, n in enumerate(self._cross_shape)])
+            scores = mlp_train(mlp, x, activation=cfg.mlp.activation)[:, 0]
+        return scores if bad is None else scores.masked_fill(bad, float("nan"))
 
     def lookup_pooled(self, indices: torch.Tensor, dense: Optional[torch.Tensor] = None,
                       mean: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -297,27 +348,57 @@ def check_pooled_config(cfg: ModelConfig) -> None:
                          f"{cfg.interaction!r} ({cfg.name}): only for 'none'")
 
 
-def interaction_head(cfg: ModelConfig, model: FleetRecModel, emb_flat: torch.Tensor,
-                     dense: Optional[torch.Tensor]) -> torch.Tensor:
+def interaction_head(cfg: ModelConfig, pair_cols: torch.Tensor, emb_flat: torch.Tensor,
+                     dense: Optional[torch.Tensor], bottom_weights: Sequence[torch.Tensor],
+                     top_weights: Sequence[torch.Tensor], tower=mlp_apply) -> torch.Tensor:
     """DLRM head: [B, T*D] offset-order embeddings (and the dense features
-    through the bottom tower) -> pairwise dot interaction -> top tower ->
-    scores [B] float32.  The bottom tower applies its activation to every
-    layer but the last, as ``mlp_apply`` does, so its D-wide output has no
-    ReLU (the MLPerf DLRM bottom MLP has one there); the port keeps the JAX
-    package's tower for parity."""
+    through the bottom tower) -> pairwise dot interaction (over the
+    triangle's flat columns ``pair_cols``) -> top tower -> scores [B]
+    float32.  ``tower``: the function that runs a tower (``mlp_apply``, or
+    ``mlp_train`` for training).  The bottom tower applies its activation to
+    every layer but the last, as ``mlp_apply`` does, so its D-wide output
+    has no ReLU (the MLPerf DLRM bottom MLP has one there); the port keeps
+    the JAX package's tower for parity."""
     dtype = TORCH_DTYPES[cfg.dtype]
     B = emb_flat.shape[0]
     vecs = emb_flat.reshape(B, cfg.num_tables, cfg.tables[0].dim).to(dtype)
     bottom = None
     if cfg.bottom_mlp is not None:
-        bottom = mlp_apply(model.bottom_weights, dense.to(dtype),
-                           activation=cfg.bottom_mlp.activation, out_dtype=dtype)
+        bottom = tower(bottom_weights, dense.to(dtype),
+                       activation=cfg.bottom_mlp.activation, out_dtype=dtype)
         vecs = torch.cat([bottom[:, None, :], vecs], dim=1)
-    z = dot_interaction(vecs, model.pair_cols)
+    z = dot_interaction(vecs, pair_cols)
     if bottom is not None:
         z = torch.cat([bottom, z], dim=1)
-    scores = mlp_apply(model.mlp_weights, z, activation=cfg.mlp.activation)
+    scores = tower(top_weights, z, activation=cfg.mlp.activation)
     return scores[:, 0]
+
+
+def trainable_tensors(model: FleetRecModel) -> Dict[str, torch.Tensor]:
+    """The tensors training updates, named as the leaves of the JAX
+    package's params pytree: ``onehot_<i>`` and ``take`` (the packed
+    buffers, ``PackedTables``' leaves), ``mlp_<i>``, ``bottom_<i>`` and
+    ``cross_<layer>_<j>``; never an int8 scale or a descriptor.  They are
+    the module's buffers themselves, so updating them in place updates the
+    model."""
+    names = [f"onehot_{i}" for i in range(model._n_onehot)]
+    if model.take is not None:
+        names.append("take")
+    names += [f"mlp_{i}" for i in range(model._n_mlp)]
+    names += [f"bottom_{i}" for i in range(model._n_bottom)]
+    names += [f"cross_{li}_{j}" for li, n in enumerate(model._cross_shape) for j in range(n)]
+    return {n: getattr(model, n) for n in names}
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device.  The port's entry points run on the
+    card unless the caller asks for the CPU: a CUDA device that this host
+    does not have raises, and nothing falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r}: this host has no CUDA device (pass "
+                           f"device='cpu' to run on the CPU)")
+    return dev
 
 
 def weight_shapes(cfg: ModelConfig) -> dict:
@@ -342,13 +423,15 @@ def init_model(
     seed: int = 0,
     tables_np: Optional[Sequence[np.ndarray]] = None,
     mlp_np: Optional[Sequence[np.ndarray]] = None,
-    device="cpu",
+    device="cuda",
 ) -> FleetRecModel:
-    """Build the model on ``device``.  Default data is the reference parity
+    """Build the model on ``device`` (the card unless the caller asks for
+    the CPU; without a card, "cuda" raises).  Default data is the reference parity
     convention (pm1 tables, all-ones weights, zero cross biases),
     numpy-seeded as in the JAX package (the bottom tower in the seed + 1
     namespace, the cross layers in seed + 2); pass tables_np/mlp_np to load
     real tables and top-tower weights."""
+    device = resolve_device(device)
     plan = ModelPlan.create(cfg)
     specs = plan.spec_tables or tuple(cfg.tables)
     if tables_np is None:

@@ -4,7 +4,8 @@ default) and the DLRM bottom tower.
 
 On a CUDA tensor ``mlp_apply`` runs the ``fused_mlp`` kernels (one
 launch a layer, the activations between them in an L2-resident scratch);
-on a CPU tensor it runs the plain chain.  Both keep
+on a CPU tensor it runs the plain chain.  ``mlp_train``, the training
+path's tower, is a ``torch.matmul`` chain under autograd.  All keep
 the JAX package's compute-dtype rule: the compute dtype is ``x.dtype`` on
 entry, weights are cast to it per layer, sums are fp32, and activations
 re-narrow to it between layers."""
@@ -50,3 +51,30 @@ def mlp_apply(
     fp32 sums of the last layer are cast to ``out_dtype`` once, as the JAX
     package rounds them."""
     return fused_mlp(weights, x, activation).to(out_dtype)
+
+
+def mlp_train(
+    weights: Sequence[torch.Tensor],
+    x: torch.Tensor,
+    activation: Optional[str] = None,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """The tower for training: ``mlp_apply``'s function as a ``torch.matmul``
+    chain that autograd differentiates, never the ``fused_mlp`` kernels (the
+    JAX package differentiates its XLA chain, and its Pallas tower is
+    inference-only).  The same compute-dtype rule: weights cast to
+    ``x.dtype`` a layer, fp32 operands and sums (TF32 stays off), the ReLU
+    on the fp32 sums of every layer but the last, activations re-narrowed
+    between layers, the last layer's sums cast to ``out_dtype`` once.  The
+    ReLU is ``max(h, 0)``, whose gradient at 0 is halved as ``jnp.maximum``'s
+    is."""
+    dtype = x.dtype
+    zero = x.new_zeros((), dtype=torch.float32)
+    h = x
+    for i, w in enumerate(weights):
+        h = torch.matmul(h.float(), w.to(dtype).float())
+        if i < len(weights) - 1:
+            if activation == "relu":
+                h = torch.maximum(h, zero)
+            h = h.to(dtype)
+    return h.to(out_dtype)

@@ -80,6 +80,11 @@
 // is an argument, bounded only by shared memory: 8 bytes a (row, plan column,
 // slot) and 4 a (row, plan column) on top of the descriptors, so a tile holds
 // fewer rows as L grows (ops/lookup.py::launch_shape).
+//
+// The backward kernel (lookup_backward_kernel, entry point
+// fr_lookup_fused_backward) is the single-id kernel's gradient for training:
+// it walks the same descriptors and adds the features' cotangent into float32
+// gradient buffers laid out as the packed buffers (see the kernel).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -668,6 +673,72 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The backward of the single-id kernel (entry point fr_lookup_fused_backward):
+// the features' cotangent grad [B, F] float32 added into float32 gradient
+// buffers laid out as the packed buffers (`bufs` holds their pointers).
+// Replaces XLA's VJP of lookup_concat (fleetrec_tpu/models/embedding.py:503-528,
+// the transposed one-hot products; :581 and :598-599, the take and its
+// mask-einsum, a scatter-add; :604, the QR sums; :616, the feature_perm take).
+// Pass 1 is the forward's: a row address a (row, plan column), here into the
+// gradient buffers, null for an id that reads no row.  Pass 2 walks the tile's
+// cotangents in order (coalesced loads) and adds each into the element its
+// output column read, and into the QR remainder column's element too; a zero
+// or dense column and a null row add nothing.  Every add is an atomicAdd
+// (float sums in an order that changes from run to run; exact for integers
+// below 2^24).  What bounds it: the adds, one a (row, embedding column);
+// model1's small one-hot tables take thousands of adds on one element.
+template <typename I>
+__global__ void __launch_bounds__(kThreads)
+    lookup_backward_kernel(Buffers grads, const I* __restrict__ ids,
+                           const int64_t* __restrict__ cols, const int2* __restrict__ pos,
+                           const float* __restrict__ grad, int B, int T, int n_plan, int F,
+                           int rows, int64_t stripes, int64_t stripe_height) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int2* s_pos = reinterpret_cast<int2*>(smem);
+  Col* s_col = reinterpret_cast<Col*>(s_pos + F);
+  const void** s_row = reinterpret_cast<const void**>(s_col + n_plan);
+  __shared__ const void* s_buf[kMaxBufs];
+  __shared__ const float* s_sc[kMaxBufs];
+
+  stage(grads, cols, pos, n_plan, F, s_pos, s_col, s_buf, s_sc);
+  const uint32_t S = (uint32_t)stripes;
+  const int tiles = (B + rows - 1) / rows;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int b0 = tile * rows;
+    const int nr = min(rows, B - b0);
+    __syncthreads();  // s_col is staged; the last tile is done with s_row
+
+    // pass 1: a gradient row address a (row, plan column), null for none
+    const I* tile_ids = ids + (int64_t)b0 * T;
+    for (int u = threadIdx.x; u < nr * n_plan; u += kThreads) {
+      const int r = u / n_plan;
+      const Col& c = s_col[u - r * n_plan];
+      int64_t id = (int64_t)tile_ids[(int64_t)r * T + c.src];
+      if (c.op == kOpDiv) id = floor_div(id, c.rem);
+      else if (c.op == kOpMod) id = floor_mod(id, c.rem);
+      s_row[u] = id >= 0 && id < c.lim
+                     ? row_address<float>(c, (uint32_t)id, s_buf, S, stripe_height)
+                     : nullptr;
+    }
+    __syncthreads();
+
+    // pass 2: each cotangent into the element(s) its output column read
+    const float* tile_grad = grad + (int64_t)b0 * F;
+    for (int u = threadIdx.x; u < nr * F; u += kThreads) {
+      const int r = u / F;
+      const int2 e = s_pos[u - r * F];
+      const int col = (short)(e.x & 0xFFFF), add = e.x >> 16;  // low half sign-extended
+      if (col < 0) continue;
+      const float g = __ldg(tile_grad + u);
+      const int o = e.y & kOffMask;
+      const void* const* rp = s_row + r * n_plan;
+      if (rp[col] != nullptr) atomicAdd(static_cast<float*>(const_cast<void*>(rp[col])) + o, g);
+      if (add >= 0 && rp[add] != nullptr)
+        atomicAdd(static_cast<float*>(const_cast<void*>(rp[add])) + o, g);
+    }
+  }
+}
+
 // Raises the kernel's dynamic shared-memory limit to the block's maximum,
 // once per device: `done` holds one bit a device.
 template <typename Kernel>
@@ -715,6 +786,18 @@ cudaError_t launch_bags(const Args& a, cudaStream_t st) {
           static_cast<const int64_t*>(a.cols), static_cast<const int2*>(a.pos),
           static_cast<typename Elem<TS>::Out*>(a.out), static_cast<bool*>(a.bad), a.B, a.T,
           a.L, a.n_plan, a.F, a.dense_dim, a.rows, a.mean, a.stripes, a.stripe_height);
+  return cudaGetLastError();
+}
+
+template <typename I>
+cudaError_t launch_backward(const Args& a, const float* grad, cudaStream_t st) {
+  static unsigned long long smem_set = 0;
+  cudaError_t err = allow_smem(lookup_backward_kernel<I>, smem_set);
+  if (err != cudaSuccess) return err;
+  lookup_backward_kernel<I><<<a.grid, kThreads, smem_bytes(a.F, a.n_plan, a.rows), st>>>(
+      a.bufs, static_cast<const I*>(a.ids), static_cast<const int64_t*>(a.cols),
+      static_cast<const int2*>(a.pos), grad, a.B, a.T, a.n_plan, a.F, a.rows, a.stripes,
+      a.stripe_height);
   return cudaGetLastError();
 }
 
@@ -817,4 +900,36 @@ extern "C" int fr_lookup_fused_bags(const void* const* bufs, const void* const* 
   return run(bufs, scales, n_bufs, storage, ids, ids_64, dense, cols, pos, out, bad, B, T,
              n_plan, F, dense_dim, rows, grid, stripes, stripe_height, vec, L, mean != 0,
              stream);
+}
+
+// The backward kernel, one launch on `stream`: grads, n_bufs float32 gradient
+// buffers laid out as the packed buffers (the class buffers, then the take
+// buffer), which it adds into; ids [B, T] int32 (ids_64 = 0) or int64; cols /
+// pos: lookup_tensors' descriptors; grad [B, F] float32, the features'
+// cotangent; rows / grid from ops/lookup.py::launch_shape.
+extern "C" int fr_lookup_fused_backward(void* const* grads, int n_bufs, const void* ids,
+                                        int ids_64, const void* cols, const void* pos,
+                                        const void* grad, int64_t B, int T, int n_plan, int F,
+                                        int rows, int grid, int64_t stripes,
+                                        int64_t stripe_height, void* stream) {
+  if (n_bufs < 1 || n_bufs > kMaxBufs || B < 1 || B > INT32_MAX || rows < 1 || grid < 1 ||
+      (int64_t)rows * F > INT32_MAX / 2 || (int64_t)rows * n_plan > INT32_MAX / 2 ||
+      smem_bytes(F, n_plan, rows) > kSmemMax || stripes < 1)
+    return (int)cudaErrorInvalidValue;
+  Args a = {};
+  for (int i = 0; i < n_bufs; ++i) a.bufs.ptr[i] = grads[i];
+  a.ids = ids;
+  a.cols = cols;
+  a.pos = pos;
+  a.B = (int)B;
+  a.T = T;
+  a.n_plan = n_plan;
+  a.F = F;
+  a.rows = rows;
+  a.grid = grid;
+  a.stripes = stripes;
+  a.stripe_height = stripe_height;
+  const float* g = static_cast<const float*>(grad);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(ids_64 ? launch_backward<int64_t>(a, g, st) : launch_backward<int32_t>(a, g, st));
 }

@@ -42,6 +42,14 @@ bfloat16, the take tier sums in bfloat16, the mean multiplies in
 bfloat16); on float32 and int8 storage, and on small-integer data in any
 dtype, the two agree to the last bit or to a float32 sum's order.  L = 1
 with no negative id reproduces ``lookup_fused`` bit for bit.
+
+``lookup_fused_backward`` is ``lookup_fused``'s gradient with respect to
+the packed buffers, for training (the port of the VJP XLA derives from
+``lookup_concat`` in the JAX package): the third kernel of
+``lookup_fused.cu`` walks the same descriptors and adds each cotangent
+into the element its output column read, with float32 atomics;
+``lookup_fused_backward_plain`` does the same with ``index_add_``.
+``LookupFunction`` is the ``torch.autograd.Function`` that pairs the two.
 """
 
 from __future__ import annotations
@@ -443,3 +451,173 @@ def lookup_fused_bags(ids: torch.Tensor, dense: Optional[torch.Tensor],
 
 
 lookup_fused_bags.launches = 0
+
+
+def require_float_storage(bufs: Sequence[torch.Tensor]) -> None:
+    """Raise ValueError when the packed buffers hold int8: quantized tables
+    have no gradient (the JAX package's ``check_trainable``)."""
+    if any(b.dtype == torch.int8 for b in bufs):
+        raise ValueError(
+            "training requires float table storage (table_dtype='float32' or "
+            "'bfloat16'); this model holds int8-quantized tables: rebuild it with "
+            "a float table_dtype and quantize only the serving checkpoint "
+            "(io.quantize_tables)")
+
+
+def _check_backward(grad_out: torch.Tensor, ids: torch.Tensor,
+                    bufs: Sequence[torch.Tensor], cols: torch.Tensor, pos: torch.Tensor,
+                    out: Optional[Sequence[torch.Tensor]]) -> None:
+    if ids.dim() != 2 or ids.dtype not in _IDX_DTYPES:
+        raise TypeError(f"ids must be [B, T] int32 or int64, got {tuple(ids.shape)} {ids.dtype}")
+    if cols.dim() != 2 or cols.shape[1] != len(LOOKUP_COL_FIELDS) or pos.dim() != 2:
+        raise ValueError("cols / pos are not lookup_tensors' descriptors")
+    require_float_storage(bufs)
+    if tuple(grad_out.shape) != (ids.shape[0], pos.shape[0]):
+        raise ValueError(f"grad_out must be [{ids.shape[0]}, {pos.shape[0]}], got "
+                         f"{tuple(grad_out.shape)}")
+    if out is not None and (len(out) != len(bufs) or any(
+            o.dtype != torch.float32 or o.numel() != b.numel() or not o.is_contiguous()
+            for o, b in zip(out, bufs))):
+        raise ValueError("out must hold one contiguous float32 buffer of each packed "
+                         "buffer's size")
+    tensors = [grad_out, ids, cols, pos, *bufs, *(out or [])]
+    if any(t.device != ids.device for t in tensors):
+        raise ValueError("the lookup's tensors lie on more than one device")
+
+
+def _gradients(bufs: Sequence[torch.Tensor],
+               out: Optional[Sequence[torch.Tensor]]) -> list:
+    """The flat float32 buffers the gradients are summed in: ``out``, or
+    zeros."""
+    if out is not None:
+        return [o.view(-1) for o in out]
+    return [torch.zeros(b.numel(), dtype=torch.float32, device=b.device) for b in bufs]
+
+
+def _finish(grads: Sequence[torch.Tensor], bufs: Sequence[torch.Tensor],
+            out: Optional[Sequence[torch.Tensor]]) -> list:
+    """``out`` as it was given, or each sum in its buffer's shape, cast once
+    to its storage dtype."""
+    if out is not None:
+        return list(out)
+    return [g.view(b.shape).to(b.dtype) for g, b in zip(grads, bufs)]
+
+
+def lookup_fused_backward_plain(grad_out: torch.Tensor, ids: torch.Tensor,
+                                bufs: Sequence[torch.Tensor], cols: torch.Tensor,
+                                pos: torch.Tensor, stripes: int = 1, stripe_height: int = 0,
+                                out: Optional[Sequence[torch.Tensor]] = None) -> list:
+    """``lookup_fused_backward`` with PyTorch ops: the element offsets of
+    ``lookup_offsets_plain``, then ``index_add_`` of the cotangents in
+    float32, a quotient column's also into its QR remainder column's
+    element."""
+    _check_backward(grad_out, ids, bufs, cols, pos, out)
+    grads = _gradients(bufs, out)
+    col, add, o = _decode_pos(pos)
+    off, _ = lookup_offsets_plain(ids, cols, stripes, stripe_height)
+    g = grad_out.float()
+    buf_of = cols[:, _F["buf"]]
+    for c in (col, add):
+        k = c.clamp(min=0)
+        at = off.index_select(1, k)
+        live = (c >= 0) & (at >= 0)
+        for i, flat in enumerate(grads):
+            m = live & (buf_of[k] == i)
+            flat.index_add_(0, (at + o)[m], g[m])
+    return _finish(grads, bufs, out)
+
+
+@functools.cache
+def _entry_backward():
+    fn = _build.kernels().fr_lookup_fused_backward
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    return fn
+
+
+def lookup_fused_backward(grad_out: torch.Tensor, ids: torch.Tensor,
+                          bufs: Sequence[torch.Tensor], cols: torch.Tensor,
+                          pos: torch.Tensor, stripes: int = 1, stripe_height: int = 0,
+                          out: Optional[Sequence[torch.Tensor]] = None) -> list:
+    """The gradient of ``lookup_fused``'s features with respect to the packed
+    buffers: the cotangent ``grad_out`` [B, feature_dim] (float32 or
+    bfloat16) and ``lookup_fused``'s ids, float buffers (classes, then the
+    take buffer) and descriptors -> one gradient a buffer, in its shape and
+    storage dtype.  Each cotangent adds into the element its output column
+    read (a QR quotient column's also into its remainder column's); zero and
+    dense columns and ids that read no row add nothing (the JAX package's
+    VJP of ``lookup_concat`` adds a bad take id's cotangent, which the
+    model's NaN poison makes 0, to a wrapped or dropped row).  The sums are
+    float32 and rounded once to the storage dtype.  ``out``: float32
+    buffers (one a packed buffer, any shape of its size) to add into in
+    place of zeroed ones, returned as they are.  int8 storage raises.
+
+    On a CUDA tensor it launches the backward kernel of ``lookup_fused.cu``
+    or raises (its atomic float adds sum in an order that changes from run
+    to run: bit-equal to ``lookup_fused_backward_plain`` on integer
+    cotangents whose sums stay below 2^24); on a CPU tensor it runs
+    ``lookup_fused_backward_plain``."""
+    _check_backward(grad_out, ids, bufs, cols, pos, out)
+    if ids.device.type == "cpu":
+        return lookup_fused_backward_plain(grad_out, ids, bufs, cols, pos, stripes,
+                                           stripe_height, out)
+    if ids.device.type != "cuda":
+        raise ValueError(f"no lookup kernel for device {ids.device}")
+    if len(bufs) > MAX_BUFS:
+        raise ValueError(f"{len(bufs)} buffers: the kernel takes {MAX_BUFS}")
+    if not all(t.is_contiguous() for t in (ids, cols, pos)):
+        raise ValueError("the lookup kernel needs contiguous tensors")
+    g = grad_out.float().contiguous()
+    grads = _gradients(bufs, out)
+    B, T = ids.shape
+    n_plan, F = cols.shape[0], pos.shape[0]
+    if B:
+        dev = ids.device
+        rows, grid = launch_shape(B, F, n_plan, _sm_count(dev.index or 0))
+        ptrs = (ctypes.c_void_p * len(grads))(*[t.data_ptr() for t in grads])
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = _entry_backward()(ptrs, len(grads), ids.data_ptr(),
+                                   int(ids.dtype == torch.int64), cols.data_ptr(),
+                                   pos.data_ptr(), g.data_ptr(), B, T, n_plan, F, rows, grid,
+                                   stripes, stripe_height, stream)
+        _build.check(rc, "lookup_fused_backward")
+        lookup_fused_backward.launches += 1
+    return _finish(grads, bufs, out)
+
+
+lookup_fused_backward.launches = 0
+
+
+class LookupFunction(torch.autograd.Function):
+    """``lookup_fused`` with a gradient for the packed buffers, for
+    training: ``LookupFunction.apply(ids, dense, cols, pos, stripes,
+    stripe_height, dense_dim, with_bad, *bufs)`` -> (features, bad flags or
+    None).  The forward is ``lookup_fused`` (the kernel on a CUDA tensor, the
+    plain version on a CPU one), the backward ``lookup_fused_backward``.
+    Only the buffers get a gradient: the JAX package differentiates the
+    params, not the ids, the descriptors or the dense tail."""
+
+    @staticmethod
+    def forward(ctx, ids, dense, cols, pos, stripes, stripe_height, dense_dim, with_bad,
+                *bufs):
+        require_float_storage(bufs)
+        feats, bad = lookup_fused(ids, dense, bufs, None, cols, pos, stripes, stripe_height,
+                                  dense_dim, with_bad)
+        ctx.save_for_backward(ids, cols, pos, *bufs)
+        ctx.stripes = (stripes, stripe_height)
+        if bad is not None:
+            ctx.mark_non_differentiable(bad)
+        return feats, bad
+
+    @staticmethod
+    def backward(ctx, grad_feats, _grad_bad):
+        ids, cols, pos, *bufs = ctx.saved_tensors
+        need = ctx.needs_input_grad[8:]
+        grads = [None] * len(bufs)
+        if any(need):
+            grads = lookup_fused_backward(grad_feats, ids, bufs, cols, pos, *ctx.stripes)
+        return (None,) * 8 + tuple(g if n else None for g, n in zip(grads, need))

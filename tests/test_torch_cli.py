@@ -15,6 +15,7 @@ from fleetrec_tpu.cli import main as jax_main
 from fleetrec_tpu_torch import config as TC
 from fleetrec_tpu_torch import io as tio
 from fleetrec_tpu_torch.cli import main
+from torch_variants import CPU
 
 COMMON = ["--config", "micro_test", "--batch", "16", "--device", "cpu"]
 
@@ -78,8 +79,8 @@ def test_cli_ckpt_model_scores_as_the_exported_one(tmp_path, capsys):
     run_cli(capsys, "export", *COMMON, "--table-scheme", "uniform",
             "--mlp-scheme", "uniform", "--out", path)
     cfg = TC.micro_test(batch_size=16)
-    built = init_model(cfg, table_scheme="uniform", mlp_scheme="uniform")
-    loaded = tio.load_npz(path, cfg)
+    built = init_model(cfg, table_scheme="uniform", mlp_scheme="uniform", device=CPU)
+    loaded = tio.load_npz(path, cfg, device=CPU)
     for (n, a), (_, b) in zip(built.named_buffers(), loaded.named_buffers()):
         assert torch.equal(a, b), n
 

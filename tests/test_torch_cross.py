@@ -26,7 +26,7 @@ from fleetrec_tpu_torch import io as tio
 from fleetrec_tpu_torch.convert import params_from_jax
 from fleetrec_tpu_torch.models import init_model
 from fleetrec_tpu_torch.models import interaction as tint
-from torch_variants import variant
+from torch_variants import CPU, variant
 
 RANKS = ["micro_cross", "micro_cross_r4"]
 
@@ -60,7 +60,7 @@ def test_micro_cross_parity_bitexact(name):
     jc, tc = (variant("micro_cross", C) for C in (JC, TC))
     if name == "mixed":
         jc, tc = (dataclasses.replace(c, onehot_max=70) for c in (jc, tc))
-    model = init_model(tc)
+    model = init_model(tc, device=CPU)
     assert len(model.cross_weights) == 2 and len(model.cross_weights[0]) == 2
     idx, dense = make_inputs(jc, 32)
     got = port_scores(model, idx, dense)
@@ -70,7 +70,7 @@ def test_micro_cross_parity_bitexact(name):
 
 def test_micro_cross_lowrank_parity():
     jc, tc = variant("micro_cross_r4", JC), variant("micro_cross_r4", TC)
-    model = init_model(tc)
+    model = init_model(tc, device=CPU)
     assert [tuple(w.shape) for w in model.cross_weights[0]] == [(92, 4), (4, 92), (92,)]
     idx, dense = make_inputs(jc, 32, seed=5)
     got = port_scores(model, idx, dense)
@@ -82,7 +82,7 @@ def test_micro_cross_lowrank_parity():
 def test_micro_cross_uniform_close(name):
     jc, tc = variant(name, JC), variant(name, TC)
     idx, dense = make_inputs(jc, 32, seed=6)
-    got = port_scores(init_model(tc, table_scheme="uniform", mlp_scheme="uniform"), idx, dense)
+    got = port_scores(init_model(tc, table_scheme="uniform", mlp_scheme="uniform", device=CPU), idx, dense)
     jm, jp = j_init_model(jc, table_scheme="uniform", mlp_scheme="uniform")
     np.testing.assert_allclose(got, jax_scores(jm, jp, idx, dense), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(got, oracle(jc, idx, dense, "uniform", "uniform"),
@@ -99,7 +99,7 @@ def test_bfloat16_matches_the_oracle(name):
     rng = np.random.default_rng(7)
     idx = make_inputs(jc, 32, seed=7)[0]
     dense = rng.uniform(-1, 1, (32, jc.dense_dim)).astype(np.float32)
-    got = port_scores(init_model(tc, table_scheme="uniform", mlp_scheme="uniform"), idx, dense)
+    got = port_scores(init_model(tc, table_scheme="uniform", mlp_scheme="uniform", device=CPU), idx, dense)
     want = oracle(jc, idx, dense, "uniform", "uniform")
     np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2 * np.abs(want).max())
 
@@ -127,12 +127,12 @@ def test_params_from_jax_is_the_ports_own_model():
     jc, tc = variant("micro_cross_r4", JC), variant("micro_cross_r4", TC)
     _, jp = j_init_model(jc, table_scheme="uniform", mlp_scheme="uniform")
     pj = jax.tree_util.tree_map(np.asarray, jp)
-    conv = params_from_jax(tc, pj)
-    built = init_model(tc, table_scheme="uniform", mlp_scheme="uniform")
+    conv = params_from_jax(tc, pj, device=CPU)
+    built = init_model(tc, table_scheme="uniform", mlp_scheme="uniform", device=CPU)
     for (ka, a), (kb, b) in zip(conv.named_buffers(), built.named_buffers()):
         assert ka == kb and torch.equal(a, b), ka
     with pytest.raises(ValueError, match="cross"):
-        params_from_jax(tc, {**pj, "cross": [pj["cross"][0][1:]]})
+        params_from_jax(tc, {**pj, "cross": [pj["cross"][0][1:]]}, device=CPU)
 
 
 @pytest.mark.parametrize("name", RANKS)
@@ -145,11 +145,11 @@ def test_cross_checkpoint_crosses_both_ways(tmp_path, direction, name):
     jc, tc = variant(name, JC), variant(name, TC)
     path = str(tmp_path / "cross.npz")
     jm, jp = j_init_model(jc, table_scheme="uniform", mlp_scheme="uniform")
-    built = init_model(tc, table_scheme="uniform", mlp_scheme="uniform")
+    built = init_model(tc, table_scheme="uniform", mlp_scheme="uniform", device=CPU)
     idx, dense = make_inputs(jc, 32, seed=8)
     if direction == "jax_to_port":
         jio.save_npz(path, jp, cfg=jc)
-        scores = port_scores(tio.load_npz(path, tc), idx, dense)
+        scores = port_scores(tio.load_npz(path, tc, device=CPU), idx, dense)
         want = jax_scores(jm, jp, idx, dense)
         np.testing.assert_array_equal(scores, port_scores(built, idx, dense))
     else:
@@ -169,13 +169,13 @@ def test_a_checkpoint_of_another_rank_raises_naming_the_array(tmp_path):
     """With its fingerprint gone, a full-rank file loaded as a rank-4 model
     fails the shape check on the first cross array."""
     path = str(tmp_path / "m.npz")
-    tio.save_npz(path, init_model(variant("micro_cross", TC)))
+    tio.save_npz(path, init_model(variant("micro_cross", TC), device=CPU))
     with np.load(path) as data:
         arrs = {k: data[k] for k in data.files if k != "config_fingerprint"}
     np.savez(path, **arrs)
     r4 = dataclasses.replace(variant("micro_cross", TC), cross_rank=4)
     with pytest.raises(tio.ConfigMismatchError, match=r"array 'cross_0_0' has shape \(92, 92\)"):
-        tio.load_npz(path, r4)
+        tio.load_npz(path, r4, device=CPU)
 
 
 def test_cross_fingerprint_depends_on_knobs():

@@ -21,7 +21,8 @@ from fleetrec_tpu_torch.config import MLPSpec
 from fleetrec_tpu_torch.models import init_model
 from fleetrec_tpu_torch.models.mlp import init_mlp_params
 from fleetrec_tpu_torch.ops.gather import gather_rows, gather_rows_grouped, gather_rows_plain
-from fleetrec_tpu_torch.ops.lookup import (lookup_fused, lookup_fused_bags,
+from fleetrec_tpu_torch.ops.lookup import (lookup_fused, lookup_fused_backward,
+                                          lookup_fused_backward_plain, lookup_fused_bags,
                                           lookup_fused_bags_plain, lookup_fused_plain)
 from fleetrec_tpu_torch.ops.mlp_fused import fused_mlp, fused_mlp_plain
 from torch_variants import HEADS, LAYOUT_CASES, variant
@@ -203,3 +204,46 @@ def test_interaction_heads_match_the_oracle_on_card(cuda, name):
              else {"cross_weights": ref.init_cross_weights(cfg)})
     want = ref.forward(cfg, ref.init_tables(cfg), ref.init_mlp_weights(cfg), idx, dense, **heads)
     np.testing.assert_array_equal(got, want.astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", LAYOUT_CASES + ["criteo"])
+def test_lookup_backward_kernel_matches_plain_on_card(cuda, name):
+    """lookup_fused_backward (one launch a call) against
+    lookup_fused_backward_plain on the same operands, float32 and bfloat16
+    storage, int32 and int64 ids with bad ones (which add nothing), B = the
+    config's and 3000: bit-equal on integer cotangents (every float32 sum an
+    integer below 2^24, exact in any order of the atomic adds, then rounded
+    once to the storage dtype by both), within rtol 1e-5 / atol 1e-4 on
+    uniform ones (float32 sums of up to B terms in another order), and for
+    bfloat16 within one bfloat16 rounding of those sums (rtol 2^-7)."""
+    rng = np.random.default_rng(13)
+    for table_dtype in ("bfloat16",) if name == "criteo" else ("float32", "bfloat16"):
+        cfg = dataclasses.replace(variant(name, TC), table_dtype=table_dtype)
+        model = init_model(cfg, device=cuda)
+        ops = model.lookup_operands()
+        args = (ops["bufs"], ops["cols"], ops["pos"], ops["stripes"], ops["stripe_height"])
+        F = model.layout.feature_dim
+        for B in (cfg.batch_size, 3000):
+            ids = torch.from_numpy(ids_with_bad(cfg, B, rng))
+            for idt in (torch.int32, torch.int64):
+                idx = ids.to(cuda, idt)
+                for kind in ("integer", "uniform"):
+                    ct = (rng.integers(-1, 2, (B, F)) if kind == "integer"
+                          else rng.uniform(-1, 1, (B, F)))
+                    g = torch.from_numpy(ct.astype(np.float32)).to(cuda, ops["bufs"][0].dtype)
+                    before = lookup_fused_backward.launches
+                    got = lookup_fused_backward(g, idx, *args)
+                    assert lookup_fused_backward.launches == before + 1
+                    want = lookup_fused_backward_plain(g, idx, *args)
+                    torch.cuda.synchronize()
+                    what = (name, table_dtype, B, idt, kind)
+                    for a, b in zip(got, want):
+                        assert a.dtype == b.dtype and a.shape == b.shape, what
+                        if kind == "integer":
+                            assert torch.equal(bits(a), bits(b)), what
+                        elif table_dtype == "float32":
+                            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+                        else:
+                            torch.testing.assert_close(a.float(), b.float(), rtol=2.0 ** -7,
+                                                       atol=1e-4)

@@ -34,7 +34,7 @@ from fleetrec_tpu_torch.models import init_model
 from fleetrec_tpu_torch.models import interaction as tint
 from fleetrec_tpu_torch.serving import ServeSpec, serve
 from chip_smoke import ids_with_bad
-from torch_variants import cap, variant
+from torch_variants import CPU, cap, variant
 
 
 def make_inputs(cfg, B, seed=0):
@@ -71,7 +71,7 @@ def test_micro_dlrm_parity_bitexact(name):
     every table one-hot and with both tiers (``onehot_max=70``, 4 stripes)."""
     jc, tc = variant(name, JC), variant(name, TC)
     idx, dense = make_inputs(jc, jc.batch_size, seed=3)
-    got = port_scores(init_model(tc), idx, dense)
+    got = port_scores(init_model(tc, device=CPU), idx, dense)
     np.testing.assert_array_equal(got, oracle(jc, idx, dense).astype(np.float32))
     np.testing.assert_array_equal(got, jax_scores(*j_init_model(jc), idx, dense))
 
@@ -79,7 +79,7 @@ def test_micro_dlrm_parity_bitexact(name):
 def test_micro_dlrm_uniform_close():
     jc, tc = variant("micro_dlrm", JC), variant("micro_dlrm", TC)
     idx, dense = uniform_inputs(jc, 32, seed=6)
-    got = port_scores(init_model(tc, table_scheme="uniform", mlp_scheme="uniform"), idx, dense)
+    got = port_scores(init_model(tc, table_scheme="uniform", mlp_scheme="uniform", device=CPU), idx, dense)
     jm, jp = j_init_model(jc, table_scheme="uniform", mlp_scheme="uniform")
     np.testing.assert_allclose(got, jax_scores(jm, jp, idx, dense), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(got, oracle(jc, idx, dense, "uniform", "uniform"),
@@ -97,7 +97,7 @@ def test_dlrm_terabyte_full_widths_matches_jax():
     1e-5 / atol 1e-6 of JAX, rtol 1e-3 / atol 2e-3 of the float64 oracle."""
     jc, tc = _dlrm_capped(JC), _dlrm_capped(TC)
     idx, dense = uniform_inputs(jc, 16, seed=7)
-    model = init_model(tc, table_scheme="uniform", mlp_scheme="uniform")
+    model = init_model(tc, table_scheme="uniform", mlp_scheme="uniform", device=CPU)
     assert model.layout.feature_dim == 26 * 128 and model.layout.dense_dim == 0
     got = port_scores(model, idx, dense)
     jm, jp = j_init_model(jc, table_scheme="uniform", mlp_scheme="uniform")
@@ -115,7 +115,7 @@ def test_bfloat16_matches_jax(name):
         jc, tc = (dataclasses.replace(variant(name, C), dtype="bfloat16",
                                       table_dtype="bfloat16") for C in (JC, TC))
     idx, dense = uniform_inputs(jc, jc.batch_size, seed=8)
-    got = port_scores(init_model(tc, table_scheme="uniform", mlp_scheme="uniform"), idx, dense)
+    got = port_scores(init_model(tc, table_scheme="uniform", mlp_scheme="uniform", device=CPU), idx, dense)
     want = jax_scores(*j_init_model(jc, table_scheme="uniform", mlp_scheme="uniform"),
                       idx, dense)
     np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2 * np.abs(want).max())
@@ -127,7 +127,7 @@ def test_out_of_range_take_ids_poison_the_same_rows():
     jc, tc = variant("micro_dlrm", JC), variant("micro_dlrm", TC)
     idx = ids_with_bad(jc, 32, np.random.default_rng(9))
     dense = uniform_inputs(jc, 32, seed=10)[1]
-    got = port_scores(init_model(tc, table_scheme="uniform", mlp_scheme="uniform"), idx, dense)
+    got = port_scores(init_model(tc, table_scheme="uniform", mlp_scheme="uniform", device=CPU), idx, dense)
     want = jax_scores(*j_init_model(jc, table_scheme="uniform", mlp_scheme="uniform"),
                       idx, dense)
     bad = np.isnan(want)
@@ -141,7 +141,7 @@ def test_lookup_is_the_dense_free_concat():
     reads no dense tail; the forward still needs the dense features."""
     cfg = variant("micro_dlrm", TC)
     tables = jref.init_tables(cfg, "rowid")
-    model = init_model(cfg, tables_np=tables)
+    model = init_model(cfg, tables_np=tables, device=CPU)
     idx, dense = uniform_inputs(cfg, 32, seed=11)
     ti, td = torch.from_numpy(idx), torch.from_numpy(dense)
     with torch.no_grad():
@@ -182,10 +182,10 @@ def test_pair_columns_are_the_flat_triangle():
                             .astype(np.float32))
     assert torch.equal(tint.dot_interaction(vecs, tint.pair_columns(27)),
                        tint.dot_interaction(vecs))
-    model = init_model(variant("micro_dlrm", TC))
+    model = init_model(variant("micro_dlrm", TC), device=CPU)
     n = model.cfg.num_tables + 1
     assert torch.equal(model.pair_cols, tint.pair_columns(n))
-    assert "pair_cols" not in {n for n, _ in init_model(variant("micro_cross", TC))
+    assert "pair_cols" not in {n for n, _ in init_model(variant("micro_cross", TC), device=CPU)
                                .named_buffers()}
 
 
@@ -196,8 +196,8 @@ def test_params_from_jax_is_the_ports_own_model():
     jc, tc = variant("micro_dlrm", JC), variant("micro_dlrm", TC)
     jm, jp = j_init_model(jc, table_scheme="uniform", mlp_scheme="uniform")
     pj = jax.tree_util.tree_map(np.asarray, jp)
-    conv = params_from_jax(tc, pj)
-    built = init_model(tc, table_scheme="uniform", mlp_scheme="uniform")
+    conv = params_from_jax(tc, pj, device=CPU)
+    built = init_model(tc, table_scheme="uniform", mlp_scheme="uniform", device=CPU)
     names = [n for n, _ in built.named_buffers()]
     assert "bottom_0" in names and "bottom_1" in names
     for (ka, a), (kb, b) in zip(conv.named_buffers(), built.named_buffers()):
@@ -205,7 +205,7 @@ def test_params_from_jax_is_the_ports_own_model():
     idx, dense = uniform_inputs(jc, 32, seed=13)
     np.testing.assert_array_equal(port_scores(conv, idx, dense), port_scores(built, idx, dense))
     with pytest.raises(ValueError, match="bottom"):
-        params_from_jax(tc, {**pj, "bottom": pj["bottom"][:1]})
+        params_from_jax(tc, {**pj, "bottom": pj["bottom"][:1]}, device=CPU)
 
 
 @pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
@@ -217,11 +217,11 @@ def test_dlrm_checkpoint_crosses_both_ways(tmp_path, direction):
     jc, tc = variant("micro_dlrm", JC), variant("micro_dlrm", TC)
     path = str(tmp_path / "dlrm.npz")
     jm, jp = j_init_model(jc, table_scheme="uniform", mlp_scheme="uniform")
-    built = init_model(tc, table_scheme="uniform", mlp_scheme="uniform")
+    built = init_model(tc, table_scheme="uniform", mlp_scheme="uniform", device=CPU)
     idx, dense = uniform_inputs(jc, 32, seed=14)
     if direction == "jax_to_port":
         jio.save_npz(path, jp, cfg=jc)
-        loaded = tio.load_npz(path, tc)
+        loaded = tio.load_npz(path, tc, device=CPU)
         scores, want = port_scores(loaded, idx, dense), jax_scores(jm, jp, idx, dense)
         np.testing.assert_array_equal(scores, port_scores(built, idx, dense))
     else:
@@ -241,12 +241,12 @@ def test_dlrm_checkpoint_crosses_both_ways(tmp_path, direction):
 def test_a_checkpoint_without_its_bottom_tower_raises(tmp_path):
     tc = variant("micro_dlrm", TC)
     path = str(tmp_path / "m.npz")
-    tio.save_npz(path, init_model(tc))
+    tio.save_npz(path, init_model(tc, device=CPU))
     with np.load(path) as data:
         arrs = {k: data[k] for k in data.files if k != "bottom_1"}
     np.savez(path, **arrs)
     with pytest.raises(tio.ConfigMismatchError, match="no array 'bottom_1'"):
-        tio.load_npz(path, tc)
+        tio.load_npz(path, tc, device=CPU)
 
 
 def test_dlrm_fingerprint_differs_from_plain():
@@ -267,7 +267,7 @@ def test_cli_bench_stages_on_dlrm(capsys, stage):
 def test_dlrm_terabyte_capped_layout():
     """dlrm_terabyte at 4096 rows a table: a one-hot class of the 10 small
     tables and 16 striped take tables, 26 x 128 features, no dense tail."""
-    model = init_model(cap(TC.dlrm_terabyte(batch_size=8), 4096))
+    model = init_model(cap(TC.dlrm_terabyte(batch_size=8), 4096), device=CPU)
     lay = model.layout
     assert (lay.n_onehot, lay.n_take, lay.take_stripes) == (10, 16, 16)
     assert (lay.feature_dim, lay.dense_dim) == (26 * 128, 0)
@@ -278,7 +278,7 @@ def test_serve_dlrm_over_loopback():
     """serve() of micro_dlrm with replies: ids and dense features of each
     batch on one wire, the replied scores bit-equal to a direct forward."""
     cfg = dataclasses.replace(variant("micro_dlrm", TC), batch_size=8)
-    model = init_model(cfg, table_scheme="uniform", mlp_scheme="uniform")
+    model = init_model(cfg, table_scheme="uniform", mlp_scheme="uniform", device=CPU)
     batches = [uniform_inputs(cfg, 8, seed=20 + k) for k in range(3)]
     spec = ServeSpec(batch=8, batches=3, port=21620, slots=4, reply=True)
     out = {}

@@ -20,6 +20,7 @@ from fleetrec_tpu.models import init_model as j_init_model
 from fleetrec_tpu_torch import config as TC
 from fleetrec_tpu_torch import io as tio
 from fleetrec_tpu_torch.models import init_model
+from torch_variants import CPU
 
 
 def _variant(name, C, table_dtype="float32"):
@@ -92,7 +93,7 @@ def test_quantize_tables_bytes_equal_jax(name):
               for t in (jmodel.spec_tables or jcfg.tables)]
     jmodel, jparams = j_init_model(jcfg, tables_np=tables)
     jq = jio.quantize_tables(jparams, jmodel)["tables"]
-    tq = tio.quantize_tables(init_model(tcfg, tables_np=tables))
+    tq = tio.quantize_tables(init_model(tcfg, tables_np=tables, device=CPU))
     assert tq.cfg.table_dtype == "int8"
     packed = tq.packed
     assert len(packed.onehot_buffers) == len(jq.onehot_buffers)
@@ -116,7 +117,7 @@ def test_jax_checkpoint_loads_into_the_port(tmp_path, name, table_dtype):
     jmodel, jparams = j_init_model(jcfg)
     path = str(tmp_path / "j.npz")
     jio.save_npz(path, jparams, cfg=jcfg)
-    tmodel = tio.load_npz(path, tcfg)
+    tmodel = tio.load_npz(path, tcfg, device=CPU)
     assert tmodel.cfg == tcfg
     for a, b in zip(tmodel.packed.onehot_buffers, jparams["tables"].onehot_buffers):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
@@ -130,7 +131,7 @@ def test_jax_checkpoint_loads_into_the_port(tmp_path, name, table_dtype):
 def test_port_checkpoint_loads_into_jax(tmp_path, name, table_dtype):
     """Port save_npz -> JAX load_npz: scores bit-equal to the port's."""
     jcfg, tcfg = _variant(name, JC, table_dtype), _variant(name, TC, table_dtype)
-    tmodel = init_model(tcfg)
+    tmodel = init_model(tcfg, device=CPU)
     path = str(tmp_path / "t.npz")
     tio.save_npz(path, tmodel)
     jmodel, _ = j_init_model(jcfg)
@@ -144,7 +145,7 @@ def test_int8_export_of_the_port_loads_into_jax(tmp_path):
     """quantize_tables -> save_npz in the port, load_npz in JAX: the int8
     checkpoint is fingerprinted for the int8 config and scores the same."""
     tcfg = _variant("tiers", TC)
-    tq = tio.quantize_tables(init_model(tcfg))
+    tq = tio.quantize_tables(init_model(tcfg, device=CPU))
     path = str(tmp_path / "q.npz")
     tio.save_npz(path, tq)
     jmodel, _ = j_init_model(_variant("tiers", JC, "int8"))
@@ -167,24 +168,24 @@ def test_bfloat16_jax_checkpoint_loads_into_the_port(tmp_path, name):
     jio.save_npz(path, jparams, cfg=jcfg)
     with np.load(path) as data:
         assert data["onehot_0"].dtype == np.dtype("V2")
-    tmodel = tio.load_npz(path, tcfg)
+    tmodel = tio.load_npz(path, tcfg, device=CPU)
     for a, b in zip(tmodel.packed.onehot_buffers, jparams["tables"].onehot_buffers):
         np.testing.assert_array_equal(_port_bits(a), _bits(b))
     for a, b in zip(tmodel.mlp_weights, jparams["mlp"]):
         np.testing.assert_array_equal(_port_bits(a), _bits(b))
     idx, dense = _data(tcfg, seed=3)
     np.testing.assert_array_equal(_port_scores(tmodel, idx, dense),
-                                  _port_scores(init_model(tcfg), idx, dense))
+                                  _port_scores(init_model(tcfg, device=CPU), idx, dense))
 
 
 def test_bfloat16_round_trip_in_the_port(tmp_path):
     tcfg = dataclasses.replace(_variant("tiers", TC, "bfloat16"), dtype="bfloat16")
-    tmodel = init_model(tcfg, table_scheme="uniform", mlp_scheme="uniform")
+    tmodel = init_model(tcfg, table_scheme="uniform", mlp_scheme="uniform", device=CPU)
     path = str(tmp_path / "b.npz")
     tio.save_npz(path, tmodel)
     with np.load(path) as data:
         assert data["take"].dtype == np.dtype("V2") and data["mlp_0"].dtype == np.dtype("V2")
-    back = tio.load_npz(path, tcfg)
+    back = tio.load_npz(path, tcfg, device=CPU)
     for (n, a), (_, b) in zip(tmodel.named_buffers(), back.named_buffers()):
         assert a.dtype == b.dtype and torch.equal(a, b), n
 
@@ -194,22 +195,22 @@ def test_a_mismatched_shape_raises_naming_the_array(tmp_path):
     reshapes the factored classes: the shape check catches it."""
     tcfg = _variant("tiers", TC)
     path = str(tmp_path / "m.npz")
-    tio.save_npz(path, init_model(tcfg))
+    tio.save_npz(path, init_model(tcfg, device=CPU))
     other = dataclasses.replace(tcfg, onehot_r2=64)
     assert tio.config_fingerprint(other) == tio.config_fingerprint(tcfg)
     with pytest.raises(tio.ConfigMismatchError, match=r"array 'onehot_\d+' has shape"):
-        tio.load_npz(path, other)
+        tio.load_npz(path, other, device=CPU)
 
 
 def test_a_missing_array_and_a_wrong_fingerprint_raise(tmp_path):
     tcfg = _variant("tiers", TC)
     path = str(tmp_path / "m.npz")
-    tio.save_npz(path, init_model(tcfg))
+    tio.save_npz(path, init_model(tcfg, device=CPU))
     with np.load(path) as data:
         arrs = {k: data[k] for k in data.files if k != "mlp_1"}
     cut = str(tmp_path / "cut.npz")
     np.savez(cut, **arrs)
     with pytest.raises(tio.ConfigMismatchError, match="no array 'mlp_1'"):
-        tio.load_npz(cut, tcfg)
+        tio.load_npz(cut, tcfg, device=CPU)
     with pytest.raises(tio.ConfigMismatchError, match="fingerprint"):
-        tio.load_npz(path, _variant("striped", TC))
+        tio.load_npz(path, _variant("striped", TC), device=CPU)

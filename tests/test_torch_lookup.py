@@ -26,7 +26,7 @@ from fleetrec_tpu_torch.models import ModelPlan, init_model
 from fleetrec_tpu_torch.models import embedding as temb
 from fleetrec_tpu_torch.ops import lookup as tlk
 from chip_smoke import ids_with_bad
-from torch_variants import LAYOUT_CASES, variant
+from torch_variants import CPU, LAYOUT_CASES, variant
 
 DTYPES = ["float32", "bfloat16", "int8"]
 OUT_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.float32}
@@ -52,7 +52,7 @@ def _pair(name, table_dtype, scheme="uniform"):
     tc = dataclasses.replace(variant(name, TC), table_dtype=table_dtype)
     tables = [jref.init_table(t, scheme) for t in JModel.create(jc).spec_tables]
     jm, jp = j_init_model(jc, tables_np=tables)
-    return jm, jp, params_from_jax(tc, jax.tree_util.tree_map(np.asarray, jp)), tc
+    return jm, jp, params_from_jax(tc, jax.tree_util.tree_map(np.asarray, jp), device=CPU), tc
 
 
 @pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
@@ -150,12 +150,12 @@ def test_loaded_models_give_the_same_features(tmp_path, table_dtype):
     name = "model1_tiers"
     jm, jp, conv, cfg = _pair(name, table_dtype)
     tables = [jref.init_table(t, "uniform") for t in jm.spec_tables]
-    built = init_model(cfg, tables_np=tables)
+    built = init_model(cfg, tables_np=tables, device=CPU)
     path = str(tmp_path / "m.npz")
     tio.save_npz(path, built)
     with np.load(path) as data:
         assert not [k for k in data.files if "lookup" in k]
-    loaded = tio.load_npz(path, cfg)
+    loaded = tio.load_npz(path, cfg, device=CPU)
     idx = torch.from_numpy(ids_with_bad(cfg, 40, np.random.default_rng(5)))
     with torch.no_grad():
         want, want_bad = built.lookup(idx)
@@ -173,7 +173,7 @@ def test_forward_runs_the_fused_lookup(monkeypatch):
     from fleetrec_tpu_torch.models import fleetrec as tfr
 
     cfg = variant("model1_tiers", TC)
-    model = init_model(cfg, table_scheme="uniform", mlp_scheme="uniform")
+    model = init_model(cfg, table_scheme="uniform", mlp_scheme="uniform", device=CPU)
     calls = []
 
     def spy(*a, **kw):
@@ -191,7 +191,7 @@ def test_forward_runs_the_fused_lookup(monkeypatch):
 
 
 def test_lookup_fused_checks_its_inputs():
-    model = init_model(variant("micro", TC))
+    model = init_model(variant("micro", TC), device=CPU)
     ops = model.lookup_operands()
     ids = torch.zeros((4, 8), dtype=torch.int32)
     with pytest.raises(TypeError):
@@ -211,7 +211,7 @@ def test_lookup_fused_checks_its_inputs():
         with pytest.raises(ValueError, match="dense"):
             tlk.lookup_fused_plain(ids, dense, **ops)
     cfg1 = variant("model1_tiers", TC)
-    no_dense = init_model(cfg1).lookup_operands()
+    no_dense = init_model(cfg1, device=CPU).lookup_operands()
     ids1 = torch.zeros((4, cfg1.num_tables), dtype=torch.int32)
     assert no_dense["dense_dim"] == 0
     with pytest.raises(ValueError, match="dense"):

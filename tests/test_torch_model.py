@@ -22,7 +22,7 @@ from fleetrec_tpu_torch import config as TC
 from fleetrec_tpu_torch.convert import params_from_jax
 from fleetrec_tpu_torch.models import ModelPlan, init_model
 from fleetrec_tpu_torch.models import embedding as temb
-from torch_variants import LAYOUT_CASES, PAPER, cap, variant
+from torch_variants import CPU, LAYOUT_CASES, PAPER, cap, variant
 
 def _np(t):
     """Port tensor -> numpy, bf16 as its uint16 bits."""
@@ -92,7 +92,7 @@ def test_pack_tables_bit_equal(name, table_dtype, scheme):
     jm = JModel.create(jc)
     tables = [jref.init_table(t, scheme) for t in jm.spec_tables]
     _, _, pj = _jax_pair(jc, tables)
-    model = init_model(tc, tables_np=tables)
+    model = init_model(tc, tables_np=tables, device=CPU)
     pt = model.packed
     assert len(pt.onehot_buffers) == len(pj["tables"].onehot_buffers)
     for a, b in zip(pj["tables"].onehot_buffers, pt.onehot_buffers):
@@ -108,7 +108,7 @@ def test_pack_tables_bit_equal(name, table_dtype, scheme):
         if pt.take_scales is not None:
             np.testing.assert_array_equal(pj["tables"].take_scales, pt.take_scales.numpy())
     # the converted JAX params and the port's own packing are the same model
-    conv = params_from_jax(tc, pj)
+    conv = params_from_jax(tc, pj, device=CPU)
     for (ka, a), (kb, b) in zip(conv.named_buffers(), model.named_buffers()):
         assert ka == kb
         assert torch.equal(a, b), ka
@@ -130,7 +130,7 @@ def test_lookup_concat_bit_equal(name, table_dtype, scheme):
     tc = dataclasses.replace(variant(name, TC), table_dtype=table_dtype)
     jm, jp, pj = _jax_pair(jc, [jref.init_table(t, scheme)
                                 for t in JModel.create(jc).spec_tables])
-    model = params_from_jax(tc, pj)
+    model = params_from_jax(tc, pj, device=CPU)
     B = jc.batch_size
     idx, dense = _ids(jc, B, 3), _dense(jc, B, 4)
     gi_j = jm.plan_indices(jnp.asarray(idx))
@@ -152,7 +152,7 @@ def test_lookup_concat_bit_equal(name, table_dtype, scheme):
 
 def test_lookup_counts_one_gather_per_tier():
     tc = variant("model1_tiers", TC)
-    model = init_model(tc)
+    model = init_model(tc, device=CPU)
     lay = model.layout
     tiers = temb.tier_gathers(model.packed, model.plan_indices(_t(_ids(tc, 16, 0))))
     assert len(tiers) == len(lay.onehot_classes) + len(lay.take_groups)
@@ -174,7 +174,7 @@ def test_forward_matches_jax_uniform(name):
     tables = [jref.init_table(t, "uniform") for t in jm.spec_tables]
     ws = jref.init_mlp_weights(jc, "uniform")
     jm, jp, pj = _jax_pair(jc, tables, mlp_np=ws)
-    model = params_from_jax(tc, pj)
+    model = params_from_jax(tc, pj, device=CPU)
     B = jc.batch_size
     idx, dense = _ids(jc, B, 5), _dense(jc, B, 6)
     want = np.asarray(jax.jit(jm.forward)(jp, jnp.asarray(idx),
@@ -195,7 +195,7 @@ def test_forward_pm1_ones_bit_equal(name, table_dtype):
     tc = dataclasses.replace(variant(name, TC), table_dtype=table_dtype)
     tables = jref.init_tables(jc, "pm1")
     jm, jp, pj = _jax_pair(jc, tables)
-    model = params_from_jax(tc, pj)
+    model = params_from_jax(tc, pj, device=CPU)
     B = jc.batch_size
     idx = _ids(jc, B, 7)
     dense = np.ones((B, jc.dense_dim), np.float32) if jc.dense_dim else None
@@ -217,7 +217,7 @@ def test_out_of_range_take_ids_poison_the_same_rows(name):
     tables = [jref.init_table(t, "uniform") for t in jm.spec_tables]
     ws = jref.init_mlp_weights(jc, "uniform")
     jm, jp, pj = _jax_pair(jc, tables, mlp_np=ws)
-    model = params_from_jax(tc, pj)
+    model = params_from_jax(tc, pj, device=CPU)
     assert jm.layout.n_take > 0
     B = jc.batch_size
     idx, dense = _ids(jc, B, 8), _dense(jc, B, 9)
@@ -246,7 +246,7 @@ def test_out_of_range_take_ids_poison_the_same_rows(name):
 def test_negative_ids_floor_like_jnp():
     """QR split and take arithmetic on negative ids: floored // and %."""
     jc, tc = variant("qr", JC), variant("qr", TC)
-    jm, tp = JModel.create(jc), init_model(tc)
+    jm, tp = JModel.create(jc), init_model(tc, device=CPU)
     idx = _ids(jc, 24, 10)
     idx[:, :] = np.random.default_rng(11).integers(-300, 300, idx.shape)
     np.testing.assert_array_equal(np.asarray(jm.plan_indices(jnp.asarray(idx))),
@@ -262,7 +262,7 @@ def test_negative_ids_floor_like_jnp():
 @pytest.mark.parametrize("width,expected", [(512, 68719476736.0), (1024, 137438953472.0)])
 def test_closed_form_parity_constant(width, expected):
     """Twin of test_parity.py::test_closed_form_parity_constant."""
-    model = init_model(TC.parity_synthetic(width, batch_size=8))
+    model = init_model(TC.parity_synthetic(width, batch_size=8), device=CPU)
     with torch.no_grad():
         scores = model(torch.zeros((8, 0), dtype=torch.int32), torch.ones(8, width))
     np.testing.assert_array_equal(scores.numpy(), np.full(8, expected, np.float32))
@@ -276,7 +276,7 @@ def test_end_to_end_vs_oracle(name):
     cfg = cap(cfg, 256)
     tables = jref.init_tables(cfg, "uniform")
     ws = jref.init_mlp_weights(cfg, "uniform")
-    model = init_model(cfg, tables_np=tables, mlp_np=ws)
+    model = init_model(cfg, tables_np=tables, mlp_np=ws, device=CPU)
     idx, dense = _ids(cfg, 8, 0), _dense(cfg, 8, 1)
     with torch.no_grad():
         scores = model(_t(idx), _t(dense)).numpy()
@@ -285,7 +285,7 @@ def test_end_to_end_vs_oracle(name):
 
 
 def test_forward_checks_shapes():
-    model = init_model(TC.micro_test(batch_size=4))
+    model = init_model(TC.micro_test(batch_size=4), device=CPU)
     with pytest.raises(ValueError):
         model(torch.zeros((4, 3), dtype=torch.int32), torch.zeros(4, 8))
     with pytest.raises(ValueError):

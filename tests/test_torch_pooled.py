@@ -38,7 +38,7 @@ from fleetrec_tpu_torch.models import pooled as tpool
 from fleetrec_tpu_torch.ops import lookup as tlk
 from fleetrec_tpu_torch.serving import IngestServer, ServeSpec, ServingEngine, serve
 from chip_smoke import bags_with_bad, make_bags, pooled_oracle
-from torch_variants import mixed, variant
+from torch_variants import CPU, mixed, variant
 
 L = 4
 # layouts whose config has no interaction head: every tier, stripes, QR, a
@@ -75,7 +75,7 @@ def _pair(name, table_dtype, scheme):
     tables = [jref.init_table(t, scheme) for t in JModel.create(jc).spec_tables]
     jm, jp = j_init_model(jc, tables_np=tables,
                           mlp_np=jref.init_mlp_weights(jc, "uniform"))
-    return jm, jp, params_from_jax(tc, jax.tree_util.tree_map(np.asarray, jp)), tc
+    return jm, jp, params_from_jax(tc, jax.tree_util.tree_map(np.asarray, jp), device=CPU), tc
 
 
 def _inputs(cfg, seed=3):
@@ -251,7 +251,7 @@ def test_pooled_matches_oracle_mixed_tiers(mean):
     cfg = mixed(TC)
     tables = ref.init_tables(cfg, scheme="pm1")
     ws = ref.init_mlp_weights(cfg, scheme="ones")
-    model = init_model(cfg, tables_np=tables, mlp_np=ws)
+    model = init_model(cfg, tables_np=tables, mlp_np=ws, device=CPU)
     idx, dense = make_bags(cfg, 16, L, all_empty_row=5)
     out = _forward(model, idx, dense, mean)
     golden = pooled_oracle(cfg, tables, ws, idx, dense, mean=mean)
@@ -267,7 +267,7 @@ def test_pooled_factored_tier_and_int8():
                               onehot_factor_max=100, table_dtype="int8")
     tables = ref.init_tables(cfg, scheme="pm1")
     ws = ref.init_mlp_weights(cfg, scheme="ones")
-    model = init_model(cfg, tables_np=tables, mlp_np=ws)
+    model = init_model(cfg, tables_np=tables, mlp_np=ws, device=CPU)
     assert any(c.r2 for c in model.layout.onehot_classes)
     idx, dense = make_bags(cfg, 12, L, seed=3)
     golden = pooled_oracle(cfg, tables, ws, idx, dense)
@@ -281,7 +281,7 @@ def test_pooled_L1_matches_single_id_forward(name, table_dtype):
     and the scores of the single-id forward, bit for bit, sum and mean."""
     cfg = mixed(TC) if name == "mixed" else variant(name, TC)
     cfg = dataclasses.replace(cfg, table_dtype=table_dtype)
-    model = init_model(cfg, table_scheme="uniform", mlp_scheme="uniform")
+    model = init_model(cfg, table_scheme="uniform", mlp_scheme="uniform", device=CPU)
     rng = np.random.default_rng(1)
     idx = np.stack([rng.integers(0, t.rows + 2, 16) for t in cfg.tables], 1).astype(np.int32)
     ti = torch.from_numpy(idx)
@@ -306,7 +306,7 @@ def test_pooled_qr_config():
     tables_logical = ref.init_tables(
         dataclasses.replace(cfg, qr_threshold=0, qr_rem=0), scheme="pm1")
     ws = ref.init_mlp_weights(cfg, scheme="ones")
-    model = init_model(cfg, mlp_np=ws)  # packs Q + R internally
+    model = init_model(cfg, mlp_np=ws, device=CPU)  # packs Q + R internally
     internal, qr_positions, _sum = TC.qr_expand(cfg)
     qr_at = dict(qr_positions)
     assert qr_at
@@ -328,7 +328,7 @@ def test_pooled_qr_config():
 
 def test_pooled_bad_id_nan_padding_ok():
     cfg = mixed(TC)
-    model = init_model(cfg)
+    model = init_model(cfg, device=CPU)
     idx, dense = make_bags(cfg, 16, L, seed=2, all_empty_row=4)
     idx[7, -1, 0] = 1 << 28  # beyond the last (take) table's rows
     idx[9, -1, 1] = -(1 << 28)  # any negative id is padding
@@ -345,7 +345,7 @@ def test_pooled_engine_serving_e2e():
     B, NB, FUSE = 8, 4, 2
     tables = ref.init_tables(cfg, scheme="pm1")
     ws = ref.init_mlp_weights(cfg, scheme="ones")
-    model = init_model(cfg, tables_np=tables, mlp_np=ws)
+    model = init_model(cfg, tables_np=tables, mlp_np=ws, device=CPU)
     eng = ServingEngine.from_model(model, batch_size=B, fuse=FUSE, bag_L=L)
     eng.warmup()
     batches = [make_bags(cfg, B, L, seed=20 + k) for k in range(NB)]
@@ -375,7 +375,7 @@ def test_pooled_engine_serving_e2e():
 
 def test_pooled_engine_validates_bags():
     cfg = mixed(TC, batch_size=8)
-    eng = ServingEngine.from_model(init_model(cfg), batch_size=8, bag_L=L)
+    eng = ServingEngine.from_model(init_model(cfg, device=CPU), batch_size=8, bag_L=L)
     limits = [t.rows for t in cfg.tables]
     idx, _ = make_bags(cfg, 8, L)
     eng.validate_indices(idx, limits)  # -1 padding is allowed
@@ -395,7 +395,7 @@ def test_pooled_engine_validates_bags():
 # -- the kernel's stand-in, its checks and its launch shape --------------------
 
 def test_lookup_fused_bags_checks_its_inputs():
-    model = init_model(variant("micro", TC))
+    model = init_model(variant("micro", TC), device=CPU)
     ops = model.lookup_operands()
     dense = torch.zeros(4, ops["dense_dim"])
     ids = torch.zeros((4, 8, 3), dtype=torch.int32)
@@ -450,7 +450,7 @@ def test_forward_pooled_runs_one_fused_bag_lookup(monkeypatch):
     from fleetrec_tpu_torch.models import fleetrec as tfr
 
     cfg = variant("model1_tiers", TC)
-    model = init_model(cfg, table_scheme="uniform", mlp_scheme="uniform")
+    model = init_model(cfg, table_scheme="uniform", mlp_scheme="uniform", device=CPU)
     calls = []
 
     def spy(*a, **kw):
@@ -482,7 +482,7 @@ def test_bags_refuse_an_interaction_head(name):
     """The JAX package's forward_pooled runs the plain tower whatever
     cfg.interaction says; the port raises, in the model and in the engine."""
     cfg = TC.get_config(name, batch_size=8)
-    model = init_model(cfg)
+    model = init_model(cfg, device=CPU)
     idx = torch.zeros((8, cfg.num_tables, L), dtype=torch.int32)
     dense = torch.zeros(8, cfg.dense_dim)
     with pytest.raises(ValueError, match="interaction"):
@@ -500,7 +500,7 @@ def test_bags_refuse_several_senders():
     """The multi-sender wire frames single ids: serve and loadgen refuse it
     with bags, and an engine refuses a wire format."""
     cfg = mixed(TC, batch_size=8)
-    model = init_model(cfg)
+    model = init_model(cfg, device=CPU)
     with pytest.raises(ValueError, match="single-sender"):
         serve(cfg, model, ServeSpec(batch=8, batches=1, port=_free_port(), senders=2,
                                     bag_L=L))

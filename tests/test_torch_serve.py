@@ -39,6 +39,7 @@ from fleetrec_tpu_torch.serving import (
     serve,
 )
 from fleetrec_tpu_torch.serving.servebench import _run_simulated, run_servebench
+from torch_variants import CPU
 
 PORT = 21380
 
@@ -81,7 +82,7 @@ def test_serve_library_end_to_end_loopback():
     cfg = C.get_config("micro_test", batch_size=B)
     tables = ref.init_tables(cfg, scheme="rowid")
     ws = ref.init_mlp_weights(cfg, scheme="uniform")
-    model = init_model(cfg, tables_np=tables, mlp_np=ws)
+    model = init_model(cfg, tables_np=tables, mlp_np=ws, device=CPU)
     batches = _batches(cfg, B, NB, 5)
     spec = ServeSpec(batch=B, batches=NB, port=PORT, slots=4, reply=True,
                      fuse=2, bg_drain=True, warm=True)
@@ -112,7 +113,7 @@ def test_serve_multisender_pm1_exact():
     cfg = C.get_config("micro_test", batch_size=B)
     tables = ref.init_tables(cfg, scheme="pm1")
     ws = ref.init_mlp_weights(cfg, scheme="ones")
-    model = init_model(cfg, tables_np=tables, mlp_np=ws)
+    model = init_model(cfg, tables_np=tables, mlp_np=ws, device=CPU)
     wire = IndexWireFormat.plan(cfg, B, 3)
     batches = [(idx, np.ones((B, cfg.dense_dim), np.float32))
                for idx, _ in _batches(cfg, B, NB, 7)]
@@ -143,7 +144,7 @@ def test_serve_scatter_fans_scores_out():
     """serve() with a scatter consumer: every batch's scores reach it."""
     B, NB = 8, 2
     cfg = C.get_config("micro_test", batch_size=B)
-    model = init_model(cfg)
+    model = init_model(cfg, device=CPU)
     batches = [(idx, np.ones_like(d)) for idx, d in _batches(cfg, B, NB, 10)]
     got = []
     with socket.socket() as srv:
@@ -199,7 +200,7 @@ def test_cli_serve_and_loadgen_loopback(capsys):
 
 def test_engine_rejects_out_of_range_ids():
     cfg = C.get_config("micro_test", batch_size=4)
-    eng = ServingEngine.from_model(init_model(cfg), batch_size=4)
+    eng = ServingEngine.from_model(init_model(cfg, device=CPU), batch_size=4)
     limits = [t.rows for t in cfg.tables]
     ok = np.zeros((4, cfg.num_tables), np.int32)
     eng.validate_indices(ok, limits)
@@ -215,7 +216,7 @@ def test_engine_fuse_scores_equal_unfused():
     independent, so on the integer-valued parity data the scores are the
     same bits."""
     cfg = C.get_config("micro_test", batch_size=4)
-    model = init_model(cfg)
+    model = init_model(cfg, device=CPU)
     (i0, d0), (i1, d1) = [(i, np.ones_like(d)) for i, d in _batches(cfg, 4, 2, 8)]
     one = ServingEngine.from_model(model, batch_size=4)
     two = ServingEngine.from_model(model, batch_size=4, fuse=2)
@@ -230,7 +231,7 @@ def test_latency_counts_time_in_the_ingest_ring():
     monotonic clock, so time the slot waited in the ring counts."""
     B = 4
     cfg = C.get_config("micro_test", batch_size=B)
-    eng = ServingEngine.from_model(init_model(cfg), batch_size=B)
+    eng = ServingEngine.from_model(init_model(cfg, device=CPU), batch_size=B)
     (i0, d0), (i1, d1) = _batches(cfg, B, 2, 9)
     with IngestServer([B * (cfg.num_tables + cfg.dense_dim) * 4], n_slots=2,
                       port_base=PORT + 30) as ing:
@@ -246,7 +247,7 @@ def test_build_engine_follows_the_spec():
     """build_engine gives a one-device engine shaped by the spec's batch,
     fuse and drain settings."""
     cfg = C.get_config("micro_test", batch_size=4)
-    eng = build_engine(init_model(cfg), ServeSpec(batch=4, batches=2, fuse=2,
+    eng = build_engine(init_model(cfg, device=CPU), ServeSpec(batch=4, batches=2, fuse=2,
                                                   bg_drain=True))
     try:
         assert (eng.batch_size, eng.fuse) == (4, 2)
@@ -263,7 +264,7 @@ def test_engine_feature_mode_end_to_end():
     score."""
     B, width = 16, 512
     cfg = C.parity_synthetic(width, batch_size=B)
-    eng = ServingEngine.mlp_only(init_model(cfg), batch_size=B)
+    eng = ServingEngine.mlp_only(init_model(cfg, device=CPU), batch_size=B)
     outs = {}
     nbytes = B * width * 4
     with IngestServer([nbytes], n_slots=4, port_base=PORT + 60) as ing:
@@ -285,7 +286,7 @@ def test_engine_feature_mode_three_sender_model3_wire():
     widths = [64, 1952, 1952]
     F = sum(widths)
     cfg = C.parity_synthetic(F, batch_size=B)
-    eng = ServingEngine.mlp_only(init_model(cfg), batch_size=B)
+    eng = ServingEngine.mlp_only(init_model(cfg, device=CPU), batch_size=B)
     nbytes = [B * w * 4 for w in widths]
     outs = {}
     with IngestServer(nbytes, n_slots=2, port_base=PORT + 70) as ing:
@@ -301,7 +302,7 @@ def test_engine_feature_mode_three_sender_model3_wire():
 
 def test_feature_mode_refuses_fuse_and_warmup():
     cfg = C.parity_synthetic(512, batch_size=4)
-    eng = ServingEngine.mlp_only(init_model(cfg), batch_size=4)
+    eng = ServingEngine.mlp_only(init_model(cfg, device=CPU), batch_size=4)
     with pytest.raises(ValueError, match="index-mode"):
         eng.warmup()
     eng.fuse = 2
@@ -319,7 +320,7 @@ def test_mlp_only_scores_the_tower_of_a_table_model():
     feature batch equal the float64 oracle's chain within rtol 1e-5 (fp32
     sums)."""
     cfg = C.get_config("micro_test", batch_size=8)
-    model = init_model(cfg, mlp_scheme="uniform")
+    model = init_model(cfg, mlp_scheme="uniform", device=CPU)
     eng = ServingEngine.mlp_only(model, batch_size=8)
     x = np.random.default_rng(4).uniform(-1, 1, (8, cfg.feature_dim)).astype(np.float32)
     want = ref.mlp_chain(x.astype(np.float64), ref.init_mlp_weights(cfg, "uniform"))
@@ -348,7 +349,7 @@ def test_simulated_servebench_equals_jax(qps, fuse, max_in_flight, service_ms):
 def test_servebench_device_pool_and_fuse():
     """Twin of test_ingest.py::test_servebench_device_pool_and_fuse."""
     cfg = C.get_config("micro_test", batch_size=16)
-    model = init_model(cfg, table_scheme="uniform", mlp_scheme="uniform")
+    model = init_model(cfg, table_scheme="uniform", mlp_scheme="uniform", device=CPU)
     for kw in ({"device_pool": True}, {"fuse": 4}):
         r = run_servebench(model, batch_size=16, offered_qps=4000,
                            duration_s=0.5, max_wait_ms=2.0, **kw)
@@ -362,7 +363,7 @@ def test_servebench_reads_each_dispatch_back_when_it_completes():
     after max_in_flight later dispatches (the JAX loop's deferral, which
     adds two 5 ms batch-formation windows to its service time here)."""
     cfg = C.get_config("micro_test", batch_size=32)
-    r = run_servebench(init_model(cfg), batch_size=32, offered_qps=500,
+    r = run_servebench(init_model(cfg, device=CPU), batch_size=32, offered_qps=500,
                        duration_s=1.0, max_wait_ms=5.0, max_in_flight=2)
     assert r.n_dispatches > 50
     assert r.service_ms_p50 < 5.0
@@ -372,7 +373,7 @@ def test_servebench_reads_each_dispatch_back_when_it_completes():
 def test_servebench_cpu_smoke():
     """Twin of test_ingest.py::test_servebench_cpu_smoke."""
     cfg = C.get_config("micro_test", batch_size=32)
-    r = run_servebench(init_model(cfg), batch_size=32, offered_qps=1000,
+    r = run_servebench(init_model(cfg, device=CPU), batch_size=32, offered_qps=1000,
                        duration_s=1.0, max_wait_ms=2.0)
     assert r.n_queries > 500
     assert 0.5 * r.offered_qps < r.achieved_qps < 2 * r.offered_qps
@@ -659,7 +660,7 @@ def test_qr_serving_engine_end_to_end():
 
     cfg = qr_cfg(C)
     B, NB = 8, 4
-    model = init_model(cfg, table_scheme="pm1", mlp_scheme="ones")
+    model = init_model(cfg, table_scheme="pm1", mlp_scheme="ones", device=CPU)
     assert model.plan.qr_positions
     eng = ServingEngine.from_model(model, batch_size=B)
     wire = IndexWireFormat.plan(cfg, B, 3)

@@ -5,6 +5,9 @@ card tests (tests/test_torch_cuda.py), which import no JAX, use it too."""
 
 import dataclasses
 
+# the device the CPU tests pass to the port's entry points (init_model,
+# load_npz, params_from_jax, Trainer), which run on the card unless asked
+CPU = "cpu"
 PAPER = ["fleetrec_model1", "fleetrec_model2", "fleetrec_model3"]
 LAYOUT_CASES = ["micro", *PAPER, "tiers", "model1_tiers", "striped", "qr",
                 "lanes64", "lanes256", "micro_dlrm"]

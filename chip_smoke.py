@@ -112,14 +112,40 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
    zeroing, lookup bwd, Adagrad), the backward kernel against its plain
    version, ``index_add_`` and its byte bound; the step's device busy time,
    idle share and split from the profiler after the report's timings;
-12. report: the card's name and power limit, each kernel's median time
+12. sharded serving (``parallel/``): (1) ``lookup_fused`` and
+   ``lookup_fused_bags`` (bags of 8) in their row-window form, on every
+   model shard m of M = 2 and 4 (``shard_operands``: the shard's class
+   tables, take rows and descriptors), bit-equal to their plain versions,
+   features and flags, the flags the unsharded ones and the shards'
+   features summing to the unsharded lookup, on phase 4's model1 at B =
+   4096 and phase 5's model3 (int8, take tables at 1M rows); (2) a (data=1,
+   model=2) world of two spawned ranks on this one card over gloo (the
+   exchange staged through host memory): model1 at full rows from an npz
+   checkpoint, pm1 / ones, B = 4096, both ranks bit-equal to the float64
+   oracle and to the single-device forward (the feature exchange:
+   H1 = 1024 > F = 352), ``forward_pipelined`` of 4 batches bit-equal to
+   ``forward``, ``forward_pooled`` with bags of 8 equal to one device's,
+   bad ids NaN on rows [5, 9], 1 ``lookup_fused`` and 1 ``fused_mlp`` launch
+   a sharded forward (1 ``lookup_fused_bags`` pooled); (3) the same world on
+   model3 pm1 / ones (the W1-partial exchange, [B, 2048]), bit-equal to the
+   oracle; (4) ``cli serve --mesh 1,2 --procs 2 --backend gloo`` on full-row
+   model1 (``--ckpt``) and ``--mesh 2,2 --procs 4 --fuse 2`` on model1 at
+   100000 rows a table, 4 batches x 1024 rows a data row sent to each
+   leader's port over loopback, the replies bit-equal to the oracle; (5) an
+   ``nccl`` world of one rank, (1, 1), whose sharded forward is bit-equal to
+   the single-device forward; then rank 0's time split of a sharded forward
+   (window lookup, W1-partial matmul, the exchange's wall time and bytes,
+   tower) for model1 and model3.  Every rank is a spawned process with a
+   deadline; a rank that fails fails the phase;
+13. report: the card's name and power limit, each kernel's median time
    against its plain version at the model1 shapes and at gatherbench's
    shape and flags, ``fused_mlp`` in both dtypes at model1 and model3
    widths, B = 4096 and 1024, and at dlrm's bottom and top towers (ReLU)
    at B = 4096, ``lookup_fused`` at model1 B = 1024 and 4096, model3 and
    dlrm B = 4096, and ``lookup_fused_bags`` at model1 B = 4096 and 1024 for
-   L = 1, 4, 8 and model3 L = 4, each beside the path it replaced (CUDA
-   events over
+   L = 1, 4, 8 and model3 L = 4, each beside the path it replaced, and
+   both in their window form on phase 12's shard 0 of 2 (bound at the
+   shard's bytes) (CUDA events over
    CUDA-graph replays, so host
    dispatch is out of the kernel-against-plain comparison; eager
    back-to-back calls and the profiler's device time beside them), each
@@ -135,8 +161,9 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
    time split into the lookup, the bottom tower, the interaction's torch
    ops, the top tower and the poison.
 
-In phases 6-11 the kernels' launch counters are zeroed just before each
-path runs and read just after; each kernel of the path must have launched.
+In phases 6-12 the kernels' launch counters are zeroed just before each
+path runs and read just after (in phase 12 inside each rank); each kernel of
+the path must have launched.
 A counter counts wrapper calls that launched a kernel: eager calls, and
 the calls recorded while a CUDA graph is captured.  Replays of a graph
 add nothing, so ``gather_rows``' and ``gather_rows_grouped``'s counts from
@@ -1520,6 +1547,500 @@ def phase_train(dev, model1_pm1, model1, dlrm):
                          "dlrm_terabyte": (dlrm, trainer_d, batch_d)}
 
 
+# ---- phase 12: the sharded serving path -------------------------------------
+
+# the model shards of the window-kernel checks, and of the sharded worlds
+WINDOW_MS = (2, 4)
+# the (2, 2) serve world's row cap (every model1 table at most 100000 rows)
+SHARD_SERVE_ROWS = 100_000
+# a world's deadline: its ranks are killed and the phase fails past it
+WORLD_DEADLINE_S = 420
+# forwards timed per part on a rank of the (1, 2) world
+SPLIT_ITERS = 20
+
+
+def pm1_scores(cfg, idx, dense):
+    """The float64 oracle of pm1 tables (row r of every table: +1 when r is
+    even, -1 when odd, every column) and all-ones weights, without the
+    tables: each table's columns are its id's parity sign."""
+    feats = np.zeros((idx.shape[0], cfg.feature_dim))
+    for j, t in enumerate(cfg.tables):
+        feats[:, t.out_offset:t.out_offset + t.dim] = np.where(idx[:, j] % 2 == 0, 1.0, -1.0)[:, None]
+    if cfg.dense_dim:
+        feats[:, cfg.feature_dim - cfg.dense_dim:] = dense
+    return ref.mlp_chain(feats, ref.init_mlp_weights(cfg, "ones"), cfg.mlp.activation)[:, 0]
+
+
+def _same_flags(a, b) -> bool:
+    return (a is None) == (b is None) and (a is None or torch.equal(a, b))
+
+
+def check_windows(model1, model3, dev):
+    """The row-window form of both lookup kernels against their plain
+    versions on each model shard m of M in WINDOW_MS (shard_operands: the
+    shard's class tables, take rows and descriptors): model1 at full rows
+    (B = B_TIME, single ids and bags of BAG_L) and model3 (int8, take tables
+    at 1M rows; single ids), int32 ids with bad ones; kernel and plain
+    bit-equal, features and flags, every shard's flags the unsharded ones,
+    and the M shards' single-id features summed the unsharded lookup's bit
+    for bit.  Returns the worst error and the ((model, ids, dense, bags),
+    shard 0 of 2's operands) the report times."""
+    from fleetrec_tpu_torch.parallel import shard_operands
+
+    rng = np.random.default_rng(21)
+    worst, n = 0.0, 0
+    timed = {}
+    with torch.inference_mode():
+        for name, model in (("fleetrec_model1", model1), ("fleetrec_model3", model3)):
+            cfg = model.cfg
+            ids = torch.from_numpy(ids_with_bad(cfg, B_TIME, rng)).to(dev)
+            dense = _dense(model.layout.dense_dim, B_TIME, rng, dev)
+            bags = (torch.from_numpy(bags_with_bad(cfg, B_TIME, BAG_L, rng)).to(dev)
+                    if name == "fleetrec_model1" else None)
+            whole, whole_bad = model.lookup(ids, dense)
+            for M in WINDOW_MS:
+                total = None
+                for m in range(M):
+                    ops = shard_operands(model, m, M, dev)
+                    d = dense if ops["dense_dim"] else None
+                    if M == 2 and m == 0:
+                        timed[name] = (ops, ids, d, bags)
+                    for kernel, plain, x in ((lookup_fused, lookup_fused_plain, ids),
+                                             (lookup_fused_bags, lookup_fused_bags_plain, bags)):
+                        if x is None:
+                            continue
+                        before = kernel.launches
+                        got, bad = kernel(x, d, **ops)
+                        want, want_bad = plain(x, d, **ops)
+                        torch.cuda.synchronize()
+                        what = f"{kernel.__name__} {name} shard {m} of {M}"
+                        if kernel.launches != before + 1:
+                            raise AssertionError(f"{what}: the kernel did not launch once")
+                        if not (torch.equal(bits(got), bits(want)) and _same_flags(bad, want_bad)):
+                            raise AssertionError(f"{what}: kernel and plain differ")
+                        worst = max(worst, (got.float() - want.float()).abs().max().item())
+                        n += 1
+                        if kernel is lookup_fused:
+                            if not _same_flags(bad, whole_bad):
+                                raise AssertionError(f"{what}: flags differ from one device's")
+                            total = got if total is None else total + got
+                    del ops
+                if not torch.equal(total, whole):
+                    raise AssertionError(f"{name}: the {M} shards' features do not sum to "
+                                         f"the unsharded lookup")
+    return worst, n, timed
+
+
+def _split_forward(sh, ids, dense, iters=SPLIT_ITERS):
+    """A sharded forward's time by part, median of ``iters`` (every rank of
+    the row runs the same loop): the window lookup, the W1-partial matmul
+    (CUDA events), the exchange (host clock around the all_reduce and a
+    synchronize) and the tower and poison (CUDA events); each part closed
+    by a synchronize.  Also the whole forward's wall time."""
+    parts = {k: [] for k in ("lookup", "W1-partial matmul", "exchange", "tower", "forward")}
+    for _ in range(iters):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        feats, bad = lookup_fused(ids, sh._lookup_dense(dense), **sh.operands)
+        ev[1].record()
+        part = sh._partial(feats)
+        ev[2].record()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sh._exchange(part)
+        torch.cuda.synchronize()
+        parts["exchange"].append((time.perf_counter() - t) * 1e3)
+        ev[3].record()
+        sh._finish(part, None, bad, dense)
+        ev[4].record()
+        torch.cuda.synchronize()
+        parts["lookup"].append(ev[0].elapsed_time(ev[1]))
+        parts["W1-partial matmul"].append(ev[1].elapsed_time(ev[2]))
+        parts["tower"].append(ev[3].elapsed_time(ev[4]))
+        t = time.perf_counter()
+        sh.forward(ids, dense)
+        torch.cuda.synchronize()
+        parts["forward"].append((time.perf_counter() - t) * 1e3)
+    out = {k: float(np.median(v)) for k, v in parts.items()}
+    out["exchange_bytes"] = part.numel() * part.element_size()
+    out["exchange_shape"] = list(part.shape)
+    return out
+
+
+def _world_main(rank, n, init, backend, target, args, log_path, q):
+    """A rank of a spawned world on cuda:0: its standard output and errors
+    go to ``log_path``; it joins the world over ``backend``
+    (``init_distributed``; a world of one rank joins its group itself; None:
+    ``target`` joins it), runs ``target(rank, *args)`` and puts (rank, ok,
+    result or traceback) on ``q``."""
+    import traceback
+
+    import torch.distributed as dist
+
+    fd = os.open(log_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    sys.stdout = os.fdopen(1, "w", buffering=1)
+    sys.stderr = sys.stdout
+    try:
+        from fleetrec_tpu_torch.parallel import init_distributed
+        from fleetrec_tpu_torch.parallel.multihost import check_backend
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if backend is not None and n > 1:
+            init_distributed(init, n, rank, backend, device="cuda")
+        elif backend is not None:
+            check_backend(backend, "cuda", 1)
+            dist.init_process_group(backend, init_method=init, world_size=1, rank=0)
+        try:
+            out = target(rank, *args)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        q.put((rank, True, out))
+    except BaseException:  # the parent fails the phase with it
+        q.put((rank, False, traceback.format_exc()))
+
+
+def run_world(n, target, args, tmp, tag, backend="gloo", on_started=None):
+    """``target(rank, *args)`` on ``n`` ranks, spawned processes on this
+    card, joined over ``backend`` through a file:// rendezvous in ``tmp``
+    (None: no process group for one rank launched by ``target`` itself).
+    ``on_started()`` runs in this process while the ranks work (a loopback
+    client).  Raises on the first rank that fails, a rank that dies, or the
+    deadline; kills every rank it started.  Returns the ranks' results in
+    rank order and what ``on_started`` returned."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    init = f"file://{os.path.join(tmp, f'{tag}.rendezvous')}" if backend else None
+    logs = [os.path.join(tmp, f"{tag}.rank{r}.log") for r in range(n)]
+    procs = [ctx.Process(target=_world_main, daemon=True,
+                         args=(r, n, init, backend, target, args, logs[r], q))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    results, side = {}, {}
+    t_end = time.monotonic() + WORLD_DEADLINE_S
+
+    def tail(r):
+        if not os.path.exists(logs[r]):
+            return "(no log)"
+        with open(logs[r]) as f:
+            return f.read()[-3000:]
+
+    def client():
+        try:
+            side["out"] = on_started()
+        except BaseException as e:  # re-raised below, after the ranks are done
+            side["err"] = e
+
+    th = threading.Thread(target=client, daemon=True) if on_started else None
+    if th:
+        th.start()
+    try:
+        while len(results) < n:
+            left = t_end - time.monotonic()
+            if left <= 0:
+                raise AssertionError(f"{tag}: past the {WORLD_DEADLINE_S} s deadline, ranks "
+                                     f"done {sorted(results)}")
+            try:
+                r, ok, payload = q.get(timeout=min(left, 1.0))
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)
+                        and r not in results]
+                if dead:
+                    raise AssertionError(f"{tag}: rank {dead[0]} died (exit "
+                                         f"{procs[dead[0]].exitcode}):\n{tail(dead[0])}")
+                continue
+            if not ok:
+                raise AssertionError(f"{tag}: rank {r} failed:\n{payload}\n{tail(r)}")
+            results[r] = payload
+        if th:
+            th.join(max(1.0, t_end - time.monotonic()))
+            if th.is_alive():
+                raise AssertionError(f"{tag}: the loopback client did not finish")
+            if "err" in side:
+                raise side["err"]
+    finally:
+        for p in procs:
+            p.join(timeout=30 if len(results) == n else 0)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [results[r] for r in range(n)], side.get("out")
+
+
+def sharded_rank(rank, paths, inputs_path):
+    """A rank of the (1, 2) world: model1 at full rows from its checkpoint,
+    then model3 (int8, take tables at 1M rows), each built on the host and
+    sharded; the leader feeds the row's batches to its follower
+    (host_local_batch_to_global).  Returns the scores, the launch counts of
+    one sharded forward (every count set to 0 just before), and rank 0's
+    time split."""
+    from fleetrec_tpu_torch.parallel import (ShardedFleetRec, global_mesh,
+                                             host_local_batch_to_global)
+
+    mesh = global_mesh(1, 2, device="cuda")
+    data = dict(np.load(inputs_path))
+
+    def fan_out(key):
+        arr = data[key]
+        return host_local_batch_to_global(mesh, arr if mesh.is_leader else np.zeros_like(arr))
+
+    out = {}
+    with torch.inference_mode():
+        cfg1 = C.fleetrec_model1(batch_size=B_TIME)
+        sh = ShardedFleetRec(fio.load_npz(paths["model1"], cfg1, "cpu"), mesh)
+        ids = fan_out("m1/idx")
+        out["m1"], out["launches_forward"] = _counted(lambda: sh.forward(ids).cpu().numpy())
+        out["m1_bad"] = sh.forward(fan_out("m1/bad")).cpu().numpy()
+        pip = fan_out("m1/pip")
+        out["m1_pipelined"] = sh.forward_pipelined(pip).cpu().numpy()
+        out["m1_sequential"] = np.stack([sh.forward(pip[k]).cpu().numpy()
+                                         for k in range(pip.shape[0])])
+        bags = fan_out("m1/bags")
+        out["m1_pooled"], out["launches_pooled"] = _counted(
+            lambda: sh.forward_pooled(bags).cpu().numpy())
+        out["fold1"] = sh._use_w1_fold
+        out["split1"] = _split_forward(sh, ids, None)
+        del sh
+        torch.cuda.empty_cache()
+        cfg3 = _cap(C.fleetrec_model3(batch_size=B_TIME), LOOKUP_CAPS["fleetrec_model3"])
+        sh = ShardedFleetRec(fio.load_npz(paths["model3"], cfg3, "cpu"), mesh)
+        ids3, dense3 = fan_out("m3/idx"), fan_out("m3/dense")
+        out["m3"], out["launches_forward3"] = _counted(
+            lambda: sh.forward(ids3, dense3).cpu().numpy())
+        out["fold3"] = sh._use_w1_fold
+        out["split3"] = _split_forward(sh, ids3, dense3)
+    return out
+
+
+def nccl_rank(rank, rows):
+    """The NCCL world of one rank, (1, 1): model1 at ``rows`` rows a table,
+    uniform tables and weights, sharded onto this rank's card from the host
+    and forwarded through the exchange on the NCCL group, against the
+    single-device forward of the same model on the card."""
+    import torch.distributed as dist
+
+    from fleetrec_tpu_torch.parallel import ShardedFleetRec, make_mesh
+
+    cfg = _cap(C.fleetrec_model1(batch_size=B_SERVE), rows)
+    mesh = make_mesh(1, 1, "cuda")
+    sh = ShardedFleetRec(init_model(cfg, table_scheme="uniform", mlp_scheme="uniform",
+                                    device="cpu"), mesh)
+    single = init_model(cfg, table_scheme="uniform", mlp_scheme="uniform", device="cuda")
+    ids = torch.from_numpy(_rand_ids(cfg, B_SERVE, np.random.default_rng(23))).to(mesh.device)
+    with torch.inference_mode():
+        got, want = sh.forward(ids).cpu().numpy(), single(ids).cpu().numpy()
+    return {"backend": dist.get_backend(mesh.group), "equal": bool(np.array_equal(got, want)),
+            "max_abs_err": float(np.abs(got - want).max())}
+
+
+def _serve_client(ports, batches, B):
+    """Send ``batches`` [(ids [D * B, T], None)] over loopback, data row d's
+    rows to ``ports[d]`` (retrying each connect while the world builds its
+    model), and read every row's replies: [n, D * B] scores."""
+    def one(d, out):
+        sock = None
+        for _ in range(2400):
+            try:
+                sock = socket.create_connection(("127.0.0.1", ports[d]), timeout=60)
+                break
+            except OSError:
+                time.sleep(0.1)
+        if sock is None:
+            raise AssertionError(f"the leader of data row {d} never bound port {ports[d]}")
+        want, buf = len(batches) * B * 4, b""
+        with sock:
+            for idx, _ in batches:
+                sock.sendall(idx[d * B:(d + 1) * B].tobytes())
+            while len(buf) < want:
+                chunk = sock.recv(want - len(buf))
+                if not chunk:
+                    break
+                buf += chunk
+        if len(buf) != want:
+            raise AssertionError(f"data row {d}: {len(buf)} reply bytes, want {want}")
+        out[d] = np.frombuffer(buf, np.float32).reshape(len(batches), B)
+
+    out, errs = {}, []
+
+    def run(d):
+        try:
+            one(d, out)
+        except BaseException as e:  # re-raised below
+            errs.append(e)
+
+    ths = [threading.Thread(target=run, args=(d,), daemon=True) for d in range(len(ports))]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(WORLD_DEADLINE_S)
+    if errs:
+        raise errs[0]
+    return np.concatenate([out[d] for d in range(len(ports))], axis=1)
+
+
+def serve_world(tmp, tag, D, M, B, n_batches, cfg, extra, golden):
+    """``cli serve --mesh D,M --procs D*M --backend gloo --reply`` on D*M
+    spawned ranks on this card; data row d's leader on its own port gets
+    rows [d * B, (d + 1) * B) of each batch; the replies must equal
+    ``golden(ids)`` bit for bit.  Returns the ranks' results."""
+    rng = np.random.default_rng(24)
+    batches = [(_rand_ids(cfg, D * B, rng), None) for _ in range(n_batches)]
+    ports = [_free_port() for _ in range(D)]
+    argvs = [["serve", "--config", "fleetrec_model1", "--batch", str(B), "--batches",
+              str(n_batches), "--mesh", f"{D},{M}", "--procs", str(D * M), "--backend", "gloo",
+              "--coordinator", f"file://{os.path.join(tmp, tag + '.serve.rendezvous')}",
+              "--port", str(ports[r // M]), "--slots", "4", "--reply", "--device", "cuda",
+              *extra] for r in range(D * M)]
+    res, scores = run_world(D * M, cli_rank, (argvs,), tmp, tag, backend=None,
+                            on_started=lambda: _serve_client(ports, batches, B))
+    for k, (idx, _) in enumerate(batches):
+        if not np.array_equal(scores[k], golden(idx)):
+            raise AssertionError(f"{tag}: served batch {k} differs from the oracle")
+    for r, rr in enumerate(res):
+        if rr["launches"]["lookup_fused"] < 1 or rr["launches"]["fused_mlp"] < 1:
+            raise AssertionError(f"{tag}: rank {r}: a kernel of the path never launched: "
+                                 f"{rr['launches']}")
+    return res
+
+
+def cli_rank(rank, argvs):
+    """A rank of a ``cli serve --mesh`` world: ``cli.main(argvs[rank] +
+    [--proc-id rank])`` (the CLI joins the world itself); returns its
+    summary line and the launch counts of the run (every count set to 0
+    just before)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, launches = _counted(lambda: cli.main([*argvs[rank], "--proc-id", str(rank)]))
+    return {"summary": json.loads(buf.getvalue().strip().splitlines()[-1]),
+            "launches": launches}
+
+
+def phase_sharded(dev, model1, tabs, ws, model3):
+    """The sharded serving path on this card (phase 12); see the module
+    docstring.  Returns the window check's worst error, the launch counts of
+    the sharded forward and pooled forward of the (1, 2) world, its rank 0's
+    splits and the window operands the report times."""
+    t0 = time.time()
+    err_w, n_w, timed = check_windows(model1, model3, dev)
+    log(f"phase 12 (1) window kernels: lookup_fused and lookup_fused_bags with shard "
+        f"descriptors and take windows, M in {WINDOW_MS}, bit-equal to their plain versions in "
+        f"{n_w} checks (model1 full rows B={B_TIME}, bags of {BAG_L}; model3 int8 at 1M-row "
+        f"take tables), flags the unsharded ones, shards summing to the unsharded lookup "
+        f"(max_abs_err {err_w}; {time.time() - t0:.1f}s)")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        t1 = time.time()
+        cfg1 = model1.cfg
+        paths = {"model1": os.path.join(tmp, "model1.npz"),
+                 "model3": os.path.join(tmp, "model3.npz")}
+        fio.save_npz(paths["model1"], model1)
+        cfg3 = _cap(C.fleetrec_model3(batch_size=B_TIME), LOOKUP_CAPS["fleetrec_model3"])
+        m3 = init_model(cfg3, table_scheme="pm1", mlp_scheme="ones", device="cpu")
+        fio.save_npz(paths["model3"], m3)
+        del m3
+        rng = np.random.default_rng(22)
+        ids1 = _rand_ids(cfg1, B_TIME, rng)
+        bad1 = ids1.copy()
+        take_cols = [j for j, t in enumerate(cfg1.tables) if t.rows > cfg1.onehot_factor_max]
+        bad1[5, take_cols[-1]] = cfg1.tables[take_cols[-1]].rows
+        bad1[9, take_cols[0]] = -1
+        pip1 = np.stack([_rand_ids(cfg1, B_SERVE, rng) for _ in range(4)])
+        bags1 = make_bags(cfg1, B_TIME, BAG_L, seed=25)[0]
+        ids3 = _rand_ids(cfg3, B_TIME, rng)
+        dense3 = rng.choice([-1.0, 1.0], (B_TIME, cfg3.dense_dim)).astype(np.float32)
+        inputs = os.path.join(tmp, "inputs.npz")
+        np.savez(inputs, **{"m1/idx": ids1, "m1/bad": bad1, "m1/pip": pip1, "m1/bags": bags1,
+                            "m3/idx": ids3, "m3/dense": dense3})
+        golden1 = ref.forward(cfg1, tabs, ws, ids1).astype(np.float32)
+        if not np.array_equal(pm1_scores(cfg1, ids1, None).astype(np.float32), golden1):
+            raise AssertionError("the pm1 closed form differs from the oracle on model1")
+        golden3 = pm1_scores(cfg3, ids3, dense3).astype(np.float32)
+        with torch.inference_mode():
+            single1 = model1(torch.from_numpy(ids1).to(dev)).cpu().numpy()
+            single_bad = model1(torch.from_numpy(bad1).to(dev)).cpu().numpy()
+            single_pooled = model1.forward_pooled(torch.from_numpy(bags1).to(dev)).cpu().numpy()
+        setup = time.time() - t1
+
+        t2 = time.time()
+        (r0, r1), _ = run_world(2, sharded_rank, (paths, inputs), tmp, "sharded_1x2")
+        for name, r in (("rank 0", r0), ("rank 1", r1)):
+            checks = ((r["m1"], golden1, "model1 against the oracle"),
+                      (r["m1"], single1, "model1 against the single-device forward"),
+                      (r["m1_pipelined"], r["m1_sequential"], "forward_pipelined against forward"),
+                      (r["m1_pooled"], single_pooled, "forward_pooled against one device's"),
+                      (r["m3"], golden3, "model3 against the oracle"))
+            for got, want, what in checks:
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"(1, 2) world {name}: {what} differ")
+            nan_rows = np.flatnonzero(np.isnan(r["m1_bad"])).tolist()
+            if nan_rows != [5, 9] or not np.array_equal(np.isnan(single_bad), np.isnan(r["m1_bad"])):
+                raise AssertionError(f"(1, 2) world {name}: bad-id NaN rows {nan_rows}")
+            if (r["launches_forward"] != _launches(lookup=1, mlp=1)
+                    or r["launches_pooled"] != _launches(bags=1, mlp=1)
+                    or r["launches_forward3"] != _launches(lookup=1, mlp=1)):
+                raise AssertionError(f"(1, 2) world {name}: launches per sharded forward "
+                                     f"{r['launches_forward']}, pooled {r['launches_pooled']}, "
+                                     f"model3 {r['launches_forward3']}")
+        if r0["fold1"] or not r0["fold3"]:
+            raise AssertionError("model1 must exchange features, model3 the W1-partial")
+        log(f"phase 12 (2, 3) a (data=1, model=2) world of 2 ranks on this card over gloo "
+            f"(set-up: checkpoints and oracles {setup:.1f}s; the world {time.time() - t2:.1f}s): "
+            f"model1 at full rows, pm1 / ones, B={B_TIME}: both ranks' scores bit-equal to the "
+            f"oracle and to the single-device forward (feature exchange "
+            f"{r0['split1']['exchange_shape']}); forward_pipelined K=4 x {B_SERVE} bit-equal to "
+            f"forward; forward_pooled L={BAG_L} equal to one device's; bad ids -> NaN rows [5, 9]; "
+            f"model3 (int8, take tables at 1M rows, dense 64) pm1 / ones bit-equal to the oracle "
+            f"(W1-partial exchange {r0['split3']['exchange_shape']}); launches per sharded "
+            f"forward {r0['launches_forward']}, pooled {r0['launches_pooled']}")
+
+        t3 = time.time()
+        ckpt = ["--ckpt", paths["model1"]]
+        r12 = serve_world(tmp, "serve_1x2", 1, 2, B_SERVE, N_SERVE, C.fleetrec_model1(), ckpt,
+                          lambda idx: ref.forward(cfg1, tabs, ws, idx).astype(np.float32))
+        cfg_c = _cap(C.fleetrec_model1(), SHARD_SERVE_ROWS)
+        r22 = serve_world(tmp, "serve_2x2", 2, 2, B_SERVE, N_SERVE, cfg_c,
+                          ["--max-rows", str(SHARD_SERVE_ROWS), "--fuse", "2"],
+                          lambda idx: pm1_scores(cfg_c, idx, None).astype(np.float32))
+        log(f"phase 12 (4) cli serve --mesh 1,2 --procs 2 --backend gloo (model1 full rows "
+            f"from its checkpoint) and --mesh 2,2 --procs 4 --fuse 2 (rows capped at "
+            f"{SHARD_SERVE_ROWS}): {N_SERVE} batches x {B_SERVE} rows a data row over loopback, "
+            f"replies bit-equal to the oracle; summaries {[r['summary'] for r in r12]} / "
+            f"{[r['summary'] for r in r22]}; launches of the leaders' runs "
+            f"{r12[0]['launches']} / {r22[0]['launches']} ({time.time() - t3:.1f}s)")
+
+        t4 = time.time()
+        (rn,), _ = run_world(1, nccl_rank, (SHARD_SERVE_ROWS,), tmp, "nccl_1x1", backend="nccl")
+        if rn["backend"] != "nccl" or not rn["equal"]:
+            raise AssertionError(f"the NCCL world of one rank: {rn}")
+        log(f"phase 12 (5) an nccl world of one rank, (1, 1): model1 at {SHARD_SERVE_ROWS} rows, "
+            f"uniform data, the sharded forward through the NCCL exchange bit-equal to the "
+            f"single-device forward ({time.time() - t4:.1f}s)")
+    finally:
+        shutil.rmtree(tmp)
+    for tag, key, fold in (("model1 (feature exchange)", "split1", r0["fold1"]),
+                           ("model3 (W1-partial exchange)", "split3", r0["fold3"])):
+        sp = r0[key]
+        matmul = (f"{sp['W1-partial matmul']:.4f} ms (a cuBLAS product)" if fold
+                  else "none (the features are exchanged)")
+        log(f"time sharded forward {tag} B={B_TIME}, rank 0 of (1, 2) on one card (the other "
+            f"rank's kernels share it), median of {SPLIT_ITERS} (each part closed by a "
+            f"synchronize): window lookup {sp['lookup']:.4f} ms, W1-partial matmul {matmul} "
+            f"(CUDA events), exchange {sp['exchange']:.4f} ms wall for {sp['exchange_bytes']} B "
+            f"{sp['exchange_shape']} (gloo all_reduce staged through host memory between two "
+            f"ranks on one card: not an interconnect number), tower and poison "
+            f"{sp['tower']:.4f} ms (CUDA events); whole forward {sp['forward']:.4f} ms wall")
+    log(f"phase 12 sharded serving: all passed ({time.time() - t0:.1f}s)")
+    return err_w, r0, timed
+
+
 def _ms(fn, iters: int = 20) -> float:
     """Mean ms per call over ``iters`` back-to-back calls, from CUDA events
     (includes any gap the host leaves between launches)."""
@@ -1685,14 +2206,15 @@ def gather_bytes(table, idx) -> int:
     return idx.numel() * idx.element_size() + (torch.unique(ok).numel() + idx.numel()) * row
 
 
-def lookup_bytes(model, idx, dense) -> int:
-    """Bytes the fused lookup must move, each counted once: its ids
-    ([B, T], or bags [B, T, L]) and descriptors, the distinct table rows
-    these ids read (a (buffer, row) pair once), the dense features, the
-    features and the flags it writes."""
-    ops = model.lookup_operands()
+def lookup_bytes(ops, idx, dense) -> int:
+    """Bytes the fused lookup over ``ops`` (a model's lookup_operands, or a
+    shard's: only the rows of its tables and window count) must move, each
+    counted once: its ids ([B, T], or bags [B, T, L]) and descriptors, the
+    distinct table rows these ids read (a (buffer, row) pair once), the
+    dense features, the features and the flags it writes."""
     cols = ops["cols"]
-    off, _ = lookup_offsets_plain(idx, cols, ops["stripes"], ops["stripe_height"])
+    off, _ = lookup_offsets_plain(idx, cols, ops["stripes"], ops["stripe_height"],
+                                  ops.get("window"))
     read = off >= 0
     per_col = (-1, 1) if idx.dim() == 3 else (-1,)  # a plan column's field, over its slots
     buf = cols[:, LOOKUP_COL_FIELDS.index("buf")].view(per_col).expand_as(off)[read]
@@ -1732,7 +2254,7 @@ def bound(nbytes: int, flops: int = 0, dtype=torch.float32):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_report(cfg, model, dev, gb, lookups):
+def phase_report(cfg, model, dev, gb, lookups, windows):
     """Kernel-against-plain and forward times, each kernel beside its bound
     and one library call (index_select, multi_dot; none computes the fused
     lookup, which is timed beside the path it replaced: lookup_concat of
@@ -1740,7 +2262,9 @@ def phase_report(cfg, model, dev, gb, lookups):
     kernel (a) at gatherbench's table and ids ``gb``, (b) with gatherbench's
     flags; ``lookup_fused`` on model1 and on ``lookups``' model3 and
     dlrm_terabyte; ``fused_mlp`` at model1's, model3's and dlrm's towers;
-    the model1 and dlrm forwards.  CUDA-event timings come first: once
+    the model1 and dlrm forwards; the window forms of the lookup kernels on
+    ``windows`` (phase 12's shard 0 of 2 of model1 and model3).  CUDA-event
+    timings come first: once
     torch.profiler has attached to the device it adds host cost to every
     later launch, so the profiled pass runs last.  Returns each label's
     numbers for the kernels' record."""
@@ -1824,7 +2348,7 @@ def phase_report(cfg, model, dev, gb, lookups):
             lcfg, m = lookups[name]
             ids = torch.from_numpy(_rand_ids(lcfg, B, rng)).to(dev)  # int32, as served
             dense = _dense(m.layout.dense_dim, B, rng, dev)
-            nbytes = lookup_bytes(m, ids, dense)
+            nbytes = lookup_bytes(m.lookup_operands(), ids, dense)
 
             def replaced(m=m, ids=ids, dense=dense):
                 gi = m.plan_indices(ids)
@@ -1847,7 +2371,7 @@ def phase_report(cfg, model, dev, gb, lookups):
             lcfg, m = lookups[name]
             ids = torch.from_numpy(make_bags(lcfg, B, L, seed=15 + L)[0]).to(dev)
             dense = _dense(m.layout.dense_dim, B, rng, dev)
-            nbytes = lookup_bytes(m, ids, dense)
+            nbytes = lookup_bytes(m.lookup_operands(), ids, dense)
             members = int((ids >= 0).sum())
 
             def replaced(m=m, ids=ids, dense=dense):
@@ -1863,6 +2387,21 @@ def phase_report(cfg, model, dev, gb, lookups):
                           f"{m.layout.feature_dim} wide, dense {m.layout.dense_dim}, int32 ids, "
                           f"sum pooling, {members} members in {B * lcfg.num_tables} bags, "
                           f"{nbytes} B counted once", None, bound(nbytes), replaced))
+        # the window forms on shard 0 of 2 (phase 12's operands): bound at the
+        # shard's bytes (its rows, its dense); no PyTorch call computes them
+        for name, (ops, ids, d, bags) in windows.items():
+            for kernel, plain, x, tag in ((lookup_fused, lookup_fused_plain, ids, ""),
+                                          (lookup_fused_bags, lookup_fused_bags_plain, bags,
+                                           f" L={BAG_L}")):
+                if x is None:
+                    continue
+                nbytes = lookup_bytes(ops, x, d)
+                cases.append((f"{kernel.__name__} window {name}{tag} B={B_TIME}",
+                              functools.partial(kernel, x, d, **ops),
+                              functools.partial(plain, x, d, **ops),
+                              f"shard 0 of 2: {len(ops['bufs'])} buffers, take window "
+                              f"{ops['window']}, int32 ids with bad ones, {nbytes} B counted once",
+                              None, bound(nbytes), None))
         d_idx = torch.from_numpy(_rand_ids(dcfg, B_TIME, rng)).to(dev)
         d_dense = _dense(dcfg.dense_dim, B_TIME, rng, dev)
         bag_idx = torch.from_numpy(make_bags(cfg, B_TIME, BAG_L, seed=16)[0]).to(dev)
@@ -1898,7 +2437,9 @@ def phase_report(cfg, model, dev, gb, lookups):
             rate = ""
             if label in flops:
                 rate = f" = {flops[label] / kg / 1e9:.2f} TFLOP/s"
-            if lib is None:
+            if lib is None and label not in replaced_ms:
+                yardstick = "no one PyTorch call computes it"
+            elif lib is None:
                 stats[label]["replaced_ms"] = replaced_ms[label]
                 yardstick = (f"no one PyTorch call computes it; the path it replaced "
                              f"{replaced_ms[label]:.4f} ms")
@@ -2167,7 +2708,8 @@ def main() -> int:
     err_bwd, train_launches, runs = phase_train(dev, model, model_u,
                                                 lookups["dlrm_terabyte"][1])
     trained = time_training(runs, dev)
-    stats = phase_report(cfg, model, dev, gb, lookups)
+    err_w, sharded, windows = phase_sharded(dev, model, tabs, ws, lookups["fleetrec_model3"][1])
+    stats = phase_report(cfg, model, dev, gb, lookups, windows)
     profile_training(runs, trained)
     tiers, gb_a = stats["gather_rows all tiers"], stats["gather_rows gatherbench shape"]
     mlp, mlp_bf = stats[f"fused_mlp fp32 model1 B={B_TIME}"], stats[f"fused_mlp bf16 model1 B={B_TIME}"]
@@ -2212,6 +2754,13 @@ def main() -> int:
             for k in ("ms", "plain_ms", "bound_ms", "replaced_ms")},
          "ms_ids0_model3": stats[f"lookup_fused fleetrec_model3 B={B_TIME}"]["ms_ids0"],
          "launches_dlrm_serve": dlrm_launches["lookup_fused"],
+         # the row-window form (phase 12): launches of one sharded forward on
+         # rank 0 of the (1, 2) world; times on shard 0 of 2, bound at the
+         # shard's bytes
+         "launches_sharded": sharded["launches_forward"]["lookup_fused"],
+         "max_abs_err_window": err_w,
+         **{f"{k}_window_{tag}": stats[f"lookup_fused window fleetrec_{tag} B={B_TIME}"][k]
+            for tag in ("model1", "model3") for k in ("ms", "plain_ms", "bound_ms")},
          **{f"{k}_dlrm": stats[f"lookup_fused dlrm_terabyte B={B_TIME}"][k]
             for k in ("ms", "plain_ms", "bound_ms", "replaced_ms", "ms_ids0")}},
         # the bag form of the fused lookup: launches of the served pooled run
@@ -2227,7 +2776,10 @@ def main() -> int:
             for tag, label in [(f"b{B}_l{L}", f"lookup_fused_bags fleetrec_model1 B={B} L={L}")
                                for B in (B_TIME, 1024) for L in BAG_LS]
             + [("model3", f"lookup_fused_bags fleetrec_model3 B={B_TIME} L={BAG_L_SMALL}")]
-            for k in ("ms", "plain_ms", "bound_ms", "replaced_ms", "ms_ids0")}},
+            for k in ("ms", "plain_ms", "bound_ms", "replaced_ms", "ms_ids0")},
+         "launches_sharded": sharded["launches_pooled"]["lookup_fused_bags"],
+         **{f"{k}_window_model1": stats[f"lookup_fused_bags window fleetrec_model1 L={BAG_L} "
+                                        f"B={B_TIME}"][k] for k in ("ms", "plain_ms", "bound_ms")}},
         # the lookup's backward (training): launches of model1's training run
         # (one a step); times at model1 B_TIME (plain eager: its masks have
         # data-dependent shapes), then dlrm; library_ms one index_add_ of the

@@ -7,7 +7,9 @@ kernel, ``ops/csrc/lookup_fused.cu``), an optional interaction head (DLRM's
 pairwise dots with its bottom tower, or DCNv2's cross layers) and the
 bias-free MLP tower (the fused-MLP kernel, ``ops/csrc/fused_mlp.cu``) to [B]
 scores, served over the native ingest tier; feature mode serves the tower
-alone.  ``models/train.py`` trains a model in place on one device (BCE,
+alone.  ``parallel/`` serves the same forward over a (data, model) mesh of
+``torch.distributed`` ranks, one device a rank: tables sharded over the
+model axis, one all_reduce a forward (``serve --mesh``).  ``models/train.py`` trains a model in place on one device (BCE,
 Adagrad; the lookup's backward is a hand-written kernel too).  ``io.py`` reads
 and writes the JAX package's npz checkpoints, and the CLI's ``bench``,
 ``gatherbench`` (with the grouped gather kernel,

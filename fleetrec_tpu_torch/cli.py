@@ -11,6 +11,8 @@
   python -m fleetrec_tpu_torch.cli bench   --config dlrm_terabyte --max-rows 1000000 --batch 4096
   python -m fleetrec_tpu_torch.cli serve   --config fleetrec_model1 --batch 1024 --reply --bag-l 8
   python -m fleetrec_tpu_torch.cli loadgen --config fleetrec_model1 --batch 1024 --read-scores --bag-l 8
+  python -m fleetrec_tpu_torch.cli serve   --config fleetrec_model1 --batch 1024 --reply \
+      --mesh 1,2 --procs 2 --proc-id I --coordinator host:port --backend gloo   # each rank I
 
 Every command that builds a model or times a kernel runs on ``--device``
 (default ``cuda``; nothing moves to the CPU when no card is found — pass
@@ -71,18 +73,20 @@ def _make_cfg(args):
     return cfg
 
 
-def _build(args):
-    """The config and the model on --device: loaded from --ckpt (its
-    fingerprint and array shapes checked) or synthesized."""
+def _build(args, device=None):
+    """The config and the model on ``device`` (default --device): loaded
+    from --ckpt (its fingerprint and array shapes checked) or
+    synthesized."""
     cfg = _make_cfg(args)
+    device = device or args.device
     if args.ckpt:
         from .io import load_npz
 
-        return cfg, load_npz(args.ckpt, cfg, args.device)
+        return cfg, load_npz(args.ckpt, cfg, device)
     from .models import init_model
 
     return cfg, init_model(cfg, table_scheme=args.table_scheme,
-                           mlp_scheme=args.mlp_scheme, device=args.device)
+                           mlp_scheme=args.mlp_scheme, device=device)
 
 
 def _device_name(dev) -> str:
@@ -121,18 +125,51 @@ def cmd_serve(args):
     for contiguous config-order table ranges, on ports base..base+N-1.
     --bag-l L: the ids are pooled bags, int32 [B, T, L] with -1 padding
     (models/pooled.py), sum-pooled, or mean-pooled with --bag-mean; one
-    sender only, and no interaction head."""
+    sender only, and no interaction head.
+
+    --mesh D,M: serve through the sharded engine (parallel/sharded.py:
+    tables over M model shards, the batch over D data rows) on D*M ranks,
+    one device a rank, so --procs must be D*M.  Every rank runs this
+    command with its --proc-id over one torch.distributed world
+    (--coordinator host:port or a file:// URL; --backend nccl needs a card a
+    rank, gloo carries several ranks on one card through host memory).  The
+    model is built on the host and each rank moves only its shard to
+    --device.  Each data row's leader (model rank 0) binds its own --port,
+    takes --batch rows a batch and replies its own rows' scores; the row's
+    other ranks follow it.  --fuse K scores K batches a call through the
+    pipelined sharded forward; --peer-timeout bounds the lockstep wait
+    (serving/engine.PeerWatchdog)."""
     from .serving.compose import ServeSpec, serve
 
-    cfg, model = _build(args)
-    spec = ServeSpec(
-        batch=args.batch, batches=args.batches, port=args.port,
-        slots=args.slots, senders=args.senders, fuse=args.fuse,
-        bg_drain=args.bg_drain, reply=args.reply,
-        scatter=tuple(args.scatter.split(",")) if args.scatter else (),
-        warm=args.warm, bag_L=args.bag_l, bag_mean=args.bag_mean,
-    )
-    print(json.dumps(serve(cfg, model, spec)))
+    mesh = tuple(int(x) for x in args.mesh.split(",")) if args.mesh else None
+    if mesh is None and args.procs > 1:
+        raise SystemExit("--procs requires --mesh D,M")
+    if mesh is not None and (len(mesh) != 2 or mesh[0] * mesh[1] != args.procs):
+        raise SystemExit(f"--mesh {args.mesh} needs --procs equal to D*M (one device a "
+                         f"rank), got --procs {args.procs}")
+    multiproc = args.procs > 1
+    if multiproc:
+        from .parallel import init_distributed
+
+        init_distributed(args.coordinator, args.procs, args.proc_id, args.backend,
+                         device=args.device)
+    try:
+        # a sharded engine packs the model on the host and moves its shard
+        cfg, model = _build(args, device="cpu" if mesh else None)
+        spec = ServeSpec(
+            batch=args.batch, batches=args.batches, port=args.port,
+            slots=args.slots, senders=args.senders, mesh=mesh, multiprocess=multiproc,
+            device=args.device, peer_timeout_s=args.peer_timeout or None, fuse=args.fuse,
+            bg_drain=args.bg_drain, reply=args.reply,
+            scatter=tuple(args.scatter.split(",")) if args.scatter else (),
+            warm=args.warm, bag_L=args.bag_l, bag_mean=args.bag_mean,
+        )
+        print(json.dumps(serve(cfg, model, spec)))
+    finally:
+        if multiproc:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 def cmd_loadgen(args):
@@ -540,6 +577,24 @@ def main(argv=None):
                    "(models/pooled.py; single sender, no interaction head)")
     s.add_argument("--bag-mean", action="store_true",
                    help="mean pooling instead of sum (with --bag-l)")
+    s.add_argument("--mesh", default="",
+                   help="D,M: serve through the sharded engine on a (data=D, "
+                   "model=M) mesh of D*M ranks, one device a rank")
+    s.add_argument("--procs", type=int, default=1,
+                   help="ranks of the torch.distributed world: D*M with --mesh "
+                   "(each runs its own serve; --batch is a data row's rows)")
+    s.add_argument("--proc-id", type=int, default=0, help="this process's rank")
+    s.add_argument("--coordinator", default=None,
+                   help="rendezvous: host:port, or a tcp:// or file:// URL "
+                   "(default: MASTER_ADDR / MASTER_PORT)")
+    s.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                   help="torch.distributed backend (default nccl on a CUDA "
+                   "device, gloo on the CPU); nccl needs a card a rank, gloo "
+                   "lets several ranks share one card")
+    s.add_argument("--peer-timeout", type=float, default=0,
+                   help="abort this process (exit 124) with a diagnostic when "
+                   "a collective dispatch / readback stalls past this many "
+                   "seconds (0 = no bound)")
     s.set_defaults(fn=cmd_serve)
 
     s = sub.add_parser("loadgen", parents=[common])

@@ -312,7 +312,7 @@ def plan_tensors(layout: PackedLayout, device) -> Dict[str, torch.Tensor]:
 
 def lookup_tensors(layout: PackedLayout, index_perm: Sequence[int],
                    qr_positions: Sequence[Tuple[int, int]],
-                   device) -> Dict[str, torch.Tensor]:
+                   device, shard: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
     """The descriptors of ``ops/lookup.py::lookup_fused``, which computes
     ``lookup_concat(packed, plan_indices(ids), dense)`` and
     ``take_bad_rows`` from config-order ids in one pass.  Offsets and kinds
@@ -343,13 +343,30 @@ def lookup_tensors(layout: PackedLayout, index_perm: Sequence[int],
     the row, or the dense column, with ``VEC4`` (``VEC8``) set on the first
     of 4 (8) output columns, at a multiple of 4 (8), that are one run of
     one row at an offset that is a multiple of 4 (8) in a row whose width
-    is one too (or all zeros): the kernel moves them as one word."""
+    is one too (or all zeros): the kernel moves them as one word.
+
+    ``shard=(m, M)``: the descriptors of model shard m of M
+    (``parallel/sharded.py``), whose class buffer i holds the class's
+    tables ``[m * n_loc, (m + 1) * n_loc)`` with ``n_loc = ceil(n / M)``
+    (``class_tables``).  A class column of a table that shard holds reads
+    its local table (``base`` and ``scale`` rebased); any other class column
+    has ``lim = 0``, so it reads a zero row and, being a class column, flags
+    nothing.  Take columns keep their global ``base`` and ``lim``: the
+    kernel's row window drops another shard's rows, and the flags are the
+    same on every shard.  On a shard other than 0 the dense tail's output
+    columns are zeros (shard 0 contributes it), and the descriptors read no
+    dense tail.  Without ``shard`` (or with ``(0, 1)``) the descriptors are
+    the single-device ones."""
     n_cfg = len(index_perm) - len(qr_positions)
     qr_rem = dict(qr_positions)
+    m, M = shard or (0, 1)
     rows = []  # one dict of LOOKUP_COL_FIELDS a plan column
     for i, c in enumerate(layout.onehot_classes):
-        rows += [dict(kind=KIND_CLASS, buf=i, base=j * c.rows_pad, lim=c.rows_pad,
-                      s=1, dim=c.dim, scale=j) for j in range(c.num_tables)]
+        lo, hi = class_tables(c.num_tables, m, M)
+        rows += [dict(kind=KIND_CLASS, buf=i, base=(j - lo) * c.rows_pad, lim=c.rows_pad,
+                      s=1, dim=c.dim, scale=j - lo) if lo <= j < hi else
+                 dict(kind=KIND_CLASS, buf=i, base=0, lim=0, s=1, dim=c.dim, scale=0)
+                 for j in range(c.num_tables)]
     int32_max = np.iinfo(np.int32).max
     take_bases = [(g, b) for g in layout.take_groups for b in g.base_phys]
     rows += [dict(kind=KIND_TAKE, buf=len(layout.onehot_classes), base=b,
@@ -391,8 +408,8 @@ def lookup_tensors(layout: PackedLayout, index_perm: Sequence[int],
     off[emb] = perm[emb] - cursor[col[emb]]
     add[emb] = [add_of.get(int(k), -1) for k in col[emb]]
     dense = (perm >= emb_total) & (perm < emb_total + layout.dense_dim)
-    col[dense] = POS_DENSE
-    off[dense] = perm[dense] - emb_total
+    col[dense] = POS_DENSE if m == 0 else POS_ZERO
+    off[dense] = perm[dense] - emb_total if m == 0 else 0
     # chunks of n output columns that are one run of one source, aligned to
     # n in a row of n-multiple width (or zeros): their first column's VEC bit
     widths = np.append(dims, layout.dense_dim)  # a plan column's, the dense row's
@@ -408,6 +425,15 @@ def lookup_tensors(layout: PackedLayout, index_perm: Sequence[int],
     pos = pos.astype(np.uint32).view(np.int32)
     return {"cols": torch.as_tensor(cols, device=device),
             "pos": torch.as_tensor(pos, device=device)}
+
+
+def class_tables(n: int, m: int, M: int) -> Tuple[int, int]:
+    """The tables [lo, hi) of a class of ``n`` that model shard m of M
+    holds: ``n_loc = ceil(n / M)`` a shard (the class's table axis padded to
+    ``n_loc * M`` with zero tables, as the JAX package's ``shard_params``
+    pads it), clipped to the real tables."""
+    n_loc = -(-n // M)
+    return min(m * n_loc, n), min((m + 1) * n_loc, n)
 
 
 @dataclasses.dataclass

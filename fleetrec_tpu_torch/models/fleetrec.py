@@ -213,15 +213,7 @@ class FleetRecModel(nn.Module):
 
     def _check_inputs(self, indices: torch.Tensor, dense: Optional[torch.Tensor],
                       dense_dim: int, bags: bool = False) -> None:
-        n = self.cfg.num_tables
-        if indices.dim() != 2 + bags or indices.shape[1] != n:
-            raise ValueError(f"indices must be [B, {n}{', L' if bags else ''}], got "
-                             f"{tuple(indices.shape)}")
-        if dense_dim and (dense is None
-                          or tuple(dense.shape) != (indices.shape[0], dense_dim)):
-            raise ValueError(
-                f"dense must be [{indices.shape[0]}, {dense_dim}], got "
-                f"{None if dense is None else tuple(dense.shape)}")
+        check_inputs(self.cfg, indices, dense, dense_dim, bags)
 
     def lookup(self, indices: torch.Tensor, dense: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -339,6 +331,21 @@ class FleetRecModel(nn.Module):
         scores = mlp_apply(self.mlp_weights, feats.to(TORCH_DTYPES[cfg.dtype]),
                            activation=cfg.mlp.activation)
         return self.poison_scores(scores[:, 0], bad)
+
+
+def check_inputs(cfg: ModelConfig, indices: torch.Tensor, dense: Optional[torch.Tensor],
+                 dense_dim: int, bags: bool = False) -> None:
+    """Raise unless ``indices`` is [B, num_tables] ([B, num_tables, L] for
+    bags) and ``dense`` [B, dense_dim] (anything when ``dense_dim`` is 0)."""
+    n = cfg.num_tables
+    if indices.dim() != 2 + bags or indices.shape[1] != n:
+        raise ValueError(f"indices must be [B, {n}{', L' if bags else ''}], got "
+                         f"{tuple(indices.shape)}")
+    if dense_dim and (dense is None
+                      or tuple(dense.shape) != (indices.shape[0], dense_dim)):
+        raise ValueError(
+            f"dense must be [{indices.shape[0]}, {dense_dim}], got "
+            f"{None if dense is None else tuple(dense.shape)}")
 
 
 def check_pooled_config(cfg: ModelConfig) -> None:

@@ -81,6 +81,15 @@
 // slot) and 4 a (row, plan column) on top of the descriptors, so a tile holds
 // fewer rows as L grows (ops/lookup.py::launch_shape).
 //
+// The row window (row_lo, rows_local) is the two forward kernels' form for one
+// model shard of the sharded forward (parallel/sharded.py, the port of
+// fleetrec_tpu/parallel/sharded.py:177-261 and :312-414): the take buffer
+// passed is rows [row_lo, row_lo + rows_local) of the padded whole, and a take
+// id whose physical row falls outside them reads a zero row (in a bag: adds
+// nothing).  The window never flags a row: the flags come from the ids and the
+// global row limits, the same on every shard.  The whole buffer is (0,
+// INT64_MAX), which is what a single-device lookup passes.
+//
 // The backward kernel (lookup_backward_kernel, entry point
 // fr_lookup_fused_backward) is the single-id kernel's gradient for training:
 // it walks the same descriptors and adds the features' cotangent into float32
@@ -273,17 +282,20 @@ __device__ __forceinline__ void stage(const Buffers& bufs, const int64_t* __rest
 }
 
 // The address of the row plan column c reads for the id x in [0, lim) (int64
-// offsets: a take buffer can pass 2^31 elements).
+// offsets: a take buffer can pass 2^31 elements), or null for a take row
+// outside the window [row_lo, row_lo + rows_local) of physical rows.
 template <typename TS>
 __device__ __forceinline__ const void* row_address(const Col& c, uint32_t x,
                                                    const void* const* s_buf, uint32_t S,
-                                                   int64_t stripe_height) {
+                                                   int64_t stripe_height, int64_t row_lo,
+                                                   int64_t rows_local) {
   int64_t flat;
   if (c.take) {
     const uint32_t s = (uint32_t)c.s;
     const uint32_t p = x / s, sub = x - p * s;
     const int64_t phys =
-        c.base + (S > 1 ? (int64_t)(p % S) * stripe_height + p / S : (int64_t)p);
+        c.base + (S > 1 ? (int64_t)(p % S) * stripe_height + p / S : (int64_t)p) - row_lo;
+    if ((uint64_t)phys >= (uint64_t)rows_local) return nullptr;  // another shard's row
     flat = phys * s + sub;
   } else {
     flat = c.base + x;
@@ -315,7 +327,8 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ dense, const int64_t* __restrict__ cols,
                         const int2* __restrict__ pos, typename Elem<TS>::Out* __restrict__ out,
                         bool* __restrict__ bad, int B, int T, int n_plan, int F, int dense_dim,
-                        int rows, int64_t stripes, int64_t stripe_height) {
+                        int rows, int64_t stripes, int64_t stripe_height, int64_t row_lo,
+                        int64_t rows_local) {
   using E = Elem<TS>;
   using Out = typename E::Out;
   using Raw = typename E::Raw;
@@ -350,7 +363,7 @@ __global__ void __launch_bounds__(kThreads)
       else if (c.op == kOpMod) id = floor_mod(id, c.rem);
       const void* row = nullptr;
       if (id >= 0 && id < c.lim) {  // then 0 <= id < 2^31
-        row = row_address<TS>(c, (uint32_t)id, s_buf, S, stripe_height);
+        row = row_address<TS>(c, (uint32_t)id, s_buf, S, stripe_height, row_lo, rows_local);
       } else if (c.take) {
         s_bad[r] = 1;
       }
@@ -563,7 +576,7 @@ __global__ void __launch_bounds__(kThreads)
                        const int2* __restrict__ pos, typename Elem<TS>::Out* __restrict__ out,
                        bool* __restrict__ bad, int B, int T, int L, int n_plan, int F,
                        int dense_dim, int rows, int mean, int64_t stripes,
-                       int64_t stripe_height) {
+                       int64_t stripe_height, int64_t row_lo, int64_t rows_local) {
   using E = Elem<TS>;
   using Out = typename E::Out;
   constexpr int kV = 16 / sizeof(Out);  // output columns a 16-byte chunk
@@ -606,7 +619,8 @@ __global__ void __launch_bounds__(kThreads)
         if (mean) atomicAdd(&s_cnt[r * n_plan + k], 1);
         if (c.op == kOpDiv) id /= c.rem;
         else if (c.op == kOpMod) id %= c.rem;
-        if (id < c.lim) row = row_address<TS>(c, (uint32_t)id, s_buf, S, stripe_height);
+        if (id < c.lim)
+          row = row_address<TS>(c, (uint32_t)id, s_buf, S, stripe_height, row_lo, rows_local);
         else if (c.take) s_bad[r] = 1;
       }
       s_row[u] = row;
@@ -717,7 +731,8 @@ __global__ void __launch_bounds__(kThreads)
       if (c.op == kOpDiv) id = floor_div(id, c.rem);
       else if (c.op == kOpMod) id = floor_mod(id, c.rem);
       s_row[u] = id >= 0 && id < c.lim
-                     ? row_address<float>(c, (uint32_t)id, s_buf, S, stripe_height)
+                     ? row_address<float>(c, (uint32_t)id, s_buf, S, stripe_height, 0,
+                                          INT64_MAX)
                      : nullptr;
     }
     __syncthreads();
@@ -759,6 +774,7 @@ struct Args {
   void *out, *bad;
   int B, T, n_plan, F, dense_dim, rows, grid, vec;
   int64_t stripes, stripe_height;
+  int64_t row_lo, rows_local;  // the take buffer's row window
   int L, mean;  // the bag kernel's
 };
 
@@ -771,7 +787,7 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
       a.bufs, static_cast<const I*>(a.ids), static_cast<const float*>(a.dense),
       static_cast<const int64_t*>(a.cols), static_cast<const int2*>(a.pos),
       static_cast<typename Elem<TS>::Out*>(a.out), static_cast<bool*>(a.bad), a.B, a.T,
-      a.n_plan, a.F, a.dense_dim, a.rows, a.stripes, a.stripe_height);
+      a.n_plan, a.F, a.dense_dim, a.rows, a.stripes, a.stripe_height, a.row_lo, a.rows_local);
   return cudaGetLastError();
 }
 
@@ -785,7 +801,8 @@ cudaError_t launch_bags(const Args& a, cudaStream_t st) {
           a.bufs, static_cast<const I*>(a.ids), static_cast<const float*>(a.dense),
           static_cast<const int64_t*>(a.cols), static_cast<const int2*>(a.pos),
           static_cast<typename Elem<TS>::Out*>(a.out), static_cast<bool*>(a.bad), a.B, a.T,
-          a.L, a.n_plan, a.F, a.dense_dim, a.rows, a.mean, a.stripes, a.stripe_height);
+          a.L, a.n_plan, a.F, a.dense_dim, a.rows, a.mean, a.stripes, a.stripe_height,
+          a.row_lo, a.rows_local);
   return cudaGetLastError();
 }
 
@@ -821,11 +838,11 @@ cudaError_t launch_ids(int ids_64, const Args& a, cudaStream_t st) {
 int run(const void* const* bufs, const void* const* scales, int n_bufs, int storage,
         const void* ids, int ids_64, const void* dense, const void* cols, const void* pos,
         void* out, void* bad, int64_t B, int T, int n_plan, int F, int dense_dim, int rows,
-        int grid, int64_t stripes, int64_t stripe_height, int vec, int L, int mean,
-        void* stream) {
+        int grid, int64_t stripes, int64_t stripe_height, int vec, int64_t row_lo,
+        int64_t rows_local, int L, int mean, void* stream) {
   const int chunk = storage == 1 ? 8 : 4;
   if (n_bufs < 0 || n_bufs > kMaxBufs || B < 1 || B > INT32_MAX || rows < 1 || grid < 1 ||
-      L < 0 || (int64_t)rows * F > INT32_MAX / 2 ||
+      L < 0 || row_lo < 0 || rows_local < 0 || (int64_t)rows * F > INT32_MAX / 2 ||
       (int64_t)rows * n_plan * (L ? L : 1) > INT32_MAX / 2 ||
       (L ? smem_bytes_bags(F, n_plan, rows, L) : smem_bytes(F, n_plan, rows)) > kSmemMax ||
       stripes < 1 || (dense == nullptr && dense_dim != 0) || (vec && F % chunk != 0))
@@ -851,6 +868,8 @@ int run(const void* const* bufs, const void* const* scales, int n_bufs, int stor
   a.vec = vec;
   a.stripes = stripes;
   a.stripe_height = stripe_height;
+  a.row_lo = row_lo;
+  a.rows_local = rows_local;
   a.L = L;
   a.mean = mean;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -875,15 +894,18 @@ int run(const void* const* bufs, const void* const* scales, int n_bufs, int stor
 // descriptors; out [B, F] (float32 for int8 storage); bad [B] bool or null.
 // rows: batch rows a tile; grid: blocks (ops/lookup.py::launch_shape); vec:
 // chunks of 16 output bytes may move as words (F a multiple of the chunk,
-// every buffer, dense and out 16-byte aligned).
+// every buffer, dense and out 16-byte aligned); row_lo / rows_local: the take
+// buffer's row window (0 / INT64_MAX: the whole buffer).
 extern "C" int fr_lookup_fused(const void* const* bufs, const void* const* scales,
                                int n_bufs, int storage, const void* ids, int ids_64,
                                const void* dense, const void* cols, const void* pos,
                                void* out, void* bad, int64_t B, int T, int n_plan, int F,
                                int dense_dim, int rows, int grid, int64_t stripes,
-                               int64_t stripe_height, int vec, void* stream) {
+                               int64_t stripe_height, int vec, int64_t row_lo,
+                               int64_t rows_local, void* stream) {
   return run(bufs, scales, n_bufs, storage, ids, ids_64, dense, cols, pos, out, bad, B, T,
-             n_plan, F, dense_dim, rows, grid, stripes, stripe_height, vec, 0, 0, stream);
+             n_plan, F, dense_dim, rows, grid, stripes, stripe_height, vec, row_lo, rows_local,
+             0, 0, stream);
 }
 
 // The bag kernel, one launch on `stream`: fr_lookup_fused's arguments with
@@ -894,12 +916,13 @@ extern "C" int fr_lookup_fused_bags(const void* const* bufs, const void* const* 
                                     const void* dense, const void* cols, const void* pos,
                                     void* out, void* bad, int64_t B, int T, int n_plan,
                                     int F, int dense_dim, int rows, int grid,
-                                    int64_t stripes, int64_t stripe_height, int vec, int L,
-                                    int mean, void* stream) {
+                                    int64_t stripes, int64_t stripe_height, int vec,
+                                    int64_t row_lo, int64_t rows_local, int L, int mean,
+                                    void* stream) {
   if (L < 1) return (int)cudaErrorInvalidValue;
   return run(bufs, scales, n_bufs, storage, ids, ids_64, dense, cols, pos, out, bad, B, T,
-             n_plan, F, dense_dim, rows, grid, stripes, stripe_height, vec, L, mean != 0,
-             stream);
+             n_plan, F, dense_dim, rows, grid, stripes, stripe_height, vec, row_lo, rows_local,
+             L, mean != 0, stream);
 }
 
 // The backward kernel, one launch on `stream`: grads, n_bufs float32 gradient

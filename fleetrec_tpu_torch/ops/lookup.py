@@ -43,6 +43,14 @@ bfloat16); on float32 and int8 storage, and on small-integer data in any
 dtype, the two agree to the last bit or to a float32 sum's order.  L = 1
 with no negative id reproduces ``lookup_fused`` bit for bit.
 
+``window=(row_lo, rows_local)`` is the two forward kernels' form for one
+model shard of the sharded forward (``parallel/sharded.py``): the take
+buffer passed is physical rows ``[row_lo, row_lo + rows_local)`` of the
+whole (padded) buffer, and a take id whose row falls outside them reads a
+zero row (in a bag: adds nothing).  The window never flags a row: flags come
+from the ids and the descriptors' global row limits.  ``None`` is the whole
+buffer, as on one device.
+
 ``lookup_fused_backward`` is ``lookup_fused``'s gradient with respect to
 the packed buffers, for training (the port of the VJP XLA derives from
 ``lookup_concat`` in the JAX package): the third kernel of
@@ -104,12 +112,14 @@ def lookup_out_dtype(bufs: Sequence[torch.Tensor]) -> torch.dtype:
 
 
 def lookup_offsets_plain(ids: torch.Tensor, cols: torch.Tensor, stripes: int,
-                         stripe_height: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                         stripe_height: int, window: Optional[Tuple[int, int]] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """([B, n_plan] int64 element offset of each plan column's row in its
     buffer, -1 for a zero row; [B] bool, a take id out of range).  Bags,
     ids [B, T, L]: offsets [B, n_plan, L], -1 also for a padding slot (a
     negative source id, whatever its QR split gives), which flags no
-    row."""
+    row.  ``window``: the take buffer's row window (module docstring); a
+    take row outside it is a zero row, not a flag."""
     bags = ids.dim() == 3
     f = {name: (cols[:, i, None] if bags else cols[:, i]) for name, i in _F.items()}
     x = ids.long().index_select(1, cols[:, _F["src"]])
@@ -132,6 +142,9 @@ def lookup_offsets_plain(ids: torch.Tensor, cols: torch.Tensor, stripes: int,
                 + torch.div(p, stripes, rounding_mode="floor"))
     else:
         phys = f["base"] + p
+    if window is not None:
+        phys = phys - window[0]
+        ok = ok & (~take | ((phys >= 0) & (phys < window[1])))
     row = torch.where(take, phys * s + sub, f["base"] + x)
     return torch.where(ok, row * f["dim"], -1), bad
 
@@ -195,7 +208,8 @@ def lookup_fused_plain(ids: torch.Tensor, dense: Optional[torch.Tensor],
                        bufs: Sequence[torch.Tensor],
                        scales: Optional[Sequence[torch.Tensor]],
                        cols: torch.Tensor, pos: torch.Tensor, stripes: int = 1,
-                       stripe_height: int = 0, dense_dim: int = 0, with_bad: bool = True
+                       stripe_height: int = 0, dense_dim: int = 0, with_bad: bool = True,
+                       window: Optional[Tuple[int, int]] = None
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The same function with PyTorch ops: every output column's element
     read from its buffer at its plan column's row offset, dequantized by
@@ -205,7 +219,7 @@ def lookup_fused_plain(ids: torch.Tensor, dense: Optional[torch.Tensor],
     _check_dense(ids, dense, dense_dim)
     B = ids.shape[0]
     col, add, o = _decode_pos(pos)
-    off, bad = lookup_offsets_plain(ids, cols, stripes, stripe_height)
+    off, bad = lookup_offsets_plain(ids, cols, stripes, stripe_height, window)
     scale_of = _column_scales(scales, cols)
 
     def values(c):
@@ -227,7 +241,8 @@ def lookup_fused_bags_plain(ids: torch.Tensor, dense: Optional[torch.Tensor],
                             scales: Optional[Sequence[torch.Tensor]],
                             cols: torch.Tensor, pos: torch.Tensor, stripes: int = 1,
                             stripe_height: int = 0, dense_dim: int = 0,
-                            mean: bool = False, with_bad: bool = True
+                            mean: bool = False, with_bad: bool = True,
+                            window: Optional[Tuple[int, int]] = None
                             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``lookup_fused_bags`` with PyTorch ops, by the module docstring's
     rule to the bit: per output column the slots' elements summed in slot
@@ -237,7 +252,7 @@ def lookup_fused_bags_plain(ids: torch.Tensor, dense: Optional[torch.Tensor],
     _check_dense(ids, dense, dense_dim)
     B, _T, L = ids.shape
     col, add, o = _decode_pos(pos)
-    off, bad = lookup_offsets_plain(ids, cols, stripes, stripe_height)
+    off, bad = lookup_offsets_plain(ids, cols, stripes, stripe_height, window)
     scale_of = _column_scales(scales, cols)
     inv = None
     if mean:
@@ -271,7 +286,9 @@ _LOOKUP_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-                ctypes.c_int64, ctypes.c_int]
+                ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int64]
+# the window that is the whole take buffer (lookup_fused.cu: INT64_MAX rows)
+_WHOLE = (0, (1 << 63) - 1)
 
 
 @functools.cache
@@ -286,7 +303,7 @@ def _entry():
 def _entry_bags():
     fn = _build.kernels().fr_lookup_fused_bags
     fn.restype = ctypes.c_int
-    # fr_lookup_fused's arguments, then L, mean and the stream
+    # fr_lookup_fused's arguments (with the window), then L, mean and the stream
     fn.argtypes = [*_LOOKUP_ARGS, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return fn
 
@@ -328,7 +345,8 @@ def _launch(ids: torch.Tensor, dense: Optional[torch.Tensor],
             bufs: Sequence[torch.Tensor], scales: Optional[Sequence[torch.Tensor]],
             cols: torch.Tensor, pos: torch.Tensor, stripes: int, stripe_height: int,
             dense_dim: int, with_bad: bool, tile: Optional[Tuple[int, int]],
-            mean: Optional[bool]) -> Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+            mean: Optional[bool], window: Optional[Tuple[int, int]]
+            ) -> Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
     """What ``lookup_fused`` (ids [B, T], ``mean`` None) and
     ``lookup_fused_bags`` (ids [B, T, L]) share: the checks of their
     operands, then, for CUDA tensors, one launch of the kernel.  Returns
@@ -349,6 +367,8 @@ def _launch(ids: torch.Tensor, dense: Optional[torch.Tensor],
     if any(t.device != ids.device for t in tensors):
         raise ValueError("the lookup's tensors lie on more than one device")
     _check_dense(ids, dense, dense_dim)
+    if window is not None and (len(window) != 2 or min(window) < 0):
+        raise ValueError(f"window must be (row_lo, rows_local) >= 0, got {window}")
     if ids.device.type == "cpu":
         return None
     if ids.device.type != "cuda":
@@ -385,7 +405,7 @@ def _launch(ids: torch.Tensor, dense: Optional[torch.Tensor],
             cols.data_ptr(), pos.data_ptr(), out.data_ptr(),
             None if bad is None else bad.data_ptr(),
             B, T, n_plan, F, dense_dim if dense is not None else 0,
-            rows, grid, stripes, stripe_height, int(vec)]
+            rows, grid, stripes, stripe_height, int(vec), *(window or _WHOLE)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if bags:
@@ -401,7 +421,8 @@ def lookup_fused(ids: torch.Tensor, dense: Optional[torch.Tensor],
                  scales: Optional[Sequence[torch.Tensor]],
                  cols: torch.Tensor, pos: torch.Tensor, stripes: int = 1,
                  stripe_height: int = 0, dense_dim: int = 0, with_bad: bool = True,
-                 tile: Optional[Tuple[int, int]] = None
+                 tile: Optional[Tuple[int, int]] = None,
+                 window: Optional[Tuple[int, int]] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """ids [B, T] int32 or int64 (config order), dense [B, dense_dim] (None
     when the descriptors read no dense tail, ``dense_dim`` 0), the packed
@@ -411,12 +432,13 @@ def lookup_fused(ids: torch.Tensor, dense: Optional[torch.Tensor],
     ``lookup_out_dtype(bufs)``, bad [B] bool or None when not
     ``with_bad``).  ``tile``: (rows a tile, blocks an SM) in place of
     ``launch_shape``'s defaults, for timing sweeps
-    (``utils/lookup_sweep.py``)."""
+    (``utils/lookup_sweep.py``).  ``window``: the take buffer's row window
+    of a model shard (module docstring)."""
     res = _launch(ids, dense, bufs, scales, cols, pos, stripes, stripe_height,
-                  dense_dim, with_bad, tile, None)
+                  dense_dim, with_bad, tile, None, window)
     if res is None:
         return lookup_fused_plain(ids, dense, bufs, scales, cols, pos, stripes,
-                                  stripe_height, dense_dim, with_bad)
+                                  stripe_height, dense_dim, with_bad, window)
     if ids.shape[0]:
         lookup_fused.launches += 1
     return res
@@ -430,7 +452,8 @@ def lookup_fused_bags(ids: torch.Tensor, dense: Optional[torch.Tensor],
                       scales: Optional[Sequence[torch.Tensor]],
                       cols: torch.Tensor, pos: torch.Tensor, stripes: int = 1,
                       stripe_height: int = 0, dense_dim: int = 0, mean: bool = False,
-                      with_bad: bool = True, tile: Optional[Tuple[int, int]] = None
+                      with_bad: bool = True, tile: Optional[Tuple[int, int]] = None,
+                      window: Optional[Tuple[int, int]] = None
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Pooled bags: ids [B, T, L] int32 or int64 (config order, L >= 1, a
     negative id is padding) and ``lookup_fused``'s other operands ->
@@ -439,12 +462,13 @@ def lookup_fused_bags(ids: torch.Tensor, dense: Optional[torch.Tensor],
     take id out of range, or None when not ``with_bad``), by the module
     docstring's rule.  On a CUDA tensor it launches the bag kernel of
     ``lookup_fused.cu`` or raises; on a CPU tensor it runs
-    ``lookup_fused_bags_plain``."""
+    ``lookup_fused_bags_plain``.  ``window``: as for ``lookup_fused``; the
+    mean still divides by the whole bag's count."""
     res = _launch(ids, dense, bufs, scales, cols, pos, stripes, stripe_height,
-                  dense_dim, with_bad, tile, bool(mean))
+                  dense_dim, with_bad, tile, bool(mean), window)
     if res is None:
         return lookup_fused_bags_plain(ids, dense, bufs, scales, cols, pos, stripes,
-                                       stripe_height, dense_dim, bool(mean), with_bad)
+                                       stripe_height, dense_dim, bool(mean), with_bad, window)
     if ids.shape[0]:
         lookup_fused_bags.launches += 1
     return res

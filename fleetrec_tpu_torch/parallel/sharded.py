@@ -1,0 +1,244 @@
+"""The sharded serving forward, the port of ``fleetrec_tpu/parallel/sharded.py``
+(``ShardedFleetRec`` without ``train_step``).
+
+FleetRec spreads its tables over several FPGAs and joins their partial
+results before the MLP.  The JAX package does it on the "model" axis of a
+mesh with ``shard_map``: each model shard owns a row range of the unified
+take buffer and ``n / M`` tables of each one-hot class, looks up only what
+it owns (every other column a zero), and ONE ``psum`` joins the partials.
+Here a shard is a rank (``parallel/mesh.py``), and the exchange is one
+``dist.all_reduce(SUM)`` over the data row's model group
+(``ShardedFleetRec._exchange``):
+
+* the local lookup is one launch of the fused lookup kernel over this
+  shard's buffers, with the shard's descriptors
+  (``embedding.lookup_tensors(shard=(m, M))``) and the take buffer's row
+  window (``ops/lookup.py``): a table or a take row another shard holds
+  reads zeros, the dense tail only on shard 0, and the bad-row flags come
+  from the ids and the global row limits, the same on every shard;
+* what crosses the wire is the ``[B, H1]`` W1-partial product when
+  ``_use_w1_fold`` (H1 < the feature width, no interaction head), else the
+  ``[B, F]`` features.  The JAX package stages ``A = fold_w1(W1)`` once (the
+  feature permutation folded into W1's rows) and multiplies its local
+  pre-permutation source vector by it.  The port's kernel already writes
+  the features in the ``feature_perm`` order, so ``feats_local @ W1`` is
+  the same product (``A``'s rows are sums of W1's rows over the output
+  columns that read one source column): a ``torch.matmul`` in float32, as
+  JAX's ``preferred_element_type=jnp.float32``, with TF32 off, and no
+  staged ``A``;
+* after the exchange every rank of the row runs the rest replicated:
+  ReLU, the cast to ``cfg.dtype`` and ``W2..Wn`` through ``mlp_apply``
+  (the fused-MLP kernel) on the fold path; else the head on the summed
+  features (the tower, a DCNv2 cross stack or the DLRM interaction); then
+  the NaN poison.
+
+Every output column is one shard's value plus exact zeros from the others
+(a QR quotient column and its remainder may sit on two shards: each adds its
+part), so on pm1 / parity data the scores are bit-equal to one device's.
+``forward_pipelined`` overlaps batch k's exchange with batch k+1's lookup;
+``forward_pooled`` is the bag form (``lookup_fused_bags`` with the window).
+The model to shard is built on the host (``init_model`` / ``load_npz`` /
+``params_from_jax`` with ``device="cpu"``); each rank copies only its slice
+to its device.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from ..models.embedding import TORCH_DTYPES, class_tables, lookup_tensors
+from ..models.fleetrec import (FleetRecModel, check_inputs, check_pooled_config,
+                               interaction_head)
+from ..models.interaction import cross_network
+from ..models.mlp import mlp_apply
+from ..ops.lookup import lookup_fused, lookup_fused_bags
+from .mesh import Mesh
+
+
+def _slice_rows(t: torch.Tensor, lo: int, n: int, fill: float, device) -> torch.Tensor:
+    """Rows [lo, lo + n) of ``t`` copied to ``device``, rows past its end
+    filled with ``fill`` (the padding of the sharded axis)."""
+    part = t[lo:lo + n]
+    if part.shape[0] < n:
+        pad = torch.full((n - part.shape[0],) + tuple(t.shape[1:]), fill, dtype=t.dtype)
+        part = torch.cat([part.cpu(), pad])
+    return part.to(device, copy=True).contiguous()
+
+
+def shard_operands(model: FleetRecModel, m: int, M: int, device) -> dict:
+    """``lookup_fused``'s operands (after the ids and dense) of model shard
+    m of M on ``device``, sliced from ``model``'s buffers (the JAX
+    package's ``shard_params``): class i's tables ``[m * n_loc, (m + 1) *
+    n_loc)`` (``n_loc = ceil(n / M)``, past the last table all-zero pad
+    tables of int8 scale 1.0), the take buffer's physical rows ``[m *
+    rows_local, (m + 1) * rows_local)`` (``rows_local = ceil(rows / M)``,
+    zero rows past its end) and its window, its scales whole, and the
+    shard's descriptors.  Shard 0 alone reads the dense tail."""
+    lay, plan = model.layout, model.plan
+    quant = model._quant
+    bufs, scales = [], ([] if quant else None)
+    for i, c in enumerate(lay.onehot_classes):
+        lo, _ = class_tables(c.num_tables, m, M)
+        n_loc = -(-c.num_tables // M)
+        bufs.append(_slice_rows(getattr(model, f"onehot_{i}"), lo, n_loc, 0, device))
+        if quant:
+            scales.append(_slice_rows(getattr(model, f"onehot_scale_{i}"), lo, n_loc, 1.0,
+                                      device))
+    window = None
+    if model.take is not None:
+        rows_local = -(-model.take.shape[0] // M)
+        window = (m * rows_local, rows_local)
+        bufs.append(_slice_rows(model.take, m * rows_local, rows_local, 0, device))
+        if quant:
+            scales.append(model.take_scales.to(device, copy=True))
+    desc = lookup_tensors(lay, plan.index_perm, plan.qr_positions, device, shard=(m, M))
+    return dict(bufs=bufs, scales=scales, cols=desc["cols"], pos=desc["pos"],
+                stripes=lay.take_stripes, stripe_height=lay.stripe_height,
+                dense_dim=lay.dense_dim if m == 0 else 0,
+                with_bad=bool(lay.take_groups), window=window)
+
+
+class ShardedFleetRec:
+    """This rank's shard of a FleetRecModel on a (data, model) mesh, and the
+    sharded forwards over it.  Every rank of a data row calls a forward
+    with the row's batch (``multihost.host_local_batch_to_global``) and gets
+    the row's scores."""
+
+    def __init__(self, model: FleetRecModel, mesh: Mesh):
+        self.mesh = mesh
+        self.plan = model.plan
+        self.cfg = model.cfg
+        self.layout = model.layout
+        self.shard_params(model)
+
+    @property
+    def _use_w1_fold(self) -> bool:
+        """Exchange the [B, H1] W1-partial product instead of the [B, F]
+        features whenever that is fewer bytes.  Interaction heads consume the
+        features themselves, so they keep the feature exchange."""
+        cfg = self.cfg
+        return (cfg.interaction == "none" and len(cfg.mlp.widths) >= 2
+                and cfg.mlp.widths[1] < self.layout.feature_dim)
+
+    def shard_params(self, model: FleetRecModel) -> None:
+        """Keep this rank's slice of ``model``'s tables (``shard_operands``)
+        and a copy of every weight on the mesh's device."""
+        dev = self.mesh.device
+        self.operands = shard_operands(model, self.mesh.m, self.mesh.model, dev)
+        self.mlp = [w.to(dev, copy=True) for w in model.mlp_weights]
+        self.bottom = [w.to(dev, copy=True) for w in model.bottom_weights]
+        self.cross = [[w.to(dev, copy=True) for w in layer] for layer in model.cross_weights]
+        self.pair_cols = (model.pair_cols.to(dev, copy=True)
+                          if self.cfg.interaction == "dot" else None)
+
+    # ---- the three parts of a forward -----------------------------------
+    def _lookup_dense(self, dense: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        return dense if self.operands["dense_dim"] else None
+
+    def _partial(self, feats: torch.Tensor) -> torch.Tensor:
+        """The value the exchange sums: the local W1-partial product in
+        float32 (fold), else the local features."""
+        if not self._use_w1_fold:
+            return feats
+        dtype = TORCH_DTYPES[self.cfg.dtype]
+        return torch.matmul(feats.to(dtype).float(), self.mlp[0].float())
+
+    def _pre(self, indices: torch.Tensor, dense: Optional[torch.Tensor]
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Everything before the exchange: the local lookup (one
+        ``lookup_fused`` launch) and the partial.  Returns (the value to sum,
+        the bad-row flags)."""
+        feats, bad = lookup_fused(indices, self._lookup_dense(dense), **self.operands)
+        return self._partial(feats), bad
+
+    def _exchange(self, part: torch.Tensor, async_op: bool = False):
+        """THE exchange: one all_reduce(SUM) of ``part``, in place, over the
+        data row's model group; returns its work handle with ``async_op``.
+        A mesh with no process group (one rank) has nothing to exchange."""
+        if self.mesh.group is None:
+            return None
+        return dist.all_reduce(part, op=dist.ReduceOp.SUM, group=self.mesh.group,
+                               async_op=async_op)
+
+    def _post(self, h: torch.Tensor, dense: Optional[torch.Tensor]) -> torch.Tensor:
+        """Everything after the exchange, on the summed [B, H1] partial
+        activations (fold) or [B, F] features: [B] float32 scores."""
+        cfg = self.cfg
+        dtype = TORCH_DTYPES[cfg.dtype]
+        if self._use_w1_fold:
+            rest = self.mlp[1:]
+            if cfg.mlp.activation == "relu" and rest:
+                h = torch.clamp_min(h, 0.0)
+            h = h.to(dtype)
+            if not rest:
+                return h[:, 0].float()
+            return mlp_apply(rest, h, activation=cfg.mlp.activation)[:, 0]
+        if cfg.interaction == "dot":
+            return interaction_head(cfg, self.pair_cols, h, dense, self.bottom, self.mlp)
+        x = h.to(dtype)
+        if cfg.interaction == "cross":
+            x = cross_network(x, self.cross)
+        return mlp_apply(self.mlp, x, activation=cfg.mlp.activation)[:, 0]
+
+    def _finish(self, part: torch.Tensor, work, bad: Optional[torch.Tensor],
+                dense: Optional[torch.Tensor]) -> torch.Tensor:
+        """Wait for the exchange of ``part``, run the rest, poison the rows
+        with a bad take id."""
+        if work is not None:
+            work.wait()
+        return FleetRecModel.poison_scores(self._post(part, dense), bad)
+
+    # ---- the forwards ---------------------------------------------------
+    def forward(self, indices: torch.Tensor, dense: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """The data row's config-order ids [B, num_tables] and dense
+        [B, dense_dim] (the same on every rank of the row) -> scores [B]
+        float32: lookup -> the exchange -> the rest.  A take id outside its
+        table's [0, rows) poisons its row's score with NaN, as on one
+        device."""
+        check_inputs(self.cfg, indices, dense, self.cfg.dense_dim)
+        part, bad = self._pre(indices, dense)
+        self._exchange(part)
+        return self._finish(part, None, bad, dense)
+
+    def forward_pipelined(self, indices: torch.Tensor, dense: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+        """K batches [K, B, num_tables] (+ dense [K, B, dense_dim]) ->
+        scores [K, B].  Batch k's exchange is issued (asynchronously) before
+        batch k+1's lookup and waited on before batch k's post, so it
+        overlaps the next batch's lookup (the JAX package's double-buffered
+        scan).  Each batch's scores are ``forward``'s, bit for bit."""
+        if indices.dim() != 3:
+            raise ValueError(f"indices must be [K, B, {self.cfg.num_tables}], got "
+                             f"{tuple(indices.shape)}")
+        K = indices.shape[0]
+        scores: List[torch.Tensor] = []
+        pending = None
+        for k in range(K):
+            d = None if dense is None else dense[k]
+            check_inputs(self.cfg, indices[k], d, self.cfg.dense_dim)
+            part, bad = self._pre(indices[k], d)
+            work = self._exchange(part, async_op=True)
+            if pending is not None:
+                scores.append(self._finish(*pending))
+            pending = (part, work, bad, d)
+        scores.append(self._finish(*pending))
+        return torch.stack(scores)
+
+    def forward_pooled(self, indices: torch.Tensor, dense: Optional[torch.Tensor] = None,
+                       mean: bool = False) -> torch.Tensor:
+        """Bags [B, num_tables, L] (a negative id is padding) -> scores [B]:
+        one ``lookup_fused_bags`` launch over this shard's buffers and window
+        (a bag's rows on other shards add nothing here; the mean divides by
+        the whole bag's count), the same one exchange and rest.  A config
+        with an interaction head raises."""
+        check_pooled_config(self.cfg)
+        check_inputs(self.cfg, indices, dense, self.cfg.dense_dim, bags=True)
+        feats, bad = lookup_fused_bags(indices, self._lookup_dense(dense), mean=mean,
+                                       **self.operands)
+        part = self._partial(feats)
+        self._exchange(part)
+        return self._finish(part, None, bad, dense)

@@ -14,23 +14,110 @@ Two modes, as in the JAX engine:
   vectors, the reference's wire, and only the MLP tower runs (the
   ``fused_mlp`` kernel on CUDA).
 
-Sharded serving (``from_sharded``) and the ``PeerWatchdog`` are not ported
-yet (ROADMAP.md queue 1).
+Sharded serving (``from_sharded``) scores through a ``ShardedFleetRec``
+(``parallel/sharded.py``) on a (data, model) mesh of ranks, one device a
+rank: each data row's model-rank 0 (its leader) runs this engine's loop over
+its own rows, broadcasting every batch to its row's ranks, which run
+``follow`` until the leader's ``close`` stops them.  A ``PeerWatchdog``
+(``engine.watchdog``) bounds every collective dispatch and readback: a
+stalled peer aborts the process instead of hanging it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import queue
+import sys
 import threading
 import time
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.fleetrec import check_pooled_config
 from ..models.mlp import mlp_apply
+
+# watchdog abort status: 124 is the `timeout(1)` convention
+EXIT_PEER_TIMEOUT = 124
+
+
+class PeerWatchdog:
+    """Bounded entry into the collective program for multi-process serving.
+
+    The ranks of a data row run each batch's forward in lockstep, so a
+    stalled or dead peer hangs every other rank's dispatch or readback: a
+    collective has no local timeout short of the process group's.  The
+    reference fails loud instead (printf + exit on a bad sender,
+    cuda_server.c:370-401); this watchdog does the same: any guarded section
+    that overruns ``timeout_s`` prints a per-process diagnostic to stderr
+    and aborts the process with EXIT_PEER_TIMEOUT, so that a supervisor can
+    restart the job.
+
+    Guards may overlap (the submit thread dispatches while the drain thread
+    reads back); each holds its own deadline and the watcher fires on the
+    earliest expiry.  ``on_timeout`` overrides the abort for tests."""
+
+    def __init__(self, timeout_s: float, process_id: int = 0,
+                 on_timeout: Optional[Callable[[str], None]] = None):
+        self.timeout_s = float(timeout_s)
+        self.process_id = process_id
+        self._on_timeout = on_timeout
+        self._cv = threading.Condition()
+        self._active: dict = {}  # token -> (deadline, label)
+        self._fired = False
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+        self._thread.start()
+
+    @contextlib.contextmanager
+    def guard(self, label: str):
+        token = object()
+        with self._cv:
+            self._active[token] = (time.monotonic() + self.timeout_s, label)
+            self._cv.notify()
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._active.pop(token, None)
+                self._cv.notify()
+
+    def _watch(self):
+        with self._cv:
+            while not self._fired:
+                if not self._active:
+                    self._cv.wait()
+                    continue
+                deadline, label = min(self._active.values())
+                now = time.monotonic()
+                if now < deadline:
+                    self._cv.wait(deadline - now)
+                    continue
+                self._fired = True
+                msg = (f"[fleetrec peer-watchdog] process {self.process_id}: "
+                       f"no progress for {self.timeout_s:.1f}s in '{label}' — "
+                       f"a lockstep peer has stalled or died; aborting this "
+                       f"process (the collective would otherwise hang "
+                       f"forever)")
+                if self._on_timeout is not None:
+                    cb = self._on_timeout
+                    self._cv.release()
+                    try:
+                        cb(msg)
+                    finally:
+                        self._cv.acquire()
+                else:
+                    print(msg, file=sys.stderr, flush=True)
+                    os._exit(EXIT_PEER_TIMEOUT)
+
+
+# the header a leader broadcasts before each batch of a sharded engine:
+# [stop, ndim, dims (3), ids are int64, dense follows]
+_HEADER = 7
+_ID_DTYPES = (torch.int32, torch.int64)
 
 
 @dataclasses.dataclass
@@ -88,6 +175,17 @@ def _to_np(scores: torch.Tensor) -> np.ndarray:
     return scores.cpu().numpy()
 
 
+def _broadcast_header(mesh, ids: torch.Tensor, has_dense: bool) -> None:
+    """The leader's header of one batch (ids [B, T] or [K, B, T])."""
+    if ids.dim() > 3 or ids.dtype not in _ID_DTYPES:
+        raise ValueError(f"a sharded engine takes int32 / int64 ids [B, T] or [K, B, T], "
+                         f"got {tuple(ids.shape)} {ids.dtype}")
+    dims = list(ids.shape) + [0] * (3 - ids.dim())
+    hdr = torch.tensor([0, ids.dim(), *dims, int(ids.dtype == torch.int64), int(has_dense)],
+                       dtype=torch.int64)
+    dist.broadcast(hdr.to(mesh.device), src=mesh.leader, group=mesh.group)
+
+
 class ServingEngine:
     """Dispatch loop with a bounded in-flight window.
 
@@ -104,6 +202,13 @@ class ServingEngine:
         self.max_in_flight = max_in_flight
         self.fuse = 1  # ingest batches per device call (from_model(fuse=K))
         self.bag_L = 0  # > 0: pooled bag serving (from_model(bag_L=L))
+        # optional PeerWatchdog bounding dispatch / readback (sharded serving)
+        self.watchdog: Optional[PeerWatchdog] = None
+        # from_sharded: the sharded model, the forward it runs, and whether
+        # the leader's followers still wait for batches
+        self._sharded = None
+        self._run: Optional[Callable] = None
+        self._followers_live = False
         self.stats = LatencyStats()
         self._in_flight: "queue.Queue" = queue.Queue()
         self._batch_id = 0
@@ -160,6 +265,106 @@ class ServingEngine:
         eng.fuse = fuse
         eng.bag_L = bag_L
         return eng
+
+    @classmethod
+    def from_sharded(cls, sharded, batch_size: int, max_in_flight: int = 2,
+                     background_drain: bool = False, fuse: int = 1,
+                     multiprocess: bool = False):
+        """Serve through a ShardedFleetRec on its mesh: tables sharded over
+        the "model" axis, batches over "data" (the reference's scatter tier,
+        one ingest point a data row).  ``batch_size`` is a data row's rows.
+
+        multiprocess=True: the mesh spans a ``torch.distributed`` world (one
+        rank a device).  On a data row's leader (model rank 0) this engine
+        takes the row's batches (``submit`` / ``run_from_ingest``) and each
+        dispatch broadcasts a header, the ids and the dense features to the
+        row's ranks (``multihost.host_local_batch_to_global``) before the
+        sharded forward; the scores are the leader's.  The row's other ranks
+        call ``follow``: receive, compute, drop, until ``close`` on the
+        leader broadcasts the stop header.  Every rank of a row must take
+        part in every batch: set ``engine.watchdog`` (a PeerWatchdog) to
+        bound the wait on a stalled peer.  multiprocess=False: a mesh of one
+        rank and no process group.
+
+        fuse=K > 1 scores K ingest batches [K, B, T] a call through
+        ``forward_pipelined`` (batch k's exchange overlaps batch k+1's
+        lookup)."""
+        mesh = sharded.mesh
+        if multiprocess != (mesh.group is not None):
+            raise ValueError(
+                "multiprocess=True serves a mesh over a torch.distributed world "
+                "(init_distributed, global_mesh); multiprocess=False a mesh of one rank "
+                "and no process group")
+        dev = mesh.device
+        run = sharded.forward_pipelined if fuse > 1 else sharded.forward
+
+        def score(indices_np, dense_np):
+            if not mesh.is_leader:
+                raise ValueError("a follower rank runs follow(); its leader takes the batches")
+            i = torch.from_numpy(np.ascontiguousarray(indices_np))
+            d = (None if dense_np is None
+                 else torch.from_numpy(np.ascontiguousarray(dense_np)))
+            if multiprocess:
+                from ..parallel.multihost import host_local_batch_to_global
+
+                _broadcast_header(mesh, i, d is not None)
+                i = host_local_batch_to_global(mesh, i)
+                d = None if d is None else host_local_batch_to_global(mesh, d)
+            else:
+                i, d = i.to(dev), None if d is None else d.to(dev)
+            with torch.inference_mode():
+                return run(i, d)
+
+        eng = cls(score, sharded.cfg.num_tables, sharded.cfg.dense_dim, batch_size,
+                  max_in_flight, background_drain)
+        eng.fuse = fuse
+        eng._sharded, eng._run = sharded, run
+        eng._followers_live = multiprocess and mesh.is_leader and mesh.model > 1
+        return eng
+
+    @property
+    def is_follower(self) -> bool:
+        """A sharded engine on a rank that is not its data row's leader."""
+        return self._sharded is not None and not self._sharded.mesh.is_leader
+
+    def follow(self) -> dict:
+        """The loop of a follower rank of a sharded engine: receive each
+        batch its leader broadcasts, run the sharded forward (its part of the
+        exchange), drop the scores; return at the leader's stop header."""
+        if not self.is_follower:
+            raise ValueError("follow() is the loop of a sharded engine's follower ranks")
+        from ..parallel.multihost import host_local_batch_to_global
+
+        mesh = self._sharded.mesh
+        n = 0
+        while True:
+            hdr = torch.zeros(_HEADER, dtype=torch.int64, device=mesh.device)
+            dist.broadcast(hdr, src=mesh.leader, group=mesh.group)
+            stop, ndim, *rest = hdr.tolist()
+            if stop:
+                return {"role": "follower", "rank": mesh.rank, "batches": n}
+            shape, id64, has_dense = tuple(rest[:ndim]), rest[3], rest[4]
+            wd = (self.watchdog.guard(f"follow batch {n}") if self.watchdog is not None
+                  else contextlib.nullcontext())
+            with wd:
+                i = host_local_batch_to_global(
+                    mesh, torch.empty(shape, dtype=_ID_DTYPES[id64], device=mesh.device))
+                d = None
+                if has_dense:
+                    d = host_local_batch_to_global(mesh, torch.empty(
+                        shape[:-1] + (self.dense_dim,), dtype=torch.float32, device=mesh.device))
+                with torch.inference_mode():
+                    self._run(i, d)
+            n += 1
+
+    def _stop_followers(self):
+        """The leader's stop header, once."""
+        if self._followers_live:
+            self._followers_live = False
+            hdr = torch.zeros(_HEADER, dtype=torch.int64)
+            hdr[0] = 1
+            mesh = self._sharded.mesh
+            dist.broadcast(hdr.to(mesh.device), src=mesh.leader, group=mesh.group)
 
     @classmethod
     def mlp_only(cls, model, batch_size: int, max_in_flight: int = 2,
@@ -232,17 +437,21 @@ class ServingEngine:
         the ingest tier's monotonic first-byte stamp, where the batch's
         latency starts."""
         self._check_drain_error()
+        wd = (self.watchdog.guard(f"dispatch batch {self._batch_id}")
+              if self.watchdog is not None else contextlib.nullcontext())
         if self._drain_thread is not None:
             self._sem.acquire()
             try:
                 t_submit = time.monotonic_ns()
-                scores = self.score_fn(inputs_np, dense_np)
+                with wd:
+                    scores = self.score_fn(inputs_np, dense_np)
             except BaseException:
                 self._sem.release()  # a lost permit shrinks the window forever
                 raise
         else:
             t_submit = time.monotonic_ns()
-            scores = self.score_fn(inputs_np, dense_np)
+            with wd:
+                scores = self.score_fn(inputs_np, dense_np)
         rec = BatchRecord(self._batch_id, t_first_byte_ns, t_submit)
         self._batch_id += 1
         self._in_flight.put((scores, rec, on_done))
@@ -253,7 +462,10 @@ class ServingEngine:
 
     def _drain_one(self, item=None):
         scores, rec, on_done = item if item is not None else self._in_flight.get()
-        out = _to_np(scores)  # waits for the device (readback)
+        wd = (self.watchdog.guard(f"readback batch {rec.batch_id}")
+              if self.watchdog is not None else contextlib.nullcontext())
+        with wd:
+            out = _to_np(scores)  # waits for the device (readback)
         rec.t_done_ns = time.monotonic_ns()
         self.stats.add(rec)
         if on_done is not None:
@@ -295,13 +507,17 @@ class ServingEngine:
         return self.stats.summary()
 
     def close(self):
-        """Stop the background drain thread (after draining); idempotent."""
-        if self._drain_thread is not None:
-            self._in_flight.join()
-            self._in_flight.put(None)
-            self._drain_thread.join()
-            self._drain_thread = None
-            self._check_drain_error()
+        """Stop the background drain thread (after draining) and, on a
+        sharded engine's leader, the followers; idempotent."""
+        try:
+            if self._drain_thread is not None:
+                self._in_flight.join()
+                self._in_flight.put(None)
+                self._drain_thread.join()
+                self._drain_thread = None
+                self._check_drain_error()
+        finally:
+            self._stop_followers()
 
     # -- ingest loop -----------------------------------------------------
     def run_from_ingest(self, ingest, n_batches: int, mode: str = "index",

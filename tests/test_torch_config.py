@@ -138,6 +138,8 @@ def test_port_imports_neither_jax_nor_fleetrec_tpu():
     bad = []
     files = _port_files()
     assert len(files) > 15 and REPO / "fleetrec_tpu_torch/models/train.py" in files
+    assert {REPO / f"fleetrec_tpu_torch/parallel/{m}.py"
+            for m in ("__init__", "mesh", "multihost", "sharded")} <= set(files)
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

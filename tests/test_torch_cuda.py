@@ -25,6 +25,7 @@ from fleetrec_tpu_torch.ops.lookup import (lookup_fused, lookup_fused_backward,
                                           lookup_fused_backward_plain, lookup_fused_bags,
                                           lookup_fused_bags_plain, lookup_fused_plain)
 from fleetrec_tpu_torch.ops.mlp_fused import fused_mlp, fused_mlp_plain
+from fleetrec_tpu_torch.parallel import shard_operands
 from torch_variants import HEADS, LAYOUT_CASES, variant
 
 MODEL1 = (352, 1024, 512, 256, 1)
@@ -179,6 +180,49 @@ def test_bag_lookup_kernel_matches_plain_on_card(cuda, name):
             got, bad = model.lookup_pooled(single[:, :, None].contiguous(), dense, mean)
             assert torch.equal(bits(got), bits(one)), (name, table_dtype, mean)
             assert bad is None or torch.equal(bad, one_bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [2, 4])
+@pytest.mark.parametrize("name", LAYOUT_CASES + ["criteo"])
+def test_window_kernels_match_plain_on_card(cuda, name, M):
+    """The row-window form of both lookup kernels (model shard m of M:
+    parallel/sharded.py::shard_operands' class slices, take window and
+    shard descriptors) bit-equal to the plain versions on the same
+    operands, features and flags, float32 / bfloat16 / int8 buffers, single
+    ids and bags of 4; the M shards' single-id features summed are the
+    unsharded kernel's, bit for bit, and every shard flags the rows it
+    flags."""
+    rng = np.random.default_rng(13)
+    for table_dtype in ("bfloat16",) if name == "criteo" else ("float32", "bfloat16", "int8"):
+        cfg = dataclasses.replace(variant(name, TC), table_dtype=table_dtype)
+        model = init_model(cfg, table_scheme="uniform", device=cuda)
+        dd = model.layout.dense_dim
+        B = 3000
+        dense = (torch.from_numpy(rng.uniform(-1, 1, (B, dd)).astype(np.float32)).to(cuda)
+                 if dd else None)
+        ids = torch.from_numpy(ids_with_bad(cfg, B, rng)).to(cuda)
+        bags = torch.from_numpy(bags_with_bad(cfg, B, 4, rng)).to(cuda)
+        whole, whole_bad = model.lookup(ids, dense)
+        total = None
+        for m in range(M):
+            ops = shard_operands(model, m, M, cuda)
+            d = dense if ops["dense_dim"] else None
+            for kernel, plain, x in ((lookup_fused, lookup_fused_plain, ids),
+                                     (lookup_fused_bags, lookup_fused_bags_plain, bags)):
+                before = kernel.launches
+                got, bad = kernel(x, d, **ops)
+                assert kernel.launches == before + 1
+                want, want_bad = plain(x, d, **ops)
+                torch.cuda.synchronize()
+                what = (name, table_dtype, M, m, kernel.__name__)
+                assert got.dtype == want.dtype and torch.equal(bits(got), bits(want)), what
+                assert (bad is None) == (want_bad is None), what
+                assert bad is None or torch.equal(bad, want_bad), what
+                if kernel is lookup_fused:
+                    assert bad is None or torch.equal(bad, whole_bad), what
+                    total = got if total is None else total + got
+        assert torch.equal(total, whole), (name, table_dtype, M)
 
 
 @pytest.mark.cuda

@@ -135,8 +135,26 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
    ``nccl`` world of one rank, (1, 1), whose sharded forward is bit-equal to
    the single-device forward; then rank 0's time split of a sharded forward
    (window lookup, W1-partial matmul, the exchange's wall time and bytes,
-   tower) for model1 and model3.  Every rank is a spawned process with a
-   deadline; a rank that fails fails the phase;
+   tower) for model1 and model3, and ``forward_pipelined`` of 4 batches
+   against 4 forwards.  The sharded training step: (1b)
+   ``lookup_fused_backward`` in its row-window form on every shard m of M =
+   2 and 4 of model1 (full rows) and dlrm_terabyte (1M rows a table), B =
+   4096, integer cotangents: bit-equal to its plain version, the shards'
+   gradients placed at their windows bit-equal to the unsharded backward's;
+   in the same (1, 2) world ``ShardedFleetRec.train_step`` (SGD) on model1
+   at full rows (the feature exchange) and model3 in float32 with take
+   tables at 1M rows (the fold path), uniform tables and weights, B = 4096,
+   then (6) a (2, 2) world of model1 at 100000 rows a table (the gradient
+   sums over the model column): each rank's step launches 1
+   ``lookup_fused`` and 1 ``lookup_fused_backward`` and calls no plain
+   version, and matches the same step of ``Trainer(model, optimizer=SGD)``
+   on one device (the loss bit-equal on the one-row feature exchange, else
+   within rtol 1e-6; every tensor of the shard within rtol 1e-5 / atol
+   1e-6, pad tables and rows 0); then 2 more steps and rank 0's step split
+   (window lookup forward and backward, W1-partial, the exchange, the
+   post's forward and backward, each gradient all_reduce's bytes and time,
+   SGD).  Every rank is a spawned process with a deadline; a rank that
+   fails fails the phase;
 13. report: the card's name and power limit, each kernel's median time
    against its plain version at the model1 shapes and at gatherbench's
    shape and flags, ``fused_mlp`` in both dtypes at model1 and model3
@@ -145,7 +163,8 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
    dlrm B = 4096, and ``lookup_fused_bags`` at model1 B = 4096 and 1024 for
    L = 1, 4, 8 and model3 L = 4, each beside the path it replaced, and
    both in their window form on phase 12's shard 0 of 2 (bound at the
-   shard's bytes) (CUDA events over
+   shard's bytes; the backward's window form too, beside ``index_add_``
+   into the shard's sums) (CUDA events over
    CUDA-graph replays, so host
    dispatch is out of the kernel-against-plain comparison; eager
    back-to-back calls and the profiler's device time beside them), each
@@ -1547,7 +1566,7 @@ def phase_train(dev, model1_pm1, model1, dlrm):
                          "dlrm_terabyte": (dlrm, trainer_d, batch_d)}
 
 
-# ---- phase 12: the sharded serving path -------------------------------------
+# ---- phase 12: the sharded path, serving and training -------------------------
 
 # the model shards of the window-kernel checks, and of the sharded worlds
 WINDOW_MS = (2, 4)
@@ -1557,6 +1576,13 @@ SHARD_SERVE_ROWS = 100_000
 WORLD_DEADLINE_S = 420
 # forwards timed per part on a rank of the (1, 2) world
 SPLIT_ITERS = 20
+# the sharded training step: SGD's learning rate, the steps a world takes on
+# its one batch, and the staged steps whose parts are timed (their median)
+SHARD_LR, SHARD_STEPS, SPLIT_STEPS = 0.1, 3, 5
+# the configs a sharded world trains (train_config)
+TRAIN_TAGS = ("model1", "model3", "model1_100k")
+# forward_pipelined's batches against as many forwards, timed in turns
+OVERLAP_K, OVERLAP_REPS = 4, 5
 
 
 def pm1_scores(cfg, idx, dense):
@@ -1631,6 +1657,60 @@ def check_windows(model1, model3, dev):
     return worst, n, timed
 
 
+def check_backward_windows(model1, dlrm, dev):
+    """The row-window form of the backward kernel against its plain version
+    on each model shard m of M in WINDOW_MS (shard_operands: the shard's
+    class tables, take rows and descriptors; the gradient buffers are the
+    shard's): model1 at full rows and dlrm_terabyte at DLRM_ROWS rows a
+    table, B = B_TIME, int32 ids with bad ones, integer cotangents: kernel
+    and plain bit-equal, and the M shards' gradients, placed at their tables
+    and rows, bit-equal to the unsharded kernel's, pad tables and rows 0.
+    Returns the worst error, the checks made and (shard 0 of 2's operands,
+    the ids) of model1 for the report."""
+    from fleetrec_tpu_torch.parallel import shard_operands
+
+    rng = np.random.default_rng(26)
+    worst, n, timed = 0.0, 0, None
+    for name, model in (("fleetrec_model1", model1), ("dlrm_terabyte", dlrm)):
+        ids = torch.from_numpy(ids_with_bad(model.cfg, B_TIME, rng)).to(dev)
+        F = model.layout.feature_dim
+        ct = torch.from_numpy(rng.integers(-3, 4, (B_TIME, F)).astype(np.float32)).to(dev)
+        ops = model.lookup_operands()
+        whole = lookup_fused_backward(ct, ids, ops["bufs"], ops["cols"], ops["pos"],
+                                      ops["stripes"], ops["stripe_height"])
+        for M in WINDOW_MS:
+            placed = [[] for _ in whole]
+            for m in range(M):
+                s = shard_operands(model, m, M, dev)
+                args = (ct, ids, s["bufs"], s["cols"], s["pos"], s["stripes"], s["stripe_height"])
+                before = lookup_fused_backward.launches
+                got = lookup_fused_backward(*args, window=s["window"])
+                want = lookup_fused_backward_plain(*args, window=s["window"])
+                torch.cuda.synchronize()
+                what = f"lookup_fused_backward window {name} shard {m} of {M}"
+                if lookup_fused_backward.launches != before + 1:
+                    raise AssertionError(f"{what}: the kernel did not launch once")
+                for i, (a, b) in enumerate(zip(got, want)):
+                    if not torch.equal(bits(a), bits(b)):
+                        raise AssertionError(f"{what}: kernel and plain differ (buffer {i})")
+                    worst = max(worst, (a - b).abs().max().item())
+                    placed[i].append(a)
+                n += 1
+                if name == "fleetrec_model1" and M == 2 and m == 0:
+                    timed = (s, ids)
+                del s, got, want
+            for i, (w, parts) in enumerate(zip(whole, placed)):
+                cat = torch.cat(parts)
+                if not (torch.equal(bits(cat[:w.shape[0]]), bits(w))
+                        and not cat[w.shape[0]:].any()):
+                    raise AssertionError(f"{name}: the {M} shards' gradients (buffer {i}) placed "
+                                         f"at their windows differ from the unsharded one's")
+            del placed
+        del whole
+        torch.cuda.empty_cache()
+    return worst, n, timed
+
+
 def _split_forward(sh, ids, dense, iters=SPLIT_ITERS):
     """A sharded forward's time by part, median of ``iters`` (every rank of
     the row runs the same loop): the window lookup, the W1-partial matmul
@@ -1668,12 +1748,40 @@ def _split_forward(sh, ids, dense, iters=SPLIT_ITERS):
     return out
 
 
+def _overlap(sh, pip, dense=None, reps=OVERLAP_REPS):
+    """forward_pipelined of the K batches of ``pip`` against K forwards,
+    timed in turns (pipelined, sequential, sequential, pipelined, ...; host
+    clock, each ending in a synchronize; every rank of the row runs the same
+    loop): the medians in ms."""
+    K = pip.shape[0]
+
+    def pipelined():
+        return sh.forward_pipelined(pip, dense)
+
+    def sequential():
+        return [sh.forward(pip[k], None if dense is None else dense[k]) for k in range(K)]
+
+    times = {"pipelined": [], "sequential": []}
+    order = [("pipelined", pipelined), ("sequential", sequential)]
+    for _, fn in order:
+        fn()
+    for r in range(reps):
+        for name, fn in (order if r % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t) * 1e3)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
 def _world_main(rank, n, init, backend, target, args, log_path, q):
-    """A rank of a spawned world on cuda:0: its standard output and errors
-    go to ``log_path``; it joins the world over ``backend``
-    (``init_distributed``; a world of one rank joins its group itself; None:
-    ``target`` joins it), runs ``target(rank, *args)`` and puts (rank, ok,
-    result or traceback) on ``q``."""
+    """A rank of a spawned world: its standard output and errors go to
+    ``log_path``; it joins the world over ``backend`` (``init_distributed``,
+    which makes the rank's card current: cuda:0 for every rank on one card,
+    one card a rank over NCCL; a world of one rank binds its card and joins
+    its group itself; None: ``target`` joins it), runs ``target(rank,
+    *args)`` and puts (rank, ok, result or traceback) on ``q``."""
     import traceback
 
     import torch.distributed as dist
@@ -1685,7 +1793,7 @@ def _world_main(rank, n, init, backend, target, args, log_path, q):
     sys.stderr = sys.stdout
     try:
         from fleetrec_tpu_torch.parallel import init_distributed
-        from fleetrec_tpu_torch.parallel.multihost import check_backend
+        from fleetrec_tpu_torch.parallel.multihost import bind_device, check_backend
 
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -1693,6 +1801,7 @@ def _world_main(rank, n, init, backend, target, args, log_path, q):
             init_distributed(init, n, rank, backend, device="cuda")
         elif backend is not None:
             check_backend(backend, "cuda", 1)
+            bind_device("cuda", rank)
             dist.init_process_group(backend, init_method=init, world_size=1, rank=0)
         try:
             out = target(rank, *args)
@@ -1705,9 +1814,10 @@ def _world_main(rank, n, init, backend, target, args, log_path, q):
 
 
 def run_world(n, target, args, tmp, tag, backend="gloo", on_started=None):
-    """``target(rank, *args)`` on ``n`` ranks, spawned processes on this
-    card, joined over ``backend`` through a file:// rendezvous in ``tmp``
-    (None: no process group for one rank launched by ``target`` itself).
+    """``target(rank, *args)`` on ``n`` ranks, spawned processes (on this
+    card, or one card a rank), joined over ``backend`` through a file://
+    rendezvous in ``tmp`` (None: no process group for one rank launched by
+    ``target`` itself).
     ``on_started()`` runs in this process while the ranks work (a loopback
     client).  Raises on the first rank that fails, a rank that dies, or the
     deadline; kills every rank it started.  Returns the ranks' results in
@@ -1775,18 +1885,14 @@ def run_world(n, target, args, tmp, tag, backend="gloo", on_started=None):
     return [results[r] for r in range(n)], side.get("out")
 
 
-def sharded_rank(rank, paths, inputs_path):
-    """A rank of the (1, 2) world: model1 at full rows from its checkpoint,
-    then model3 (int8, take tables at 1M rows), each built on the host and
-    sharded; the leader feeds the row's batches to its follower
-    (host_local_batch_to_global).  Returns the scores, the launch counts of
-    one sharded forward (every count set to 0 just before), and rank 0's
-    time split."""
-    from fleetrec_tpu_torch.parallel import (ShardedFleetRec, global_mesh,
-                                             host_local_batch_to_global)
-
-    mesh = global_mesh(1, 2, device="cuda")
-    data = dict(np.load(inputs_path))
+def serving_checks(mesh, paths, data):
+    """The serving forwards on this rank of a one-row mesh (D = 1): model1 at
+    full rows from its checkpoint, then model3 (int8, take tables at 1M
+    rows), each built on the host and sharded; the leader feeds the row's
+    batches to the others (host_local_batch_to_global).  Returns the scores,
+    the launch counts of one sharded forward (every count set to 0 just
+    before), the time splits and forward_pipelined's overlap."""
+    from fleetrec_tpu_torch.parallel import ShardedFleetRec, host_local_batch_to_global
 
     def fan_out(key):
         arr = data[key]
@@ -1808,6 +1914,7 @@ def sharded_rank(rank, paths, inputs_path):
             lambda: sh.forward_pooled(bags).cpu().numpy())
         out["fold1"] = sh._use_w1_fold
         out["split1"] = _split_forward(sh, ids, None)
+        out["overlap1"] = _overlap(sh, fan_out("m1/pip_time"))
         del sh
         torch.cuda.empty_cache()
         cfg3 = _cap(C.fleetrec_model3(batch_size=B_TIME), LOOKUP_CAPS["fleetrec_model3"])
@@ -1817,6 +1924,225 @@ def sharded_rank(rank, paths, inputs_path):
             lambda: sh.forward(ids3, dense3).cpu().numpy())
         out["fold3"] = sh._use_w1_fold
         out["split3"] = _split_forward(sh, ids3, dense3)
+        out["overlap3"] = _overlap(sh, fan_out("m3/pip_time"), fan_out("m3/pip_dense"))
+        del sh
+        torch.cuda.empty_cache()
+    return out
+
+
+def serving_inputs(rng):
+    """{key: array} of the serving checks' batches (serving_checks), int32
+    ids: model1's B_TIME rows, the same with a bad take id on rows 5 and 9,
+    4 batches of B_SERVE for the pipelined check, OVERLAP_K of B_TIME for its
+    timing, bags of BAG_L; model3's B_TIME rows with dense of +-1 and
+    OVERLAP_K batches of them."""
+    cfg1 = C.fleetrec_model1(batch_size=B_TIME)
+    cfg3 = _cap(C.fleetrec_model3(batch_size=B_TIME), LOOKUP_CAPS["fleetrec_model3"])
+    ids1 = _rand_ids(cfg1, B_TIME, rng)
+    bad1 = ids1.copy()
+    take_cols = [j for j, t in enumerate(cfg1.tables) if t.rows > cfg1.onehot_factor_max]
+    bad1[5, take_cols[-1]] = cfg1.tables[take_cols[-1]].rows
+    bad1[9, take_cols[0]] = -1
+
+    def dense3(*lead):
+        return rng.choice([-1.0, 1.0], (*lead, cfg3.dense_dim)).astype(np.float32)
+
+    return {"m1/idx": ids1, "m1/bad": bad1,
+            "m1/pip": np.stack([_rand_ids(cfg1, B_SERVE, rng) for _ in range(4)]),
+            "m1/pip_time": np.stack([_rand_ids(cfg1, B_TIME, rng) for _ in range(OVERLAP_K)]),
+            "m1/bags": make_bags(cfg1, B_TIME, BAG_L, seed=25)[0],
+            "m3/idx": _rand_ids(cfg3, B_TIME, rng), "m3/dense": dense3(B_TIME),
+            "m3/pip_time": np.stack([_rand_ids(cfg3, B_TIME, rng) for _ in range(OVERLAP_K)]),
+            "m3/pip_dense": dense3(OVERLAP_K, B_TIME)}
+
+
+def train_config(tag):
+    """The config of a sharded training run: "model1" at full rows,
+    "model3" in float32 with its take tables capped at 1M rows (the fold
+    path: H1 2048 < F 3968), "model1_100k" at SHARD_SERVE_ROWS rows a
+    table."""
+    if tag == "model1":
+        return C.fleetrec_model1(batch_size=B_TIME)
+    if tag == "model3":
+        return dataclasses.replace(_cap(C.fleetrec_model3(batch_size=B_TIME),
+                                        LOOKUP_CAPS["fleetrec_model3"]), table_dtype="float32")
+    if tag == "model1_100k":
+        return _cap(C.fleetrec_model1(batch_size=B_TIME), SHARD_SERVE_ROWS)
+    raise KeyError(tag)
+
+
+def train_inputs(rng):
+    """{key: array} of each training config's global batch: B_TIME rows of
+    int32 ids, dense in [-1, 1) (model3) and labels of 0 / 1."""
+    out = {}
+    for tag in TRAIN_TAGS:
+        cfg = train_config(tag)
+        out[f"t/{tag}/idx"] = _rand_ids(cfg, B_TIME, rng)
+        if cfg.dense_dim:
+            out[f"t/{tag}/dense"] = rng.uniform(-1, 1, (B_TIME, cfg.dense_dim)).astype(np.float32)
+        out[f"t/{tag}/labels"] = rng.integers(0, 2, B_TIME).astype(np.float32)
+    return out
+
+
+def _check_shard(what, got, want, table, m, M) -> float:
+    """A shard's tensor ``got`` against shard m of M of one device's
+    ``want`` (a table's: its tables or rows [m * n, (m + 1) * n), the rest
+    of ``got`` pad that must be 0; a weight: whole), within STEP_TOL.
+    Returns the max abs error."""
+    if table:
+        n = got.shape[0]
+        want = want[m * n:(m + 1) * n]
+        if got[want.shape[0]:].any():
+            raise AssertionError(f"{what}: a pad table or row is not 0 after the step")
+        got = got[:want.shape[0]]
+    torch.testing.assert_close(got, want, **STEP_TOL,
+                               msg=lambda e: f"{what} against one device's step: {e}")
+    return (got.float() - want.float()).abs().max().item() if got.numel() else 0.0
+
+
+def train_check(mesh, tag, data):
+    """This rank's part of the sharded SGD step on ``tag``'s config
+    (train_config: uniform tables and weights built on the host, the shard
+    moved to the card): one ``train_step`` on the data row's part of the
+    global batch in ``data``, every launch count at 0 just before (it must
+    launch 1 lookup_fused and 1 lookup_fused_backward and call no plain
+    version); then the same step of ``Trainer(model, optimizer=SGD)`` on one
+    device (this rank's card, the ranks in turn, the global batch): the loss
+    bit-equal on a one-row mesh that exchanges features (the same
+    arithmetic), else within rtol 1e-6; every tensor of the shard within
+    STEP_TOL of its slice, its pad tables and rows 0.  Then SHARD_STEPS - 1
+    more steps (finite losses) and the split of SPLIT_STEPS staged steps."""
+    import torch.distributed as dist
+
+    from fleetrec_tpu_torch.models.train import SGD
+    from fleetrec_tpu_torch.parallel import ShardedFleetRec
+
+    cfg, dev = train_config(tag), mesh.device
+    host = init_model(cfg, table_scheme="uniform", mlp_scheme="uniform", device="cpu")
+    sh = ShardedFleetRec(host, mesh)
+    glob = [data.get(f"t/{tag}/{k}") for k in ("idx", "dense", "labels")]
+    B = glob[0].shape[0] // mesh.data
+    row = [None if a is None else torch.from_numpy(a[mesh.d * B:(mesh.d + 1) * B]).to(dev)
+           for a in glob]
+    with plain_calls() as plain:
+        loss, launches = _counted(lambda: sh.train_step(*row, SHARD_LR).item())
+    if launches != _launches(lookup=1, backward=1) or any(plain.values()):
+        raise AssertionError(f"{tag}: a sharded step launched {launches}, plain calls {plain}")
+    got = sh.trainable_tensors()
+    tables = set(sh._table_names())
+    worst = 0.0
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            ref = host.to(dev)
+            del host
+            ref_loss = Trainer(ref, optimizer=SGD(SHARD_LR), device=dev).step(
+                *[None if a is None else torch.from_numpy(a).to(dev) for a in glob]).item()
+            for k, want in trainable_tensors(ref).items():
+                worst = max(worst, _check_shard(f"{tag} {k} (rank {mesh.rank})", got[k], want,
+                                                k in tables, mesh.m, mesh.model))
+            del ref, want
+            torch.cuda.empty_cache()
+        dist.barrier()
+    exact = mesh.data == 1 and not sh._use_w1_fold
+    if not (loss == ref_loss if exact else abs(loss - ref_loss) <= 1e-6 * abs(ref_loss)):
+        raise AssertionError(f"{tag}: loss {loss!r} against one device's {ref_loss!r}")
+    losses = [loss] + [sh.train_step(*row, SHARD_LR).item() for _ in range(SHARD_STEPS - 1)]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{tag}: losses {losses}")
+    nbytes = sum(t.numel() * t.element_size() for t in got.values())
+    return {"loss": loss, "ref_loss": ref_loss, "exact": exact, "losses": losses,
+            "launches": launches, "max_abs_err": worst, "fold": sh._use_w1_fold,
+            "shard_bytes": nbytes, "split": _split_step(sh, *row)}
+
+
+def _split_step(sh, ids, dense, labels, iters=SPLIT_STEPS):
+    """A sharded step's time by part, the median of ``iters`` staged steps
+    (every rank runs the same loop): the same functions on the same tensors
+    as ``train_step``, split where autograd would run them together, each
+    part closed by a synchronize; the window lookup forward and backward,
+    the W1-partial forward and backward (fold), the post's forward (with
+    the loss) and backward (CUDA events); the exchange, each gradient's
+    all_reduce over each of its groups and the loss's (host clock around the
+    collective and a synchronize, with its bytes); SGD (CUDA events)."""
+    from fleetrec_tpu_torch.models.train import SGD
+    from fleetrec_tpu_torch.parallel.sharded import _all_reduce
+
+    parts, reduces = {}, {}
+
+    @contextlib.contextmanager
+    def mark(part):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        yield
+        ev[1].record()
+        ev[1].synchronize()
+        parts.setdefault(part, []).append(ev[0].elapsed_time(ev[1]))
+
+    def collective(label, t, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _all_reduce(t, group)
+        torch.cuda.synchronize()
+        reduces.setdefault(label, [t.numel() * t.element_size(), []])[1].append(
+            (time.perf_counter() - t0) * 1e3)
+
+    opt = SGD(SHARD_LR)
+    fold = sh._use_w1_fold
+    names = sh._table_names()
+    for _ in range(iters):
+        tensors = sh.trainable_tensors()
+        leaves = {k: v.detach().requires_grad_() for k, v in tensors.items()}
+        with mark("lookup fwd"):
+            feats, bad = sh.lookup_train(ids, dense, leaves)
+        feats_in = feats.detach().requires_grad_()
+        with mark("W1-partial fwd"):
+            part = sh._partial(feats_in, leaves["mlp_0"])
+        h = part.detach()
+        collective("exchange", h, sh.mesh.group)
+        h_in = h.requires_grad_()
+        with mark("post fwd and loss"):
+            loss = sh.row_loss(sh.post_train(h_in, bad, dense, leaves), labels)
+        post = [k for k in leaves if k not in names and not (fold and k == "mlp_0")]
+        with mark("post bwd"):
+            g_h, *g_post = torch.autograd.grad(loss, [h_in, *[leaves[k] for k in post]])
+        grads = dict(zip(post, g_post))
+        with mark("W1-partial bwd"):
+            if fold:
+                g_feats, grads["mlp_0"] = torch.autograd.grad(
+                    part, [feats_in, leaves["mlp_0"]], g_h)
+            else:
+                g_feats = g_h
+        with mark("lookup bwd"):
+            grads.update(zip(names, torch.autograd.grad(
+                feats, [leaves[k] for k in names], g_feats)))
+        for k in tensors:
+            g = grads[k] = grads[k].contiguous()
+            for group in sh.gradient_groups(k):
+                collective(f"{k} over the {'row' if group is sh.mesh.group else 'column'}",
+                           g, group)
+        if sh.mesh.col_group is not None:
+            collective("loss over the column", loss.detach().reshape(1), sh.mesh.col_group)
+        with mark("SGD"):
+            opt.update(list(tensors.values()), [grads[k] for k in tensors])
+    return {"parts_ms": {k: float(np.median(v)) for k, v in parts.items()},
+            "collectives": {k: {"bytes": n, "ms": float(np.median(v))}
+                            for k, (n, v) in reduces.items()}}
+
+
+def sharded_rank(rank, D, M, paths, inputs_path, train_tags):
+    """A rank of a (D, M) world: the serving checks (serving_checks, with
+    ``paths``' checkpoints; one-row meshes only) and the sharded training
+    step on each config of ``train_tags`` (train_check).  Returns their
+    results by name."""
+    from fleetrec_tpu_torch.parallel import global_mesh
+
+    mesh = global_mesh(D, M, device="cuda")
+    data = dict(np.load(inputs_path))
+    out = serving_checks(mesh, paths, data) if paths else {}
+    for tag in train_tags:
+        out[f"train_{tag}"] = train_check(mesh, tag, data)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1886,16 +2212,18 @@ def _serve_client(ports, batches, B):
     return np.concatenate([out[d] for d in range(len(ports))], axis=1)
 
 
-def serve_world(tmp, tag, D, M, B, n_batches, cfg, extra, golden):
-    """``cli serve --mesh D,M --procs D*M --backend gloo --reply`` on D*M
-    spawned ranks on this card; data row d's leader on its own port gets
-    rows [d * B, (d + 1) * B) of each batch; the replies must equal
-    ``golden(ids)`` bit for bit.  Returns the ranks' results."""
+def serve_world(tmp, tag, D, M, B, n_batches, cfg, extra, golden, backend="gloo"):
+    """``cli serve --mesh D,M --procs D*M --backend <backend> --reply`` on
+    D*M spawned ranks (gloo: all on this card; nccl: one card a rank); data
+    row d's leader on its own port gets rows [d * B, (d + 1) * B) of each
+    batch from the loopback sender (loadgen's single-sender wire, the
+    replies read back); the replies must equal ``golden(ids)`` bit for bit.
+    Returns the ranks' results."""
     rng = np.random.default_rng(24)
     batches = [(_rand_ids(cfg, D * B, rng), None) for _ in range(n_batches)]
     ports = [_free_port() for _ in range(D)]
     argvs = [["serve", "--config", "fleetrec_model1", "--batch", str(B), "--batches",
-              str(n_batches), "--mesh", f"{D},{M}", "--procs", str(D * M), "--backend", "gloo",
+              str(n_batches), "--mesh", f"{D},{M}", "--procs", str(D * M), "--backend", backend,
               "--coordinator", f"file://{os.path.join(tmp, tag + '.serve.rendezvous')}",
               "--port", str(ports[r // M]), "--slots", "4", "--reply", "--device", "cuda",
               *extra] for r in range(D * M)]
@@ -1923,11 +2251,23 @@ def cli_rank(rank, argvs):
             "launches": launches}
 
 
-def phase_sharded(dev, model1, tabs, ws, model3):
-    """The sharded serving path on this card (phase 12); see the module
-    docstring.  Returns the window check's worst error, the launch counts of
-    the sharded forward and pooled forward of the (1, 2) world, its rank 0's
-    splits and the window operands the report times."""
+def log_step_split(tag, world, r):
+    """The log line of a rank's sharded step split (train_check)."""
+    sp = r["split"]
+    parts = ", ".join(f"{k} {v:.4f} ms" for k, v in sp["parts_ms"].items())
+    colls = ", ".join(f"{k} {v['ms']:.4f} ms for {v['bytes']} B "
+                      f"({v['bytes'] / v['ms'] / 1e6:.3f} GB/s)"
+                      for k, v in sp["collectives"].items() if v["ms"] > 0) or "none"
+    log(f"time sharded step {tag} B={B_TIME} on {world}, rank 0, median of {SPLIT_STEPS} "
+        f"staged steps (each part closed by a synchronize): {parts} (CUDA events); "
+        f"collectives (host clock around the all_reduce and a synchronize): {colls}")
+
+
+def phase_sharded(dev, model1, tabs, ws, model3, dlrm):
+    """The sharded path on this card (phase 12); see the module docstring.
+    Returns the window checks' worst errors (forward, backward), rank 0's
+    results of the (1, 2) world (the sharded forward's and step's launch
+    counts, the splits), and the window operands the report times."""
     t0 = time.time()
     err_w, n_w, timed = check_windows(model1, model3, dev)
     log(f"phase 12 (1) window kernels: lookup_fused and lookup_fused_bags with shard "
@@ -1935,6 +2275,14 @@ def phase_sharded(dev, model1, tabs, ws, model3):
         f"{n_w} checks (model1 full rows B={B_TIME}, bags of {BAG_L}; model3 int8 at 1M-row "
         f"take tables), flags the unsharded ones, shards summing to the unsharded lookup "
         f"(max_abs_err {err_w}; {time.time() - t0:.1f}s)")
+    t1 = time.time()
+    err_b, n_b, timed_b = check_backward_windows(model1, dlrm, dev)
+    log(f"phase 12 (1b) lookup_fused_backward with shard descriptors and take windows, M in "
+        f"{WINDOW_MS}: bit-equal to its plain version on integer cotangents in {n_b} checks "
+        f"(model1 full rows and dlrm_terabyte at {DLRM_ROWS} rows a table, B={B_TIME}, int32 "
+        f"ids with bad ones), the shards' gradients placed at their windows bit-equal to the "
+        f"unsharded backward's, pad tables and rows 0 (max_abs_err {err_b}; "
+        f"{time.time() - t1:.1f}s)")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
     try:
         t1 = time.time()
@@ -1947,22 +2295,14 @@ def phase_sharded(dev, model1, tabs, ws, model3):
         fio.save_npz(paths["model3"], m3)
         del m3
         rng = np.random.default_rng(22)
-        ids1 = _rand_ids(cfg1, B_TIME, rng)
-        bad1 = ids1.copy()
-        take_cols = [j for j, t in enumerate(cfg1.tables) if t.rows > cfg1.onehot_factor_max]
-        bad1[5, take_cols[-1]] = cfg1.tables[take_cols[-1]].rows
-        bad1[9, take_cols[0]] = -1
-        pip1 = np.stack([_rand_ids(cfg1, B_SERVE, rng) for _ in range(4)])
-        bags1 = make_bags(cfg1, B_TIME, BAG_L, seed=25)[0]
-        ids3 = _rand_ids(cfg3, B_TIME, rng)
-        dense3 = rng.choice([-1.0, 1.0], (B_TIME, cfg3.dense_dim)).astype(np.float32)
+        data = {**serving_inputs(rng), **train_inputs(rng)}
         inputs = os.path.join(tmp, "inputs.npz")
-        np.savez(inputs, **{"m1/idx": ids1, "m1/bad": bad1, "m1/pip": pip1, "m1/bags": bags1,
-                            "m3/idx": ids3, "m3/dense": dense3})
+        np.savez(inputs, **data)
+        ids1, bad1, bags1 = data["m1/idx"], data["m1/bad"], data["m1/bags"]
         golden1 = ref.forward(cfg1, tabs, ws, ids1).astype(np.float32)
         if not np.array_equal(pm1_scores(cfg1, ids1, None).astype(np.float32), golden1):
             raise AssertionError("the pm1 closed form differs from the oracle on model1")
-        golden3 = pm1_scores(cfg3, ids3, dense3).astype(np.float32)
+        golden3 = pm1_scores(cfg3, data["m3/idx"], data["m3/dense"]).astype(np.float32)
         with torch.inference_mode():
             single1 = model1(torch.from_numpy(ids1).to(dev)).cpu().numpy()
             single_bad = model1(torch.from_numpy(bad1).to(dev)).cpu().numpy()
@@ -1970,27 +2310,9 @@ def phase_sharded(dev, model1, tabs, ws, model3):
         setup = time.time() - t1
 
         t2 = time.time()
-        (r0, r1), _ = run_world(2, sharded_rank, (paths, inputs), tmp, "sharded_1x2")
-        for name, r in (("rank 0", r0), ("rank 1", r1)):
-            checks = ((r["m1"], golden1, "model1 against the oracle"),
-                      (r["m1"], single1, "model1 against the single-device forward"),
-                      (r["m1_pipelined"], r["m1_sequential"], "forward_pipelined against forward"),
-                      (r["m1_pooled"], single_pooled, "forward_pooled against one device's"),
-                      (r["m3"], golden3, "model3 against the oracle"))
-            for got, want, what in checks:
-                if not np.array_equal(got, want):
-                    raise AssertionError(f"(1, 2) world {name}: {what} differ")
-            nan_rows = np.flatnonzero(np.isnan(r["m1_bad"])).tolist()
-            if nan_rows != [5, 9] or not np.array_equal(np.isnan(single_bad), np.isnan(r["m1_bad"])):
-                raise AssertionError(f"(1, 2) world {name}: bad-id NaN rows {nan_rows}")
-            if (r["launches_forward"] != _launches(lookup=1, mlp=1)
-                    or r["launches_pooled"] != _launches(bags=1, mlp=1)
-                    or r["launches_forward3"] != _launches(lookup=1, mlp=1)):
-                raise AssertionError(f"(1, 2) world {name}: launches per sharded forward "
-                                     f"{r['launches_forward']}, pooled {r['launches_pooled']}, "
-                                     f"model3 {r['launches_forward3']}")
-        if r0["fold1"] or not r0["fold3"]:
-            raise AssertionError("model1 must exchange features, model3 the W1-partial")
+        (r0, r1), _ = run_world(2, sharded_rank, (1, 2, paths, inputs, ("model1", "model3")),
+                                tmp, "sharded_1x2")
+        check_serving((r0, r1), golden1, single1, single_bad, single_pooled, golden3, "(1, 2)")
         log(f"phase 12 (2, 3) a (data=1, model=2) world of 2 ranks on this card over gloo "
             f"(set-up: checkpoints and oracles {setup:.1f}s; the world {time.time() - t2:.1f}s): "
             f"model1 at full rows, pm1 / ones, B={B_TIME}: both ranks' scores bit-equal to the "
@@ -2000,6 +2322,14 @@ def phase_sharded(dev, model1, tabs, ws, model3):
             f"model3 (int8, take tables at 1M rows, dense 64) pm1 / ones bit-equal to the oracle "
             f"(W1-partial exchange {r0['split3']['exchange_shape']}); launches per sharded "
             f"forward {r0['launches_forward']}, pooled {r0['launches_pooled']}")
+        log_training("(1, 2) gloo world", (r0, r1))
+
+        t3 = time.time()
+        r22t, _ = run_world(4, sharded_rank, (2, 2, None, inputs, ("model1_100k",)), tmp,
+                            "train_2x2")
+        log_training("(2, 2) gloo world", r22t)
+        log(f"phase 12 (6) the sharded step on a (2, 2) world of 4 ranks on this card over gloo: "
+            f"model1 at {SHARD_SERVE_ROWS} rows a table ({time.time() - t3:.1f}s)")
 
         t3 = time.time()
         ckpt = ["--ckpt", paths["model1"]]
@@ -2025,20 +2355,80 @@ def phase_sharded(dev, model1, tabs, ws, model3):
             f"single-device forward ({time.time() - t4:.1f}s)")
     finally:
         shutil.rmtree(tmp)
-    for tag, key, fold in (("model1 (feature exchange)", "split1", r0["fold1"]),
-                           ("model3 (W1-partial exchange)", "split3", r0["fold3"])):
+    log_forward_splits(r0, "(1, 2) on one card (the other rank's kernels share it)",
+                       "gloo all_reduce staged through host memory between two ranks on one "
+                       "card: not an interconnect number")
+    for tag, world, res in (("model1", "(1, 2)", r0), ("model3", "(1, 2)", r0),
+                            ("model1_100k", "(2, 2)", r22t[0])):
+        log_step_split(tag, f"a {world} gloo world on one card", res[f"train_{tag}"])
+    log(f"phase 12 sharded serving and training: all passed ({time.time() - t0:.1f}s)")
+    return (err_w, err_b), r0, timed, timed_b
+
+
+def check_serving(res, golden1, single1, single_bad, single_pooled, golden3, world):
+    """serving_checks' results ``res`` of every rank of a one-row world against
+    the oracle and one device: model1 bit-equal to both, forward_pipelined
+    to forward, forward_pooled to one device's, NaN on exactly rows [5, 9]
+    of the bad batch, model3 to the oracle; one lookup_fused and one
+    fused_mlp launch a forward (lookup_fused_bags a pooled one); model1
+    exchanges features, model3 the W1-partial."""
+    for rank, r in enumerate(res):
+        checks = ((r["m1"], golden1, "model1 against the oracle"),
+                  (r["m1"], single1, "model1 against the single-device forward"),
+                  (r["m1_pipelined"], r["m1_sequential"], "forward_pipelined against forward"),
+                  (r["m1_pooled"], single_pooled, "forward_pooled against one device's"),
+                  (r["m3"], golden3, "model3 against the oracle"))
+        for got, want, what in checks:
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{world} world rank {rank}: {what} differ")
+        nan_rows = np.flatnonzero(np.isnan(r["m1_bad"])).tolist()
+        if nan_rows != [5, 9] or not np.array_equal(np.isnan(single_bad), np.isnan(r["m1_bad"])):
+            raise AssertionError(f"{world} world rank {rank}: bad-id NaN rows {nan_rows}")
+        if (r["launches_forward"] != _launches(lookup=1, mlp=1)
+                or r["launches_pooled"] != _launches(bags=1, mlp=1)
+                or r["launches_forward3"] != _launches(lookup=1, mlp=1)):
+            raise AssertionError(f"{world} world rank {rank}: launches per sharded forward "
+                                 f"{r['launches_forward']}, pooled {r['launches_pooled']}, "
+                                 f"model3 {r['launches_forward3']}")
+    if res[0]["fold1"] or not res[0]["fold3"]:
+        raise AssertionError("model1 must exchange features, model3 the W1-partial")
+
+
+def log_training(world, res):
+    """The log line of a world's sharded steps (train_check's results of
+    every rank; each rank checked its shard itself)."""
+    for key in [k for k in res[0] if k.startswith("train_")]:
+        r = res[0][key]
+        log(f"sharded step {key[6:]} on the {world}: every rank launched "
+            f"{r['launches']} in a train_step and called no plain version; the loss "
+            f"{r['loss']!r} against one device's SGD step {r['ref_loss']!r} "
+            f"({'bit-equal' if r['exact'] else 'within rtol 1e-6'}); every rank's shard and "
+            f"weights within {STEP_TOL} of one device's (max abs err "
+            f"{max(x[key]['max_abs_err'] for x in res):.3g}), pad tables and rows 0; "
+            f"{'the W1-partial' if r['fold'] else 'the feature'} exchange; losses of "
+            f"{SHARD_STEPS} steps {r['losses']}; {r['shard_bytes']} B of shard and weights on "
+            f"rank 0")
+
+
+def log_forward_splits(r0, where, note):
+    """The log lines of rank 0's sharded forward splits (serving_checks)
+    and forward_pipelined's overlap."""
+    for tag, key, fold, ov in (("model1 (feature exchange)", "split1", r0["fold1"], "overlap1"),
+                               ("model3 (W1-partial exchange)", "split3", r0["fold3"],
+                                "overlap3")):
         sp = r0[key]
         matmul = (f"{sp['W1-partial matmul']:.4f} ms (a cuBLAS product)" if fold
                   else "none (the features are exchanged)")
-        log(f"time sharded forward {tag} B={B_TIME}, rank 0 of (1, 2) on one card (the other "
-            f"rank's kernels share it), median of {SPLIT_ITERS} (each part closed by a "
-            f"synchronize): window lookup {sp['lookup']:.4f} ms, W1-partial matmul {matmul} "
-            f"(CUDA events), exchange {sp['exchange']:.4f} ms wall for {sp['exchange_bytes']} B "
-            f"{sp['exchange_shape']} (gloo all_reduce staged through host memory between two "
-            f"ranks on one card: not an interconnect number), tower and poison "
-            f"{sp['tower']:.4f} ms (CUDA events); whole forward {sp['forward']:.4f} ms wall")
-    log(f"phase 12 sharded serving: all passed ({time.time() - t0:.1f}s)")
-    return err_w, r0, timed
+        o = r0[ov]
+        log(f"time sharded forward {tag} B={B_TIME}, rank 0 of {where}, median of {SPLIT_ITERS} "
+            f"(each part closed by a synchronize): window lookup {sp['lookup']:.4f} ms, "
+            f"W1-partial matmul {matmul} (CUDA events), exchange {sp['exchange']:.4f} ms wall "
+            f"for {sp['exchange_bytes']} B {sp['exchange_shape']} "
+            f"({sp['exchange_bytes'] / sp['exchange'] / 1e6:.3f} GB/s; {note}), tower and poison "
+            f"{sp['tower']:.4f} ms (CUDA events); whole forward {sp['forward']:.4f} ms wall; "
+            f"forward_pipelined of {OVERLAP_K} batches {o['pipelined']:.4f} ms against "
+            f"{OVERLAP_K} forwards {o['sequential']:.4f} ms (host clock, median of "
+            f"{OVERLAP_REPS} in turns)")
 
 
 def _ms(fn, iters: int = 20) -> float:
@@ -2530,16 +2920,18 @@ def staged_step(model, trainer, batch, mark):
         trainer.opt.update(list(tensors.values()), g_tables + g_weights, trainer.state)
 
 
-def backward_yardstick(model, ct, idx):
+def backward_yardstick(ops, ct, idx):
     """(``index_add_`` of the live cotangents at precomputed flat offsets into
     one float32 buffer of every packed buffer's elements: the one PyTorch
     call that computes the backward's sums, as a callable; the bytes the
     backward must move, each counted once: the cotangents, ids and
-    descriptors read, the distinct touched elements read and written)."""
-    ops = model.lookup_operands()
+    descriptors read, the distinct touched elements read and written).
+    ``ops``: a model's lookup_operands, or a shard's (shard_operands: only
+    its tables and the rows of its window count)."""
     cols, pos = ops["cols"], ops["pos"]
     col, add, o = lookup_mod._decode_pos(pos)
-    off, _ = lookup_offsets_plain(idx, cols, ops["stripes"], ops["stripe_height"])
+    off, _ = lookup_offsets_plain(idx, cols, ops["stripes"], ops["stripe_height"],
+                                  ops.get("window"))
     sizes = torch.tensor([0] + [b.numel() for b in ops["bufs"]], device=idx.device)
     base = sizes.cumsum(0)[cols[:, LOOKUP_COL_FIELDS.index("buf")]]
     where, vals = [], []
@@ -2603,7 +2995,7 @@ def time_training(runs, dev):
         plain = functools.partial(lookup_fused_backward_plain, *args, out=sums_p)
         ke, pe = _pair(kernel, plain)
         kg = _graph_ms(kernel)
-        library, nbytes = backward_yardstick(model, ct, idx)
+        library, nbytes = backward_yardstick(model.lookup_operands(), ct, idx)
         lib_ms = _graph_ms(library)
         del sums_k, sums_p
         bound_ms, bound_by = bound(nbytes)
@@ -2619,6 +3011,36 @@ def time_training(runs, dev):
             f"index_add_ {lib_ms:.4f} ms (graph replays); bound {bound_ms:.4f} ms ({bound_by}: "
             f"{nbytes} B counted once), kernel at {bound_ms / kg:.3f} of it")
     return out
+
+
+def time_window_backward(timed_b, dev):
+    """The backward kernel's row-window form on phase 12's shard 0 of 2 of
+    model1 (B = B_TIME, uniform cotangents, preallocated float32 sums): the
+    kernel over graph replays and eagerly against its plain version (eager:
+    data-dependent shapes), ``index_add_`` into the shard's sums over graph
+    replays, the bound at the shard's bytes."""
+    ops, idx = timed_b
+    rng = np.random.default_rng(27)
+    ct = torch.from_numpy(rng.uniform(-1, 1, (idx.shape[0], ops["pos"].shape[0]))
+                          .astype(np.float32)).to(dev)
+    args = (ct, idx, ops["bufs"], ops["cols"], ops["pos"], ops["stripes"], ops["stripe_height"])
+    sums_k = [torch.zeros(b.numel(), device=dev) for b in ops["bufs"]]
+    sums_p = [torch.zeros(b.numel(), device=dev) for b in ops["bufs"]]
+    kernel = functools.partial(lookup_fused_backward, *args, out=sums_k, window=ops["window"])
+    plain = functools.partial(lookup_fused_backward_plain, *args, out=sums_p,
+                              window=ops["window"])
+    ke, pe = _pair(kernel, plain)
+    kg = _graph_ms(kernel)
+    library, nbytes = backward_yardstick(ops, ct, idx)
+    lib_ms = _graph_ms(library)
+    bound_ms, bound_by = bound(nbytes)
+    log(f"time lookup_fused_backward window fleetrec_model1 B={B_TIME}, shard 0 of 2 (take window "
+        f"{ops['window']}): kernel {kg:.4f} ms (CUDA events over graph replays; eager "
+        f"back-to-back {ke:.4f} ms), plain {pe:.4f} ms (eager), index_add_ into the shard's sums "
+        f"{lib_ms:.4f} ms (graph replays); bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B of the "
+        f"shard counted once), kernel at {bound_ms / kg:.3f} of it")
+    return {"ms": kg, "ms_eager": ke, "plain_ms": pe, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def profile_training(runs, timed):
@@ -2683,7 +3105,7 @@ def main() -> int:
     dev = torch.device("cuda:0")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     _build.kernels()
     log(f"build: {len(_build.kernel_sources())} kernel sources, one nvcc each, "
         f"all started together, then one link: {time.perf_counter() - t0:.1f} s")
@@ -2708,7 +3130,10 @@ def main() -> int:
     err_bwd, train_launches, runs = phase_train(dev, model, model_u,
                                                 lookups["dlrm_terabyte"][1])
     trained = time_training(runs, dev)
-    err_w, sharded, windows = phase_sharded(dev, model, tabs, ws, lookups["fleetrec_model3"][1])
+    (err_w, err_wb), sharded, windows, timed_wb = phase_sharded(
+        dev, model, tabs, ws, lookups["fleetrec_model3"][1], lookups["dlrm_terabyte"][1])
+    window_bwd = time_window_backward(timed_wb, dev)
+    del timed_wb
     stats = phase_report(cfg, model, dev, gb, lookups, windows)
     profile_training(runs, trained)
     tiers, gb_a = stats["gather_rows all tiers"], stats["gather_rows gatherbench shape"]
@@ -2797,7 +3222,20 @@ def main() -> int:
          **{f"step_{k}_{tag}": trained[name][k]
             for tag, name in (("model1", "fleetrec_model1"), ("dlrm", "dlrm_terabyte"))
             for k in ("wall_ms", "busy_ms")}},
+        # its row-window form (the sharded training step): launches of one
+        # train_step on rank 0 of the (1, 2) world on model1 (every count at 0
+        # just before); times on shard 0 of 2 of model1, bound at the shard's
+        # bytes; library_ms one index_add_ into the shard's sums; no TPU kernel:
+        # it computes the partitioned VJP of the JAX package's GSPMD train_step
+        {"name": "lookup_fused_backward_window", "route": "cuda",
+         "source": "fleetrec_tpu_torch/ops/csrc/lookup_fused.cu",
+         "replaces": "fleetrec_tpu/parallel/sharded.py:625",
+         "launches": sharded["train_model1"]["launches"]["lookup_fused_backward"],
+         "max_abs_err": err_wb,
+         **{k: window_bwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "ms_eager": window_bwd["ms_eager"]},
     ]}
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -278,7 +278,7 @@ class FleetRecModel(nn.Module):
             bufs.append(tensors["take"])
         return LookupFunction.apply(
             indices, dense if self.layout.dense_dim else None, ops["cols"], ops["pos"],
-            ops["stripes"], ops["stripe_height"], ops["dense_dim"], ops["with_bad"], *bufs)
+            ops["stripes"], ops["stripe_height"], ops["dense_dim"], ops["with_bad"], None, *bufs)
 
     def head_train(self, feats: torch.Tensor, bad: Optional[torch.Tensor],
                    dense: Optional[torch.Tensor], tensors: Dict[str, torch.Tensor]

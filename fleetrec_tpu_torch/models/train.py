@@ -1,8 +1,9 @@
 """Training on one device, the port of ``fleetrec_tpu/models/train.py``:
-BCE on the scores' logits, Adagrad computed as optax computes it, and a
-``Trainer`` over the tensors the serving model reads, updated in place, so
-the model it trains serves as it is afterwards (train -> ``io.quantize_tables``
--> serve, as in the JAX package).
+BCE on the scores' logits, Adagrad computed as optax computes it (and the
+plain ``SGD`` of the sharded step), and a ``Trainer`` over the tensors the
+serving model reads, updated in place, so the model it trains serves as it
+is afterwards (train -> ``io.quantize_tables`` -> serve, as in the JAX
+package).
 
 A step runs ``FleetRecModel.forward_train`` under autograd: the fused
 lookup kernel forward and its hand-written backward kernel
@@ -41,6 +42,27 @@ def check_trainable(model: FleetRecModel) -> None:
     gradients through quantized buffers are meaningless.  Train with
     table_dtype float32 or bfloat16 and quantize the serving checkpoint."""
     require_float_storage(model.lookup_operands()["bufs"])
+
+
+class SGD:
+    """Plain gradient descent, ``p - lr * g``: the update of the JAX
+    package's ``ShardedFleetRec.train_step``, with ``Adagrad``'s interface
+    (``init`` holds no state).  Per tensor, in its own dtype, in place: ``lr``
+    is rounded to the tensor's dtype first, as JAX's weakly typed Python
+    float is, then ``lr * g`` is rounded to it, then subtracted."""
+
+    def __init__(self, lr: float = 1e-2):
+        self.lr = lr
+
+    def init(self, params: Sequence[torch.Tensor]) -> list:
+        return []
+
+    @torch.no_grad()
+    def update(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+               state: Sequence[torch.Tensor] = ()) -> None:
+        """One step: ``params`` updated in place."""
+        for p, g in zip(params, grads):
+            p.sub_(g * float(torch.tensor(self.lr, dtype=p.dtype)))
 
 
 # optax.adagrad's defaults, which the JAX package's Trainer uses

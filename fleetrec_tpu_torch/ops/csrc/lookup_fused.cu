@@ -93,7 +93,11 @@
 // The backward kernel (lookup_backward_kernel, entry point
 // fr_lookup_fused_backward) is the single-id kernel's gradient for training:
 // it walks the same descriptors and adds the features' cotangent into float32
-// gradient buffers laid out as the packed buffers (see the kernel).
+// gradient buffers laid out as the packed buffers (see the kernel).  It takes
+// the same row window, for one model shard's step of the sharded training
+// (parallel/sharded.py::ShardedFleetRec.train_step): its take gradient buffer
+// is the shard's rows_local rows, and a take row outside the window adds
+// nothing (an unwindowed add there would land past the end of the buffer).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -700,13 +704,17 @@ __global__ void __launch_bounds__(kThreads)
 // or dense column and a null row add nothing.  Every add is an atomicAdd
 // (float sums in an order that changes from run to run; exact for integers
 // below 2^24).  What bounds it: the adds, one a (row, embedding column);
-// model1's small one-hot tables take thousands of adds on one element.
+// model1's small one-hot tables take thousands of adds on one element.  The
+// row window (row_lo, rows_local) is the forward kernels': pass 1's null row
+// for a take row another shard holds, so its cotangent adds nothing here; a
+// class column the shard's descriptors give lim = 0 adds nothing either.
 template <typename I>
 __global__ void __launch_bounds__(kThreads)
     lookup_backward_kernel(Buffers grads, const I* __restrict__ ids,
                            const int64_t* __restrict__ cols, const int2* __restrict__ pos,
                            const float* __restrict__ grad, int B, int T, int n_plan, int F,
-                           int rows, int64_t stripes, int64_t stripe_height) {
+                           int rows, int64_t stripes, int64_t stripe_height, int64_t row_lo,
+                           int64_t rows_local) {
   extern __shared__ __align__(16) unsigned char smem[];
   int2* s_pos = reinterpret_cast<int2*>(smem);
   Col* s_col = reinterpret_cast<Col*>(s_pos + F);
@@ -731,8 +739,8 @@ __global__ void __launch_bounds__(kThreads)
       if (c.op == kOpDiv) id = floor_div(id, c.rem);
       else if (c.op == kOpMod) id = floor_mod(id, c.rem);
       s_row[u] = id >= 0 && id < c.lim
-                     ? row_address<float>(c, (uint32_t)id, s_buf, S, stripe_height, 0,
-                                          INT64_MAX)
+                     ? row_address<float>(c, (uint32_t)id, s_buf, S, stripe_height, row_lo,
+                                          rows_local)
                      : nullptr;
     }
     __syncthreads();
@@ -814,7 +822,7 @@ cudaError_t launch_backward(const Args& a, const float* grad, cudaStream_t st) {
   lookup_backward_kernel<I><<<a.grid, kThreads, smem_bytes(a.F, a.n_plan, a.rows), st>>>(
       a.bufs, static_cast<const I*>(a.ids), static_cast<const int64_t*>(a.cols),
       static_cast<const int2*>(a.pos), grad, a.B, a.T, a.n_plan, a.F, a.rows, a.stripes,
-      a.stripe_height);
+      a.stripe_height, a.row_lo, a.rows_local);
   return cudaGetLastError();
 }
 
@@ -929,15 +937,18 @@ extern "C" int fr_lookup_fused_bags(const void* const* bufs, const void* const* 
 // buffers laid out as the packed buffers (the class buffers, then the take
 // buffer), which it adds into; ids [B, T] int32 (ids_64 = 0) or int64; cols /
 // pos: lookup_tensors' descriptors; grad [B, F] float32, the features'
-// cotangent; rows / grid from ops/lookup.py::launch_shape.
+// cotangent; rows / grid from ops/lookup.py::launch_shape; row_lo /
+// rows_local: the take gradient buffer's row window (0 / INT64_MAX: the whole
+// buffer).
 extern "C" int fr_lookup_fused_backward(void* const* grads, int n_bufs, const void* ids,
                                         int ids_64, const void* cols, const void* pos,
                                         const void* grad, int64_t B, int T, int n_plan, int F,
                                         int rows, int grid, int64_t stripes,
-                                        int64_t stripe_height, void* stream) {
+                                        int64_t stripe_height, int64_t row_lo,
+                                        int64_t rows_local, void* stream) {
   if (n_bufs < 1 || n_bufs > kMaxBufs || B < 1 || B > INT32_MAX || rows < 1 || grid < 1 ||
       (int64_t)rows * F > INT32_MAX / 2 || (int64_t)rows * n_plan > INT32_MAX / 2 ||
-      smem_bytes(F, n_plan, rows) > kSmemMax || stripes < 1)
+      smem_bytes(F, n_plan, rows) > kSmemMax || stripes < 1 || row_lo < 0 || rows_local < 0)
     return (int)cudaErrorInvalidValue;
   Args a = {};
   for (int i = 0; i < n_bufs; ++i) a.bufs.ptr[i] = grads[i];
@@ -952,6 +963,8 @@ extern "C" int fr_lookup_fused_backward(void* const* grads, int n_bufs, const vo
   a.grid = grid;
   a.stripes = stripes;
   a.stripe_height = stripe_height;
+  a.row_lo = row_lo;
+  a.rows_local = rows_local;
   const float* g = static_cast<const float*>(grad);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(ids_64 ? launch_backward<int64_t>(a, g, st) : launch_backward<int32_t>(a, g, st));

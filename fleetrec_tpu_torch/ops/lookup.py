@@ -56,7 +56,10 @@ the packed buffers, for training (the port of the VJP XLA derives from
 ``lookup_concat`` in the JAX package): the third kernel of
 ``lookup_fused.cu`` walks the same descriptors and adds each cotangent
 into the element its output column read, with float32 atomics;
-``lookup_fused_backward_plain`` does the same with ``index_add_``.
+``lookup_fused_backward_plain`` does the same with ``index_add_``.  It
+takes the same ``window``, for one model shard's training step
+(``ShardedFleetRec.train_step``): the take gradient is the shard's
+``rows_local`` rows, and a take row outside the window adds nothing.
 ``LookupFunction`` is the ``torch.autograd.Function`` that pairs the two.
 """
 
@@ -367,8 +370,7 @@ def _launch(ids: torch.Tensor, dense: Optional[torch.Tensor],
     if any(t.device != ids.device for t in tensors):
         raise ValueError("the lookup's tensors lie on more than one device")
     _check_dense(ids, dense, dense_dim)
-    if window is not None and (len(window) != 2 or min(window) < 0):
-        raise ValueError(f"window must be (row_lo, rows_local) >= 0, got {window}")
+    _check_window(window)
     if ids.device.type == "cpu":
         return None
     if ids.device.type != "cuda":
@@ -488,9 +490,15 @@ def require_float_storage(bufs: Sequence[torch.Tensor]) -> None:
             "(io.quantize_tables)")
 
 
+def _check_window(window: Optional[Tuple[int, int]]) -> None:
+    if window is not None and (len(window) != 2 or min(window) < 0):
+        raise ValueError(f"window must be (row_lo, rows_local) >= 0, got {window}")
+
+
 def _check_backward(grad_out: torch.Tensor, ids: torch.Tensor,
                     bufs: Sequence[torch.Tensor], cols: torch.Tensor, pos: torch.Tensor,
-                    out: Optional[Sequence[torch.Tensor]]) -> None:
+                    out: Optional[Sequence[torch.Tensor]],
+                    window: Optional[Tuple[int, int]]) -> None:
     if ids.dim() != 2 or ids.dtype not in _IDX_DTYPES:
         raise TypeError(f"ids must be [B, T] int32 or int64, got {tuple(ids.shape)} {ids.dtype}")
     if cols.dim() != 2 or cols.shape[1] != len(LOOKUP_COL_FIELDS) or pos.dim() != 2:
@@ -504,6 +512,7 @@ def _check_backward(grad_out: torch.Tensor, ids: torch.Tensor,
             for o, b in zip(out, bufs))):
         raise ValueError("out must hold one contiguous float32 buffer of each packed "
                          "buffer's size")
+    _check_window(window)
     tensors = [grad_out, ids, cols, pos, *bufs, *(out or [])]
     if any(t.device != ids.device for t in tensors):
         raise ValueError("the lookup's tensors lie on more than one device")
@@ -530,15 +539,16 @@ def _finish(grads: Sequence[torch.Tensor], bufs: Sequence[torch.Tensor],
 def lookup_fused_backward_plain(grad_out: torch.Tensor, ids: torch.Tensor,
                                 bufs: Sequence[torch.Tensor], cols: torch.Tensor,
                                 pos: torch.Tensor, stripes: int = 1, stripe_height: int = 0,
-                                out: Optional[Sequence[torch.Tensor]] = None) -> list:
+                                out: Optional[Sequence[torch.Tensor]] = None,
+                                window: Optional[Tuple[int, int]] = None) -> list:
     """``lookup_fused_backward`` with PyTorch ops: the element offsets of
-    ``lookup_offsets_plain``, then ``index_add_`` of the cotangents in
-    float32, a quotient column's also into its QR remainder column's
-    element."""
-    _check_backward(grad_out, ids, bufs, cols, pos, out)
+    ``lookup_offsets_plain`` (with the window: a take row outside it reads
+    no row), then ``index_add_`` of the cotangents in float32, a quotient
+    column's also into its QR remainder column's element."""
+    _check_backward(grad_out, ids, bufs, cols, pos, out, window)
     grads = _gradients(bufs, out)
     col, add, o = _decode_pos(pos)
-    off, _ = lookup_offsets_plain(ids, cols, stripes, stripe_height)
+    off, _ = lookup_offsets_plain(ids, cols, stripes, stripe_height, window)
     g = grad_out.float()
     buf_of = cols[:, _F["buf"]]
     for c in (col, add):
@@ -558,14 +568,16 @@ def _entry_backward():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_void_p]
     return fn
 
 
 def lookup_fused_backward(grad_out: torch.Tensor, ids: torch.Tensor,
                           bufs: Sequence[torch.Tensor], cols: torch.Tensor,
                           pos: torch.Tensor, stripes: int = 1, stripe_height: int = 0,
-                          out: Optional[Sequence[torch.Tensor]] = None) -> list:
+                          out: Optional[Sequence[torch.Tensor]] = None,
+                          window: Optional[Tuple[int, int]] = None) -> list:
     """The gradient of ``lookup_fused``'s features with respect to the packed
     buffers: the cotangent ``grad_out`` [B, feature_dim] (float32 or
     bfloat16) and ``lookup_fused``'s ids, float buffers (classes, then the
@@ -578,16 +590,18 @@ def lookup_fused_backward(grad_out: torch.Tensor, ids: torch.Tensor,
     float32 and rounded once to the storage dtype.  ``out``: float32
     buffers (one a packed buffer, any shape of its size) to add into in
     place of zeroed ones, returned as they are.  int8 storage raises.
+    ``window``: the take buffer's row window of a model shard (module
+    docstring); the take buffer given is the shard's.
 
     On a CUDA tensor it launches the backward kernel of ``lookup_fused.cu``
     or raises (its atomic float adds sum in an order that changes from run
     to run: bit-equal to ``lookup_fused_backward_plain`` on integer
     cotangents whose sums stay below 2^24); on a CPU tensor it runs
     ``lookup_fused_backward_plain``."""
-    _check_backward(grad_out, ids, bufs, cols, pos, out)
+    _check_backward(grad_out, ids, bufs, cols, pos, out, window)
     if ids.device.type == "cpu":
         return lookup_fused_backward_plain(grad_out, ids, bufs, cols, pos, stripes,
-                                           stripe_height, out)
+                                           stripe_height, out, window)
     if ids.device.type != "cuda":
         raise ValueError(f"no lookup kernel for device {ids.device}")
     if len(bufs) > MAX_BUFS:
@@ -607,7 +621,7 @@ def lookup_fused_backward(grad_out: torch.Tensor, ids: torch.Tensor,
             rc = _entry_backward()(ptrs, len(grads), ids.data_ptr(),
                                    int(ids.dtype == torch.int64), cols.data_ptr(),
                                    pos.data_ptr(), g.data_ptr(), B, T, n_plan, F, rows, grid,
-                                   stripes, stripe_height, stream)
+                                   stripes, stripe_height, *(window or _WHOLE), stream)
         _build.check(rc, "lookup_fused_backward")
         lookup_fused_backward.launches += 1
     return _finish(grads, bufs, out)
@@ -619,20 +633,26 @@ lookup_fused_backward.launches = 0
 class LookupFunction(torch.autograd.Function):
     """``lookup_fused`` with a gradient for the packed buffers, for
     training: ``LookupFunction.apply(ids, dense, cols, pos, stripes,
-    stripe_height, dense_dim, with_bad, *bufs)`` -> (features, bad flags or
-    None).  The forward is ``lookup_fused`` (the kernel on a CUDA tensor, the
-    plain version on a CPU one), the backward ``lookup_fused_backward``.
-    Only the buffers get a gradient: the JAX package differentiates the
-    params, not the ids, the descriptors or the dense tail."""
+    stripe_height, dense_dim, with_bad, window, *bufs)`` -> (features, bad
+    flags or None).  The forward is ``lookup_fused`` (the kernel on a CUDA
+    tensor, the plain version on a CPU one), the backward
+    ``lookup_fused_backward``, both over the same take window (None on one
+    device; a model shard's window in ``ShardedFleetRec.train_step``).  Only
+    the buffers get a gradient: the JAX package differentiates the params,
+    not the ids, the descriptors or the dense tail.  Float storage only:
+    the lookup is passed no int8 scales."""
+
+    _N_ARGS = 9  # the arguments before the buffers
 
     @staticmethod
     def forward(ctx, ids, dense, cols, pos, stripes, stripe_height, dense_dim, with_bad,
-                *bufs):
+                window, *bufs):
         require_float_storage(bufs)
         feats, bad = lookup_fused(ids, dense, bufs, None, cols, pos, stripes, stripe_height,
-                                  dense_dim, with_bad)
+                                  dense_dim, with_bad, window=window)
         ctx.save_for_backward(ids, cols, pos, *bufs)
         ctx.stripes = (stripes, stripe_height)
+        ctx.window = window
         if bad is not None:
             ctx.mark_non_differentiable(bad)
         return feats, bad
@@ -640,8 +660,10 @@ class LookupFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_feats, _grad_bad):
         ids, cols, pos, *bufs = ctx.saved_tensors
-        need = ctx.needs_input_grad[8:]
+        n = LookupFunction._N_ARGS
+        need = ctx.needs_input_grad[n:]
         grads = [None] * len(bufs)
         if any(need):
-            grads = lookup_fused_backward(grad_feats, ids, bufs, cols, pos, *ctx.stripes)
-        return (None,) * 8 + tuple(g if n else None for g, n in zip(grads, need))
+            grads = lookup_fused_backward(grad_feats, ids, bufs, cols, pos, *ctx.stripes,
+                                          window=ctx.window)
+        return (None,) * n + tuple(g if k else None for g, k in zip(grads, need))

@@ -7,7 +7,9 @@ description of this rank's place in a ``torch.distributed`` world of
 ``data * model`` ranks: rank ``r`` sits at ``(d, m) = divmod(r, model)``,
 the M ranks of one data row share a process group (the "model" axis, over
 which the sharded forward's one exchange runs), and each data row scores its
-own rows of the batch.
+own rows of the batch.  The D ranks of one model column (the same shard of
+every data row) share a second group, over which the sharded training step
+sums its gradients and losses (the "data" axis).
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ import torch.distributed as dist
 class Mesh:
     """This rank's view of a (data=D, model=M) mesh: its coordinates, the
     process group of its data row's M model ranks (None in a world of no
-    process group: one rank, nothing to exchange) and its device."""
+    process group: one rank, nothing to exchange), its device, and the
+    process group of its model column's D ranks (None when D = 1: nothing
+    to sum over the data axis)."""
 
     data: int
     model: int
@@ -32,6 +36,7 @@ class Mesh:
     m: int
     group: Optional[object]
     device: torch.device
+    col_group: Optional[object] = None
 
     @property
     def rank(self) -> int:
@@ -67,7 +72,8 @@ def make_mesh(data: int = 1, model: int = 1, device="cuda") -> Mesh:
     ``data * model`` ranks (``multihost.init_distributed``), or, with no
     process group, a mesh of one rank.  Every rank must call it, in the same
     order as every other ``new_group``: it makes one process group a data
-    row."""
+    row, then (D > 1) one a model column, every rank every group in that
+    order, as NCCL and gloo both need."""
     n = data * model
     if data < 1 or model < 1:
         raise ValueError(f"mesh ({data}, {model}): both axes must be >= 1")
@@ -81,12 +87,17 @@ def make_mesh(data: int = 1, model: int = 1, device="cuda") -> Mesh:
         raise ValueError(f"mesh ({data}, {model}) needs {n} ranks, the world has {world} "
                          f"(one device a rank)")
     d, m = divmod(rank, model)
-    group = None
+    group = col_group = None
     for row in range(data):
         g = dist.new_group(ranks=list(range(row * model, (row + 1) * model)))
         if row == d:
             group = g
-    return Mesh(data, model, d, m, group, rank_device(device, rank))
+    if data > 1:
+        for col in range(model):
+            g = dist.new_group(ranks=list(range(col, n, model)))
+            if col == m:
+                col_group = g
+    return Mesh(data, model, d, m, group, rank_device(device, rank), col_group)
 
 
 def single_device_mesh(device="cuda") -> Mesh:

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .mesh import Mesh, make_mesh
+from .mesh import Mesh, make_mesh, rank_device
 
 # how long a collective may wait for a peer before the process group gives up
 TIMEOUT = datetime.timedelta(minutes=10)
@@ -55,6 +55,13 @@ def check_backend(backend: str, device, ranks_here: int) -> None:
             f"tensors through host memory)")
 
 
+def bind_device(device, rank: int) -> None:
+    """Make ``rank``'s card (``rank_device``) the current CUDA device; a
+    CPU device binds nothing."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(rank_device(device, rank))
+
+
 def init_method(coordinator_address: Optional[str]) -> str:
     """A ``host:port`` address, or a URL (``tcp://``, ``file://``) as it is;
     None reads MASTER_ADDR / MASTER_PORT."""
@@ -77,13 +84,16 @@ def init_distributed(
     environment (WORLD_SIZE, RANK, MASTER_ADDR, MASTER_PORT).  No-op for one
     process.  ``backend`` None is ``nccl`` for a CUDA device and ``gloo``
     for the CPU; nccl with more ranks on this host (LOCAL_WORLD_SIZE, else
-    all of them) than cards raises."""
+    all of them) than cards raises.  On a CUDA device the rank's card
+    (``mesh.rank_device``) becomes the current device before the process
+    group is made, so NCCL's communicators sit on it."""
     num = num_processes or int(os.environ.get("WORLD_SIZE", "1"))
     if num <= 1:
         return
     rank = process_id if process_id is not None else int(os.environ.get("RANK", "0"))
     backend = backend or default_backend(device)
     check_backend(backend, device, int(os.environ.get("LOCAL_WORLD_SIZE", num)))
+    bind_device(device, rank)
     dist.init_process_group(backend, init_method=init_method(coordinator_address),
                             world_size=num, rank=rank, timeout=TIMEOUT)
 

@@ -1,5 +1,5 @@
-"""The sharded serving forward, the port of ``fleetrec_tpu/parallel/sharded.py``
-(``ShardedFleetRec`` without ``train_step``).
+"""The sharded forward and training step, the port of
+``fleetrec_tpu/parallel/sharded.py`` (``ShardedFleetRec``).
 
 FleetRec spreads its tables over several FPGAs and joins their partial
 results before the MLP.  The JAX package does it on the "model" axis of a
@@ -40,11 +40,29 @@ part), so on pm1 / parity data the scores are bit-equal to one device's.
 The model to shard is built on the host (``init_model`` / ``load_npz`` /
 ``params_from_jax`` with ``device="cpu"``); each rank copies only its slice
 to its device.
+
+``train_step`` is one SGD step (``p - lr * g``, ``models/train.py::SGD``)
+on the mean BCE of the global batch, the D data rows' batches together, as
+the JAX package's GSPMD ``train_step``; int8 tables raise.  The forward runs
+under autograd: the window lookup through ``LookupFunction`` (its backward
+the window form of ``lookup_fused_backward``, which adds only into this
+shard's rows), the W1-partial, the exchange as ``_Exchange`` (forward the
+all_reduce, backward the identity: every rank of the row runs the same post
+on the same sum, so the cotangent of its partial is the sum's), and the
+post with the training towers (``mlp_train``, never ``fused_mlp``).  A row's
+loss is its mean BCE over D; the gradients of the replicated weights and of
+the shard's tables are summed over the model column's D ranks
+(``Mesh.col_group``: a sum over the world would count each M times), and
+W1's on the fold path, ``feats_local^T @ dh`` on each rank, over the whole
+world (the row's group, then the column's).  The shard and the weights are
+updated in place, so the mesh serves its trained weights as it is, and the
+loss returned is the global batch's, on every rank.  There is no fold to
+refresh: the port stages none.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -53,8 +71,9 @@ from ..models.embedding import TORCH_DTYPES, class_tables, lookup_tensors
 from ..models.fleetrec import (FleetRecModel, check_inputs, check_pooled_config,
                                interaction_head)
 from ..models.interaction import cross_network
-from ..models.mlp import mlp_apply
-from ..ops.lookup import lookup_fused, lookup_fused_bags
+from ..models.mlp import mlp_apply, mlp_train
+from ..models.train import SGD, bce_with_logits
+from ..ops.lookup import LookupFunction, lookup_fused, lookup_fused_bags, require_float_storage
 from .mesh import Mesh
 
 
@@ -101,6 +120,32 @@ def shard_operands(model: FleetRecModel, m: int, M: int, device) -> dict:
                 with_bad=bool(lay.take_groups), window=window)
 
 
+class _Exchange(torch.autograd.Function):
+    """The exchange under autograd: ``_Exchange.apply(part, exchange)``
+    runs ``exchange(part)`` (``ShardedFleetRec._exchange``: the all_reduce
+    over the data row, in place) and returns the sum; its backward is the
+    identity.  Every rank of the row computes the same post and the same
+    loss from the sum, so the cotangent of each rank's partial is the sum's;
+    all-reducing it too (``torch.distributed.nn.functional.all_reduce``'s
+    backward) would make it M times too large."""
+
+    @staticmethod
+    def forward(ctx, part, exchange):
+        exchange(part)
+        ctx.mark_dirty(part)
+        return part
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _all_reduce(t: torch.Tensor, group) -> None:
+    """``t`` summed in place over ``group`` (nothing for None)."""
+    if group is not None:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+
+
 class ShardedFleetRec:
     """This rank's shard of a FleetRecModel on a (data, model) mesh, and the
     sharded forwards over it.  Every rank of a data row calls a forward
@@ -138,13 +183,16 @@ class ShardedFleetRec:
     def _lookup_dense(self, dense: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         return dense if self.operands["dense_dim"] else None
 
-    def _partial(self, feats: torch.Tensor) -> torch.Tensor:
+    def _partial(self, feats: torch.Tensor, w1: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
         """The value the exchange sums: the local W1-partial product in
-        float32 (fold), else the local features."""
+        float32 (fold), else the local features.  ``w1``: the W1 to read in
+        place of this rank's (a training leaf)."""
         if not self._use_w1_fold:
             return feats
         dtype = TORCH_DTYPES[self.cfg.dtype]
-        return torch.matmul(feats.to(dtype).float(), self.mlp[0].float())
+        w1 = self.mlp[0] if w1 is None else w1
+        return torch.matmul(feats.to(dtype).float(), w1.to(dtype).float())
 
     def _pre(self, indices: torch.Tensor, dense: Optional[torch.Tensor]
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -242,3 +290,107 @@ class ShardedFleetRec:
         part = self._partial(feats)
         self._exchange(part)
         return self._finish(part, None, bad, dense)
+
+    # ---- training -------------------------------------------------------
+    def trainable_tensors(self) -> Dict[str, torch.Tensor]:
+        """This rank's tensors that training updates, named as
+        ``models/fleetrec.py::trainable_tensors`` names the model's: the
+        shard's class tables and take rows (``onehot_<i>``, ``take``), then
+        the replicated weights (``mlp_<i>``, ``bottom_<i>``,
+        ``cross_<layer>_<j>``).  They are the tensors the forwards read, so
+        updating them in place updates the shard.  int8 tables raise."""
+        bufs = self.operands["bufs"]
+        require_float_storage(bufs)
+        out = dict(zip(self._table_names(), bufs))
+        out.update({f"mlp_{i}": w for i, w in enumerate(self.mlp)})
+        out.update({f"bottom_{i}": w for i, w in enumerate(self.bottom)})
+        out.update({f"cross_{li}_{j}": w for li, layer in enumerate(self.cross)
+                    for j, w in enumerate(layer)})
+        return out
+
+    def _table_names(self) -> List[str]:
+        names = [f"onehot_{i}" for i in range(len(self.layout.onehot_classes))]
+        return names + (["take"] if self.operands["window"] is not None else [])
+
+    def lookup_train(self, indices: torch.Tensor, dense: Optional[torch.Tensor],
+                     tensors: Dict[str, torch.Tensor]
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The window lookup under autograd (``LookupFunction`` over this
+        shard's buffers of ``tensors``, its descriptors and take window)."""
+        ops = self.operands
+        bufs = [tensors[n] for n in self._table_names()]
+        return LookupFunction.apply(indices, self._lookup_dense(dense), ops["cols"],
+                                    ops["pos"], ops["stripes"], ops["stripe_height"],
+                                    ops["dense_dim"], ops["with_bad"], ops["window"], *bufs)
+
+    def post_train(self, h: torch.Tensor, bad: Optional[torch.Tensor],
+                   dense: Optional[torch.Tensor], tensors: Dict[str, torch.Tensor]
+                   ) -> torch.Tensor:
+        """``_post`` for training, from the weights of ``tensors``: the
+        training towers (``mlp_train``: ReLU as ``torch.maximum``, no
+        ``fused_mlp``), the heads as ``head_train`` runs them, the NaN poison
+        out of place (a poisoned row's gradient is 0)."""
+        cfg = self.cfg
+        dtype = TORCH_DTYPES[cfg.dtype]
+        mlp = [tensors[f"mlp_{i}"] for i in range(len(self.mlp))]
+        act = cfg.mlp.activation
+        if self._use_w1_fold:
+            rest = mlp[1:]
+            if act == "relu" and rest:
+                h = torch.maximum(h, h.new_zeros(()))
+            scores = mlp_train(rest, h.to(dtype), activation=act)[:, 0] if rest else h[:, 0]
+        elif cfg.interaction == "dot":
+            scores = interaction_head(cfg, self.pair_cols, h, dense,
+                                      [tensors[f"bottom_{i}"] for i in range(len(self.bottom))],
+                                      mlp, tower=mlp_train)
+        else:
+            x = h.to(dtype)
+            if cfg.interaction == "cross":
+                x = cross_network(x, [[tensors[f"cross_{li}_{j}"] for j in range(len(layer))]
+                                      for li, layer in enumerate(self.cross)])
+            scores = mlp_train(mlp, x, activation=act)[:, 0]
+        return scores if bad is None else scores.masked_fill(bad, float("nan"))
+
+    def forward_train(self, indices: torch.Tensor, dense: Optional[torch.Tensor],
+                      tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The data row's scores [B] under autograd, from ``tensors`` (leaves
+        that alias ``trainable_tensors``): lookup -> W1-partial -> the
+        exchange (``_Exchange``) -> the training post."""
+        check_inputs(self.cfg, indices, dense, self.cfg.dense_dim)
+        feats, bad = self.lookup_train(indices, dense, tensors)
+        part = self._partial(feats, tensors["mlp_0"])
+        return self.post_train(_Exchange.apply(part, self._exchange), bad, dense, tensors)
+
+    def row_loss(self, scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """This data row's share of the global batch's mean BCE: its mean
+        over D (the D rows' shares sum to the mean over the D * B rows)."""
+        return bce_with_logits(scores, labels) / self.mesh.data
+
+    def gradient_groups(self, name: str) -> list:
+        """The process groups the gradient of tensor ``name`` is summed
+        over, in order: W1's on the fold path is each rank's own product,
+        so the whole world (the row's group, then the column's); every other
+        one is the same on every rank of a row, so the model column's."""
+        groups = [self.mesh.group] if name == "mlp_0" and self._use_w1_fold else []
+        return [g for g in groups + [self.mesh.col_group] if g is not None]
+
+    def train_step(self, indices: torch.Tensor, dense: Optional[torch.Tensor],
+                   labels: torch.Tensor, lr: float) -> torch.Tensor:
+        """One SGD step on the global batch: every rank of a data row passes
+        the row's ids [B, num_tables], dense [B, dense_dim] (or None) and
+        labels [B] float32, on its device.  ``forward_train``, ``row_loss``
+        and ``torch.autograd.grad``, each gradient summed over its groups,
+        then SGD: this rank's shard and weights are updated in place.
+        Returns the global batch's loss (0-dim float32, computed before the
+        update), the same on every rank."""
+        tensors = self.trainable_tensors()
+        leaves = {k: v.detach().requires_grad_() for k, v in tensors.items()}
+        loss = self.row_loss(self.forward_train(indices, dense, leaves), labels)
+        grads = [g.contiguous() for g in torch.autograd.grad(loss, list(leaves.values()))]
+        for name, g in zip(tensors, grads):
+            for group in self.gradient_groups(name):
+                _all_reduce(g, group)
+        SGD(lr).update(list(tensors.values()), grads)
+        loss = loss.detach().reshape(1)
+        _all_reduce(loss, self.mesh.col_group)
+        return loss[0]

@@ -1,8 +1,8 @@
 """The port's copies of the jax-free modules (config, reference oracle,
 wire format) and of the data and native files (configs' JSON, the ingest
 tier's C++) against the JAX package's originals, and the port's import
-rule: nothing in fleetrec_tpu_torch/ or chip_smoke.py imports jax, optax
-or fleetrec_tpu, or names a path under fleetrec_tpu/."""
+rule: nothing in fleetrec_tpu_torch/, chip_smoke.py or chip_mesh.py imports
+jax, optax or fleetrec_tpu, or names a path under fleetrec_tpu/."""
 
 import ast
 import dataclasses
@@ -129,17 +129,19 @@ def test_wire_format_equal():
 
 def _port_files():
     files = sorted((REPO / "fleetrec_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "chip_mesh.py"]
 
 
 def test_port_imports_neither_jax_nor_fleetrec_tpu():
     """AST scan of every module of the port (the training module among
-    them) and chip_smoke.py: no jax, optax or fleetrec_tpu import."""
+    them), chip_smoke.py and chip_mesh.py: no jax, optax or fleetrec_tpu
+    import."""
     bad = []
     files = _port_files()
     assert len(files) > 15 and REPO / "fleetrec_tpu_torch/models/train.py" in files
     assert {REPO / f"fleetrec_tpu_torch/parallel/{m}.py"
             for m in ("__init__", "mesh", "multihost", "sharded")} <= set(files)
+    assert (REPO / "chip_mesh.py").is_file()
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -186,8 +188,8 @@ _CITATION = re.compile(r"fleetrec_tpu/[\w/]+\.py:\d+")
 
 
 def test_port_names_no_path_under_fleetrec_tpu():
-    """Scan of every string in the code of the port's modules and
-    chip_smoke.py (docstrings aside): none is the path component
+    """Scan of every string in the code of the port's modules,
+    chip_smoke.py and chip_mesh.py (docstrings aside): none is the path component
     ``fleetrec_tpu`` or a path under ``fleetrec_tpu/``."""
     bad = []
     for path in _port_files():

@@ -25,7 +25,7 @@ from fleetrec_tpu_torch.ops.lookup import (lookup_fused, lookup_fused_backward,
                                           lookup_fused_backward_plain, lookup_fused_bags,
                                           lookup_fused_bags_plain, lookup_fused_plain)
 from fleetrec_tpu_torch.ops.mlp_fused import fused_mlp, fused_mlp_plain
-from fleetrec_tpu_torch.parallel import shard_operands
+from fleetrec_tpu_torch.parallel import init_distributed, shard_operands
 from torch_variants import HEADS, LAYOUT_CASES, variant
 
 MODEL1 = (352, 1024, 512, 256, 1)
@@ -291,3 +291,76 @@ def test_lookup_backward_kernel_matches_plain_on_card(cuda, name):
                         else:
                             torch.testing.assert_close(a.float(), b.float(), rtol=2.0 ** -7,
                                                        atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [2, 4])
+@pytest.mark.parametrize("name", LAYOUT_CASES + ["criteo"])
+def test_window_backward_kernel_matches_plain_on_card(cuda, name, M):
+    """lookup_fused_backward in its row-window form (model shard m of M:
+    shard_operands' class slices, take window and descriptors; one launch a
+    call) against lookup_fused_backward_plain on the same operands, float32
+    and bfloat16: integer cotangents bit-equal, uniform ones within the
+    unwindowed test's tolerances; the shards' integer gradients, placed at
+    their tables and rows, are the unsharded kernel's bit for bit, the pad
+    tables and rows 0."""
+    rng = np.random.default_rng(14)
+    for table_dtype in ("bfloat16",) if name == "criteo" else ("float32", "bfloat16"):
+        cfg = dataclasses.replace(variant(name, TC), table_dtype=table_dtype)
+        model = init_model(cfg, device=cuda)
+        ops = model.lookup_operands()
+        B, F = 3000, model.layout.feature_dim
+        idx = torch.from_numpy(ids_with_bad(cfg, B, rng)).to(cuda)
+        dtype = ops["bufs"][0].dtype
+        cts = {kind: torch.from_numpy(
+            (rng.integers(-1, 2, (B, F)) if kind == "integer" else rng.uniform(-1, 1, (B, F)))
+            .astype(np.float32)).to(cuda, dtype) for kind in ("integer", "uniform")}
+        whole = lookup_fused_backward(cts["integer"], idx, ops["bufs"], ops["cols"], ops["pos"],
+                                      ops["stripes"], ops["stripe_height"])
+        placed = [[] for _ in whole]
+        for m in range(M):
+            s = shard_operands(model, m, M, cuda)
+            args = (s["bufs"], s["cols"], s["pos"], s["stripes"], s["stripe_height"])
+            for kind, ct in cts.items():
+                before = lookup_fused_backward.launches
+                got = lookup_fused_backward(ct, idx, *args, window=s["window"])
+                assert lookup_fused_backward.launches == before + 1
+                want = lookup_fused_backward_plain(ct, idx, *args, window=s["window"])
+                torch.cuda.synchronize()
+                what = (name, table_dtype, M, m, kind)
+                for i, (a, b) in enumerate(zip(got, want)):
+                    assert a.dtype == b.dtype and a.shape == b.shape, what
+                    if kind == "integer":
+                        assert torch.equal(bits(a), bits(b)), what
+                        placed[i].append(a)
+                    elif table_dtype == "float32":
+                        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+                    else:
+                        torch.testing.assert_close(a.float(), b.float(), rtol=2.0 ** -7, atol=1e-4)
+        for w, parts in zip(whole, placed):
+            cat = torch.cat(parts)
+            assert torch.equal(bits(cat[:w.shape[0]]), bits(w)), (name, table_dtype, M)
+            assert not cat[w.shape[0]:].any(), (name, table_dtype, M)
+
+
+@pytest.mark.cuda
+def test_init_distributed_binds_the_ranks_card(cuda, monkeypatch, tmp_path):
+    """init_distributed makes each rank's card (the rank modulo the cards)
+    the current CUDA device before it makes the process group (NCCL with one
+    rank a card; gloo with two ranks on a one-card host)."""
+    import torch.distributed as dist
+
+    n = torch.cuda.device_count()
+    world, backend = (n, "nccl") if n >= 2 else (2, "gloo")
+    seen = []
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda *a, **k: seen.append(torch.cuda.current_device()))
+    for var in ("LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    prev = torch.cuda.current_device()
+    try:
+        for rank in range(world):
+            init_distributed(f"file://{tmp_path}/rendezvous", world, rank, backend, device="cuda")
+    finally:
+        torch.cuda.set_device(prev)
+    assert seen == [rank % n for rank in range(world)]

@@ -1,6 +1,8 @@
 """Multi-process serving of the port over ``torch.distributed`` (gloo on the
-CPU), the twins of tests/test_multiprocess.py:69, :88, :192, :293 and of
-tests/test_compose.py:23, :32, :42, :63.
+CPU), the twins of tests/test_multiprocess.py:69, :88, :192, :293,
+tests/test_multisender.py:200 (``serve --mesh`` with three senders) and
+tests/test_compose.py:23, :32, :42, :63, and ``init_distributed``'s binding
+of the rank's card.
 
 Where the JAX package gives each process several devices of a global mesh,
 the port gives each rank one device, so a (data, model) mesh is data *
@@ -30,6 +32,7 @@ from fleetrec_tpu_torch.parallel import init_distributed
 from fleetrec_tpu_torch.parallel.multihost import check_backend
 from fleetrec_tpu_torch.serving import ServeSpec, build_engine
 from fleetrec_tpu_torch.serving.engine import EXIT_PEER_TIMEOUT, PeerWatchdog
+from fleetrec_tpu_torch.serving.wire import IndexWireFormat
 from torch_variants import CPU
 from torch_worlds import run_cases, spawn_world
 
@@ -43,28 +46,41 @@ def _env():
     return env
 
 
-def _free_ports(n):
-    socks = [socket.socket() for _ in range(n)]
-    try:
-        for s in socks:
+def _free_ports(n, span=1):
+    """``n`` port bases, each the first of ``span`` consecutive ports that
+    are free now (a leader with S senders binds base .. base + S - 1)."""
+    bases = []
+    while len(bases) < n:
+        with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
-        return [s.getsockname()[1] for s in socks]
-    finally:
-        for s in socks:
-            s.close()
+            base = s.getsockname()[1]
+        if base + span > 65536 or any(abs(base - b) < span for b in bases):
+            continue
+        socks = []
+        try:
+            for port in range(base, base + span):
+                socks.append(socket.socket())
+                socks[-1].bind(("127.0.0.1", port))
+            bases.append(base)
+        except OSError:
+            pass
+        finally:
+            for s in socks:
+                s.close()
+    return bases
 
 
-def _serve_world(tmp, D, M, B_loc, batches, extra):
+def _serve_world(tmp, D, M, B_loc, batches, extra, senders=1):
     """``cli serve --mesh D,M --procs D*M`` as D*M OS processes; returns
-    (processes, each leader's port by data row)."""
+    (processes, each leader's port base by data row)."""
     n = D * M
-    ports = _free_ports(D)
+    ports = _free_ports(D, senders)
     procs = [subprocess.Popen(
         [sys.executable, "-m", "fleetrec_tpu_torch.cli", "serve", "--device", "cpu",
          "--config", "micro_test", "--batch", str(B_loc), "--batches", str(batches),
          "--mesh", f"{D},{M}", "--procs", str(n), "--proc-id", str(r),
          "--coordinator", f"file://{tmp}/rendezvous", "--backend", "gloo",
-         "--port", str(ports[r // M]), "--slots", "8", *extra],
+         "--port", str(ports[r // M]), "--slots", "8", "--senders", str(senders), *extra],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=_env(), text=True)
         for r in range(n)]
     return procs, ports
@@ -85,15 +101,23 @@ def _wait_banners(procs, M, deadline):
 
 
 def _client(port, payloads, n_scores, out, key):
-    with socket.create_connection(("127.0.0.1", port), timeout=60) as sock:
-        for data in payloads:
-            sock.sendall(data)
+    """Send each batch's payloads, one a sender, to ports port, port + 1,
+    ...; read the replies on the first connection."""
+    socks = [socket.create_connection(("127.0.0.1", port + s), timeout=60)
+             for s in range(len(payloads[0]))]
+    try:
+        for batch in payloads:
+            for sock, data in zip(socks, batch):
+                sock.sendall(data)
         want, buf = n_scores * 4, b""
         while len(buf) < want:
-            chunk = sock.recv(want - len(buf))
+            chunk = socks[0].recv(want - len(buf))
             if not chunk:
                 break
             buf += chunk
+    finally:
+        for sock in socks:
+            sock.close()
     out[key] = np.frombuffer(buf, np.float32)
 
 
@@ -112,14 +136,19 @@ def _finish(procs, deadline):
     return outs
 
 
-def _serve_and_check(tmp, D, M, B_loc, NB, tables, mlp, dense_fn, compare, extra=()):
+def _serve_and_check(tmp, D, M, B_loc, NB, tables, mlp, dense_fn, compare, extra=(),
+                     senders=1):
     """Serve NB batches of D * B_loc rows on a (D, M) world; data row d's
-    leader gets rows [d * B_loc, (d + 1) * B_loc) of each; the replied
-    scores, joined, are held against the oracle by ``compare``."""
+    leader gets rows [d * B_loc, (d + 1) * B_loc) of each (from ``senders``
+    senders: the wire of serving/wire.IndexWireFormat); the replied scores,
+    joined, are held against the oracle by ``compare``."""
     cfg = JC.micro_test(batch_size=D * B_loc)
+    wire = (IndexWireFormat.plan(TC.micro_test(batch_size=B_loc), B_loc, senders)
+            if senders > 1 else None)
     deadline = time.monotonic() + 240
     procs, ports = _serve_world(tmp, D, M, B_loc, NB,
-                                ["--table-scheme", tables, "--mlp-scheme", mlp, "--reply", *extra])
+                                ["--table-scheme", tables, "--mlp-scheme", mlp, "--reply", *extra],
+                                senders)
     try:
         _wait_banners(procs, M, deadline)
         rng = np.random.default_rng(11)
@@ -128,9 +157,11 @@ def _serve_and_check(tmp, D, M, B_loc, NB, tables, mlp, dense_fn, compare, extra
         g_dense = [dense_fn(rng.uniform(-1, 1, (D * B_loc, cfg.dense_dim))).astype(np.float32)
                    for _ in range(NB)]
         scores = {}
+        rows = [slice(d * B_loc, (d + 1) * B_loc) for d in range(D)]
         threads = [threading.Thread(target=_client, daemon=True, args=(
-            ports[d], [g_idx[k][d * B_loc:(d + 1) * B_loc].tobytes()
-                       + g_dense[k][d * B_loc:(d + 1) * B_loc].tobytes() for k in range(NB)],
+            ports[d], [[g_idx[k][rows[d]].tobytes() + g_dense[k][rows[d]].tobytes()]
+                       if senders == 1 else wire.payloads(g_idx[k][rows[d]], g_dense[k][rows[d]])
+                       for k in range(NB)],
             NB * B_loc, scores, d)) for d in range(D)]
         for t in threads:
             t.start()
@@ -208,6 +239,54 @@ def test_four_row_fused_sharded_serving_e2e(tmp_path):
             assert summary["wire_batches"] == 8 and summary["fuse"] == 4
         else:
             assert summary["batches"] == 2  # fused calls
+
+
+def test_cli_serve_mesh_with_three_senders(tmp_path):
+    """Twin of tests/test_multisender.py:200: `cli serve --mesh 2,2 --procs
+    4 --senders 3`: each data row's leader binds three ports (the dense node
+    and two slices of the tables) and replies its rows' scores on the first;
+    pm1 tables, all-ones weights and dense of ones: bit-exact against the
+    oracle; every leader's summary counts each batch from three senders."""
+    def exact(got, want):
+        np.testing.assert_array_equal(got, want.astype(np.float32))
+
+    outs = _serve_and_check(tmp_path, 2, 2, 8, 4, "pm1", "ones", np.ones_like, exact,
+                            senders=3)
+    import json
+
+    for r, out in enumerate(outs):
+        summary = json.loads(out.strip().splitlines()[-1])
+        if r % 2 == 0:
+            assert summary["wire_batches"] == 4 and len(summary["per_sender"]) == 3
+        else:
+            assert summary == {"role": "follower", "rank": r, "batches": 4}
+
+
+def test_init_distributed_binds_the_ranks_card_before_the_group(monkeypatch):
+    """With a CUDA device, init_distributed makes the rank's card
+    (LOCAL_RANK, else the rank, modulo the cards) the current device before
+    it makes the process group, so NCCL's communicators sit on it; a CPU
+    device binds nothing (a host without cards, patched to show four)."""
+    import torch
+    import torch.distributed as dist
+
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: calls.append(torch.device(d)))
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: calls.append((backend, kw["rank"])))
+    for var in ("LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    init_distributed("localhost:29500", 4, 2, "nccl", device="cuda")
+    assert calls == [torch.device("cuda", 2), ("nccl", 2)]
+    calls.clear()
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    init_distributed("localhost:29500", 8, 5, "gloo", device="cuda")
+    assert calls == [torch.device("cuda", 1), ("gloo", 5)]
+    calls.clear()
+    init_distributed("localhost:29500", 2, 1, "gloo", device="cpu")
+    assert calls == [("gloo", 1)]
 
 
 def test_peer_stall_watchdog_aborts_instead_of_hanging(tmp_path):

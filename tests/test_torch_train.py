@@ -1,7 +1,7 @@
 """Twin of the JAX package's training path (``fleetrec_tpu/models/train.py``
 and the training tests of tests/test_sharding.py and
-tests/test_io_multihost.py; the sharded ``train_step`` waits for the port's
-multi-device module): the port's ``models/train.py``, ``forward_train`` and
+tests/test_io_multihost.py; the sharded ``train_step``'s are in
+tests/test_torch_sharded.py): the port's ``models/train.py``, ``forward_train`` and
 the lookup's backward against JAX on the same inputs, made from a numpy
 seed.  JAX runs on the CPU with optax, as its own tests run it; the port runs
 its plain PyTorch path (``lookup_fused_backward_plain``).
@@ -33,7 +33,7 @@ from fleetrec_tpu_torch import io as tio
 from fleetrec_tpu_torch.convert import params_from_jax
 from fleetrec_tpu_torch.models import init_model
 from fleetrec_tpu_torch.models.fleetrec import trainable_tensors
-from fleetrec_tpu_torch.models.train import Adagrad, Trainer, bce_with_logits, check_trainable
+from fleetrec_tpu_torch.models.train import SGD, Adagrad, Trainer, bce_with_logits, check_trainable
 from fleetrec_tpu_torch.ops import lookup as tlk
 from torch_variants import CPU, HEADS, LAYOUT_CASES, variant
 
@@ -211,6 +211,34 @@ def test_adagrad_matches_optax(dtype, steps):
         else:
             np.testing.assert_allclose(_np(a), _np(b), rtol=2e-2, atol=2e-2)
             np.testing.assert_allclose(_np(s), _np(js), rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sgd_matches_jax_update(dtype):
+    """SGD's step against the JAX package's train_step update ``p - lr * g``
+    under jit, with lr a Python float (weakly typed, so rounded to the
+    tensor's dtype), and no state: bit-equal in bfloat16 (XLA rounds each
+    bfloat16 op); float32 within rtol 1e-6 / atol 1e-7, since XLA contracts
+    the float32 update into one fused multiply-add on the CPU where SGD
+    rounds the product first."""
+    rng = np.random.default_rng(6)
+    shapes = [(7, 5), (33,), (4, 3, 2)]
+    params = [rng.uniform(-1, 1, s).astype(np.float32) for s in shapes]
+    grads = [rng.uniform(-2, 2, s).astype(np.float32) for s in shapes]
+    jd = jnp.dtype(dtype)
+    want = jax.jit(lambda ps, gs, lr: [p - lr * g for p, g in zip(ps, gs)])(
+        [jnp.asarray(p, jd) for p in params], [jnp.asarray(g, jd) for g in grads], 0.3)
+    td = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    tp = [torch.from_numpy(p).to(td) for p in params]
+    sgd = SGD(0.3)
+    assert sgd.init(tp) == []
+    sgd.update(tp, [torch.from_numpy(g).to(td) for g in grads])
+    for a, b in zip(tp, want):
+        assert a.dtype == td
+        if dtype == "bfloat16":
+            np.testing.assert_array_equal(_bits(a), _bits(b))
+        else:
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.parametrize("name", ["micro", "qr", *HEADS])

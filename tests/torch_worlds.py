@@ -13,7 +13,11 @@ test module) on one rank: build the case's model on the host, shard it on
 this rank's mesh, feed its data row's rows of the case's inputs (the parent
 writes them to an npz) through ``host_local_batch_to_global`` and run the
 sharded forward, recording every ``_pre`` (lookup), ``_exchange`` (shape,
-dtype) and ``_finish`` (post) call in order.
+dtype) and ``_finish`` (post) call in order.  A "train" case takes
+``steps`` sharded SGD steps (``ShardedFleetRec.train_step``) and returns
+the losses, this rank's updated shard and weights, and the sharded forward's
+scores after them; an "engine" case with ``fuse`` scores its batches K at a
+time through ``ServingEngine.from_sharded``.
 
 This module imports neither JAX nor the JAX package, so the ranks import
 only the port.
@@ -95,10 +99,13 @@ def _rank_main(rank, n, init, target, args, q):
         q.put((rank, False, traceback.format_exc()))
 
 
-def case_config(C, key):
+def case_config(C, key, dtype=None):
     """The config of a case from the config module ``C`` (either
     package's): a name of ``torch_variants.variant`` or one of the JAX
-    sharding tests' configs below."""
+    sharding tests' configs below; ``dtype``: the tables' and the
+    activations' dtype in place of the config's."""
+    if dtype is not None:
+        return dataclasses.replace(case_config(C, key), table_dtype=dtype, dtype=dtype)
     micro = C.micro_test(batch_size=32)
     extra = {
         "micro32": lambda: micro,
@@ -172,25 +179,31 @@ def _run_case(mesh, case, data):
         got = host_local_batch_to_global(mesh, mine if mesh.is_leader else np.zeros_like(mine))
         return {"received": got.numpy(), "want": mine,
                 "host_local": global_scores_to_host_local(mesh, got)}
-    cfg = case_config(TC, case["cfg"])
+    cfg = case_config(TC, case["cfg"], case.get("dtype"))
     model = init_model(cfg, table_scheme=case["tables"], mlp_scheme=case["mlp"], device="cpu")
     sh = ShardedFleetRec(model, mesh)
     del model
     out = {"fold": sh._use_w1_fold,
            "class_tables": [b.shape[0] for b in sh.operands["bufs"][:len(sh.layout.onehot_classes)]]}
-    axis = 1 if kind == "pipelined" else 0
+    K = case.get("fuse", 1)
+    axis = 1 if kind == "pipelined" or K > 1 else 0
     ids = rows_of(idx, mesh.d, mesh.data, axis)
     dns = None if dense is None else rows_of(dense, mesh.d, mesh.data, axis)
     if kind == "engine":
-        eng = ServingEngine.from_sharded(sh, batch_size=ids.shape[0], multiprocess=True)
+        eng = ServingEngine.from_sharded(sh, batch_size=ids.shape[-2], fuse=K,
+                                         multiprocess=True)
         if eng.is_follower:
             out["follow"] = eng.follow()
             return out
         got = {}
-        eng.submit(ids, dns, on_done=lambda bid, s: got.__setitem__(bid, s))
+        groups = [(ids, dns)] if K == 1 else [
+            (ids[g:g + K], None if dns is None else dns[g:g + K])
+            for g in range(0, ids.shape[0], K)]
+        for i, d in groups:
+            eng.submit(i, d, on_done=lambda bid, s: got.__setitem__(bid, s))
         out["summary"] = eng.drain()
         eng.close()
-        out["scores"] = got[0]
+        out["scores"] = got[0] if K == 1 else np.concatenate([got[g] for g in sorted(got)])
         return out
 
     def fan_out(arr):
@@ -200,6 +213,9 @@ def _run_case(mesh, case, data):
 
     i, d = fan_out(ids), fan_out(dns)
     log = instrument(sh)
+    if kind == "train":
+        return _train(sh, case, i, d, fan_out(rows_of(data[f"{name}/labels"], mesh.d, mesh.data)),
+                      out, log)
     with torch.inference_mode():
         if kind == "forward":
             s = sh.forward(i, d)
@@ -214,4 +230,23 @@ def _run_case(mesh, case, data):
             raise KeyError(kind)
     out["scores"] = s.numpy()
     out["log"] = log
+    return out
+
+
+def _train(sh, case, ids, dense, labels, out, log):
+    """``case["steps"]`` train_steps at ``case["lr"]``; an int8 model must
+    refuse the first (out["refused"]: its message)."""
+    import torch
+
+    try:
+        out["losses"] = [float(sh.train_step(ids, dense, labels, case["lr"]))
+                         for _ in range(case.get("steps", 1))]
+    except ValueError as e:
+        out["refused"] = str(e)
+        return out
+    out["log"] = list(log)
+    # float32 holds every bfloat16 value exactly
+    out["tensors"] = {k: v.float().numpy() for k, v in sh.trainable_tensors().items()}
+    with torch.inference_mode():
+        out["scores_after"] = sh.forward(ids, dense).numpy()
     return out

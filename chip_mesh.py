@@ -28,7 +28,24 @@ gloo):
    over the model columns;
 3. ``cli serve --mesh 2,2 --procs 4 --backend nccl`` on model1 at full
    rows from its checkpoint, each data row's leader fed 4 batches of 1024
-   rows over loopback: the replies bit-equal to the oracle.
+   rows over loopback: the replies bit-equal to the oracle;
+4. (data=1, model=4): criteo_terabyte at full cardinality (int8 tables,
+   1,655,169,127 rows; ``chip_smoke.criteo_mesh_rank``): each rank
+   generates only its window of the take buffer on its card
+   (``pack_pm1_sharded`` with the mesh) and builds its shard from it
+   (``ShardedFleetRec.from_packed``), its take bytes equal to
+   ``plan(cfg, 4).take_bytes_per_chip``; sharded forwards at B = 4096 and
+   1024 on every rank bit-equal to the pm1 oracle, NaN on the bad rows;
+   each window's rows overwritten with their index pattern and the
+   window's ``lookup_fused`` held to its plain version and to the pattern
+   on ids at the edges of every rank's window (zeros outside its own); the
+   forward's time by part with the exchange's bytes, time and rate; then
+   ``ici_bench`` at 64 MiB a rank over the row (all_gather, psum,
+   ppermute);
+5. (data=2, model=2): ``parallel/dryrun.py::dryrun_multichip`` on every
+   rank;
+6. ``cli plan --config criteo_terabyte --recommend 4`` for bfloat16 and
+   int8 tables (host only).
 
 Exits nonzero, printing no result, with fewer than four CUDA devices.
 Prints the cards' names and power limits (``nvidia-smi``), one line per
@@ -78,6 +95,50 @@ def train_results(res):
                       "max_abs_err": max(r[key]["max_abs_err"] for r in res),
                       "launches": res[0][key]["launches"], **res[0][key]["split"]}
             for key in res[0] if key.startswith("train_")}
+
+
+def criteo_step(tmp):
+    """Step 4: ``chip_smoke.criteo_mesh_rank`` on a (1, CARDS) NCCL world,
+    its checks and timings logged; returns its results."""
+    t5 = time.time()
+    res, _ = cs.run_world(CARDS, cs.criteo_mesh_rank, (1, CARDS, 15), tmp, "criteo_1x4",
+                          backend="nccl")
+    for r in res:
+        log(f"(4) rank {r['rank']} ({r['card']}): its take window of criteo full cardinality "
+            f"built on its card in {r['build_s']:.2f} s, {r['take_bytes']} B = plan(cfg, "
+            f"{CARDS}).take_bytes_per_chip; memory_allocated {r['allocated']} B; ru_maxrss "
+            f"{r['rss']} B (this process's peak at the spawn included); forwards at "
+            f"B={cs.CRITEO_BATCHES} bit-equal to the pm1 "
+            f"oracle, NaN on the bad rows; launches {r['launches']}; over its patterned "
+            f"window {r['window']} lookup_fused bit-equal to lookup_fused_plain and "
+            f"{r['targets']} edge targets to their rows' pattern ({r['targets_inside']} "
+            f"inside its window, zeros outside)")
+    if sum(r["targets_inside"] for r in res) != res[0]["targets"]:
+        raise AssertionError(f"the windows hold {[r['targets_inside'] for r in res]} of "
+                             f"{res[0]['targets']} targets, not each one once")
+    sp = res[0]["split"]
+    log(f"(4) a (data=1, model=4) world over NCCL on criteo_terabyte at full cardinality "
+        f"(int8), every rank from its own generated window ({time.time() - t5:.1f}s); rank 0 "
+        f"B={B_TIME}, median of {cs.SPLIT_ITERS} (each part closed by a synchronize): window "
+        f"lookup {sp['lookup']:.4f} ms, exchange {sp['exchange']:.4f} ms wall for "
+        f"{sp['exchange_bytes']} B {sp['exchange_shape']} "
+        f"({sp['exchange_bytes'] / sp['exchange'] / 1e6:.3f} GB/s), tower and poison "
+        f"{sp['tower']:.4f} ms; whole forward {sp['forward']:.4f} ms wall")
+    for r in res:
+        ici = r["ici"]
+        log(f"(4) ici_bench rank {r['rank']} ({r['card']}), {ici['per_device_mbytes']} MiB a "
+            f"rank over (1, {ici['model_axis']}): " + ", ".join(
+                f"{op} {ici[op]['ms']} ms {ici[op]['GB_s']} GB/s"
+                for op in ("all_gather", "psum", "ppermute")))
+    return {
+        "take_bytes_per_rank": [r["take_bytes"] for r in res],
+        "targets_inside": [r["targets_inside"] for r in res],
+        "build_s": [r["build_s"] for r in res], "rss": [r["rss"] for r in res],
+        "allocated": [r["allocated"] for r in res],
+        "exchange_ms": sp["exchange"], "exchange_bytes": sp["exchange_bytes"],
+        "exchange_gb_per_s": sp["exchange_bytes"] / sp["exchange"] / 1e6,
+        "lookup_ms": sp["lookup"], "tower_ms": sp["tower"], "forward_ms": sp["forward"],
+        "ici_bench": [r["ici"] for r in res]}
 
 
 def main() -> int:
@@ -165,6 +226,28 @@ def main() -> int:
             f"bit-equal to the oracle; summaries {[r['summary'] for r in served]}; launches of "
             f"the leaders' runs {served[0]['launches']} ({time.time() - t4:.1f}s)")
         results["serve_2x2_nccl"] = [r["summary"] for r in served]
+
+        results["criteo_full_1x4"] = criteo_step(tmp)
+
+        t6 = time.time()
+        res, _ = cs.run_world(CARDS, cs.dryrun_rank, (2, 2), tmp, "dryrun_2x2", backend="nccl")
+        if len({r["loss"] for r in res}) != 1:
+            raise AssertionError(f"the dry run's ranks disagree on the loss: {res}")
+        log(f"(5) dryrun_multichip on a (data=2, model=2) NCCL world: every rank passed "
+            f"({time.time() - t6:.1f}s); loss {res[0]['loss']}, score shapes "
+            f"{ {k: v for k, v in res[0].items() if k.startswith('scores')} }")
+        results["dryrun_2x2"] = res
+
+        plans = {}
+        for dtype in ("bfloat16", "int8"):
+            run = subprocess.run(
+                [sys.executable, "-m", "fleetrec_tpu_torch.cli", "plan", "--config",
+                 "criteo_terabyte", "--recommend", str(CARDS), "--dtype", dtype],
+                capture_output=True, text=True, timeout=120, check=True)
+            plans[dtype] = json.loads(run.stdout)
+            log(f"(6) cli plan --config criteo_terabyte --recommend {CARDS} --dtype {dtype}: "
+                f"{json.dumps(plans[dtype])}")
+        results["plan_recommend_4"] = plans
     finally:
         shutil.rmtree(tmp)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -178,9 +178,32 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
    4096, eager and replayed from a CUDA graph, with their kernel launches,
    the fused-MLP kernels' share of model1's device time and dlrm's device
    time split into the lookup, the bottom tower, the interaction's torch
-   ops, the top tower and the poison.
+   ops, the top tower and the poison;
+14. criteo_terabyte at full cardinality (``criteo_full_rank``): every
+   earlier model dropped and the allocator's cache emptied, then a process
+   of its own on the card (so the card holds nothing else and the peak
+   host memory read is this phase's): 26 tables of int8 pm1 rows
+   (1,655,169,127 rows, one of 1e9; 9 take tables in 16 stripes, 7
+   factored, 10 one-hot) generated on the card by ``pack_pm1_sharded``, the
+   build timed; the take buffer's bytes equal to ``plan(cfg,
+   1).take_bytes_total`` (52,962,791,424), the class bytes to its
+   ``onehot_bytes``, ``memory_allocated`` at most its ``per_chip_bytes``;
+   forwards at B = 4096 and 1024 (uniform ids over every table, bad ids on
+   rows 1-4) bit-equal to the pm1 oracle with NaN on exactly the rows with
+   a bad take id, 1 ``lookup_fused`` and 1 ``fused_mlp`` launch each;
+   4 batches of 1024 served over loopback bit-equal to the oracle; then
+   the take rows overwritten with a pattern that spells each row's buffer
+   index (``fill_row_pattern``: pm1 rows are alike, so they cannot show
+   which row was read) and ``lookup_fused`` held bit-equal to
+   ``lookup_fused_plain`` and to the pattern of the rows the layout's own
+   map names, on ids that reach the first and last rows of every (stripe,
+   table) segment, the last buffer row and the 1e9-row table's last id
+   past 4 GiB of offset (``edge_targets``); the peak host RSS at most
+   16 GiB; the lookup's time at random ids, every id 0 and take ids
+   inside a 1 GiB footprint, beside its bound and (random ids) its plain
+   version, and the forward's device time by part (lookup, tower, poison).
 
-In phases 6-12 the kernels' launch counters are zeroed just before each
+In phases 6-12 and 14 the kernels' launch counters are zeroed just before each
 path runs and read just after (in phase 12 inside each rank); each kernel of
 the path must have launched.
 A counter counts wrapper calls that launched a kernel: eager calls, and
@@ -216,9 +239,10 @@ from fleetrec_tpu_torch import cli
 from fleetrec_tpu_torch import config as C
 from fleetrec_tpu_torch import io as fio
 from fleetrec_tpu_torch import reference as ref
-from fleetrec_tpu_torch.models import init_model
+from fleetrec_tpu_torch.models import init_model, pack_pm1_sharded
+from fleetrec_tpu_torch.models.biginit import take_segments
 from fleetrec_tpu_torch.models.embedding import lookup_concat, tier_gathers
-from fleetrec_tpu_torch.models.fleetrec import trainable_tensors
+from fleetrec_tpu_torch.models.fleetrec import FleetRecModel, ModelPlan, trainable_tensors
 from fleetrec_tpu_torch.models.pooled import (plan_bags, pooled_bad_rows,
                                               pooled_lookup_concat)
 from fleetrec_tpu_torch.ops import _build
@@ -234,6 +258,7 @@ from fleetrec_tpu_torch.ops.lookup import (LOOKUP_COL_FIELDS, lookup_fused,
                                           lookup_out_dtype)
 from fleetrec_tpu_torch.ops.mlp_fused import (PRODUCT, TILES, fused_mlp,
                                              fused_mlp_plain, mlp_plan)
+from fleetrec_tpu_torch.parallel import planner
 from fleetrec_tpu_torch.serving import (IngestServer, Loadgen, ServeSpec,
                                         ServingEngine, serve)
 
@@ -1813,7 +1838,7 @@ def _world_main(rank, n, init, backend, target, args, log_path, q):
         q.put((rank, False, traceback.format_exc()))
 
 
-def run_world(n, target, args, tmp, tag, backend="gloo", on_started=None):
+def run_world(n, target, args, tmp, tag, backend="gloo", on_started=None, method="spawn"):
     """``target(rank, *args)`` on ``n`` ranks, spawned processes (on this
     card, or one card a rank), joined over ``backend`` through a file://
     rendezvous in ``tmp`` (None: no process group for one rank launched by
@@ -1821,11 +1846,13 @@ def run_world(n, target, args, tmp, tag, backend="gloo", on_started=None):
     ``on_started()`` runs in this process while the ranks work (a loopback
     client).  Raises on the first rank that fails, a rank that dies, or the
     deadline; kills every rank it started.  Returns the ranks' results in
-    rank order and what ``on_started`` returned."""
+    rank order and what ``on_started`` returned.  ``method``: the
+    multiprocessing start method ("forkserver": forked from the server
+    ``main`` starts first, which has touched no card)."""
     import multiprocessing as mp
     import queue as queue_mod
 
-    ctx = mp.get_context("spawn")
+    ctx = mp.get_context(method)
     q = ctx.Queue()
     init = f"file://{os.path.join(tmp, f'{tag}.rendezvous')}" if backend else None
     logs = [os.path.join(tmp, f"{tag}.rank{r}.log") for r in range(n)]
@@ -2431,6 +2458,435 @@ def log_forward_splits(r0, where, note):
             f"{OVERLAP_REPS} in turns)")
 
 
+# phase 14: criteo_terabyte at full cardinality, int8 tables, float32 tower
+CRITEO_BATCHES = (B_TIME, B_SERVE)
+# the peak resident host memory the build may take (a host build of the
+# 52.96 GB take buffer could not stay under it)
+CRITEO_RSS_LIMIT = 16 << 30
+# the timed lookup's third case: every take id inside a footprint this size
+CRITEO_WINDOW_BYTES = 1 << 30
+
+
+def peak_rss() -> int:
+    """This process's peak resident host memory in bytes,
+    ``resource.getrusage``'s ``ru_maxrss``.  Linux carries the forking
+    process's high-water mark into a child across its exec, so for a spawned
+    process it is at least its parent's peak at the spawn; phase 14's
+    process is forked from the forkserver ``main`` starts before any phase,
+    so its value is its own (or the small server's)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def criteo_full_config(B):
+    """criteo_terabyte at its real cardinalities (26 tables, 1,655,169,127
+    rows, one of 1e9) with int8 tables and the float32 tower: 9 take tables
+    in 16 stripes, 7 factored and 10 one-hot."""
+    return C.criteo_terabyte(batch_size=B, dtype="float32", table_dtype="int8")
+
+
+def take_columns(cfg):
+    """The config-order columns of the take tables."""
+    cut = max(cfg.onehot_max, cfg.onehot_factor_max)
+    return [j for j, t in enumerate(cfg.tables) if t.rows > cut]
+
+
+def bad_rows_np(cfg, idx):
+    """[B] bool: rows with a take id outside its table's [0, rows)."""
+    cols = take_columns(cfg)
+    rows = np.asarray([cfg.tables[j].rows for j in cols])
+    return ((idx[:, cols] < 0) | (idx[:, cols] >= rows)).any(1)
+
+
+def window_ids(cfg, B, rng, nbytes=CRITEO_WINDOW_BYTES):
+    """Ids [B, T] whose take rows all lie in a footprint of at most
+    ``nbytes`` of the take buffer: each take table's ids drawn from its first
+    n logical rows (n * dim bytes of int8 rows, spread over its stripes),
+    n the same for every take table (or the table's rows); class ids
+    uniform."""
+    ids = _rand_ids(cfg, B, rng)
+    cols = take_columns(cfg)
+    n = nbytes // (len(cols) * cfg.tables[cols[0]].dim)
+    for j in cols:
+        ids[:, j] = rng.integers(0, min(n, cfg.tables[j].rows), B)
+    return ids
+
+
+def row_pattern(P: torch.Tensor, lanes: int) -> torch.Tensor:
+    """int8 [n, lanes]: the checking pattern of take buffer rows ``P``
+    (int64 [n]): lane l holds byte l % 4 of P xor ((l // 4) * 37) & 0xFF,
+    so every 4 lanes of a row spell its index and each 4-lane group of it
+    differs from the others: a read of another row (below 2^32 rows) or of
+    another sub-row's lanes gives other bytes."""
+    lane = torch.arange(lanes, device=P.device)
+    shifts = torch.arange(0, 32, 8, device=P.device)
+    by = ((P[:, None] >> shifts) & 0xFF).to(torch.uint8)  # [n, 4]
+    mask = ((lane >> 2) * 37 & 0xFF).to(torch.uint8)
+    return (by.index_select(1, lane % 4) ^ mask).view(torch.int8)
+
+
+def fill_row_pattern(buf: torch.Tensor, lo: int, chunk_rows: int = 1 << 22) -> None:
+    """Overwrite int8 take rows ``buf`` (buffer rows ``[lo, lo +
+    len(buf))``, a whole buffer or a shard's window) with ``row_pattern``,
+    ``chunk_rows`` rows a step."""
+    for c0 in range(0, buf.shape[0], chunk_rows):
+        c1 = min(c0 + chunk_rows, buf.shape[0])
+        P = torch.arange(lo + c0, lo + c1, device=buf.device)
+        buf[c0:c1].copy_(row_pattern(P, buf.shape[1]))
+
+
+def edge_targets(cfg, lay, windows):
+    """[(config column, id, buffer row, sub-row)]: for every (stripe,
+    table) segment of ``take_segments`` and every window [lo, hi) of
+    buffer rows, the first and last rows of the segment inside the window
+    that hold a physical row of the table, each read at its first and its
+    last live sub-row.  Inverts the packing map on its own: segment row P
+    -> physical row pr = (P - start) * S + k -> logical id pr * s + j.  The
+    windows cover the buffer, so the last row of every table (its last id)
+    is among them."""
+    S = lay.take_stripes
+    col_of = {t.table_id: j for j, t in enumerate(cfg.tables)}
+    rows_of = {t.table_id: t.rows for t in cfg.tables}
+    s_of = {tid: g.rows_per_phys for g in lay.take_groups for tid in g.table_ids}
+    out = set()
+    for tid, start, span, k in take_segments(lay, cfg):
+        s, rows = s_of[tid], rows_of[tid]
+        pr_t = -(-rows // s)
+        if k >= pr_t:
+            continue
+        live_end = start + (pr_t - 1 - k) // S + 1  # past the segment's last live row
+        for lo, hi in windows:
+            a, b = max(start, lo), min(start + span, live_end, hi)
+            for P in ({a, b - 1} if a < b else ()):
+                pr = (P - start) * S + k
+                for j in {0, min(s, rows - pr * s) - 1}:
+                    out.add((col_of[tid], pr * s + j, P, j))
+    return sorted(out)
+
+
+def pattern_ids(cfg, targets, B, rng):
+    """Ids [B, T]: uniform over every table, with target i's id in row i
+    (its column)."""
+    if len(targets) > B:
+        raise ValueError(f"{len(targets)} targets for a batch of {B}")
+    ids = _rand_ids(cfg, B, rng)
+    for i, (j, r, _P, _sub) in enumerate(targets):
+        ids[i, j] = r
+    return ids
+
+
+def check_addressing(cfg, lay, ops, ids, dense, targets, window=(0, None)):
+    """``lookup_fused`` over take rows that hold ``row_pattern`` (the whole
+    buffer, or the window of rows ``[window[0], window[0] + window[1])``)
+    against ``lookup_fused_plain`` on the same operands, bit for bit, and
+    each target's feature block against the pattern of its buffer row
+    (zero outside the window), read at its sub-row's lanes and scaled by
+    its table's int8 scale.  Raises on a mismatch; returns the number of
+    targets inside the window and the features' max abs error against the
+    plain version (0)."""
+    dev = ids.device
+    with torch.inference_mode():
+        got, bad = lookup_fused(ids, dense, **ops)
+        want, want_bad = lookup_fused_plain(ids, dense, **ops)
+    if not (torch.equal(bits(got), bits(want)) and torch.equal(bad, want_bad)):
+        raise AssertionError(f"lookup_fused differs from lookup_fused_plain over the patterned "
+                             f"take rows ({int((bits(got) != bits(want)).sum())} elements)")
+    err = (got - want).abs().max().item()
+    lo, n = window
+    scale = ops["scales"][-1].cpu()
+    take_of = {tid: i for i, tid in enumerate(t for g in lay.take_groups for t in g.table_ids)}
+    got = got.cpu()
+    inside = 0
+    for i, (j, r, P, sub) in enumerate(targets):
+        t = cfg.tables[j]
+        pat = row_pattern(torch.tensor([P]), lay.take_lanes)[0, sub * t.dim:(sub + 1) * t.dim]
+        live = P >= lo and (n is None or P < lo + n)
+        inside += live
+        want = pat.float() * scale[take_of[t.table_id]] if live else torch.zeros(t.dim)
+        if not torch.equal(got[i, t.out_offset:t.out_offset + t.dim], want):
+            raise AssertionError(f"target {i}: table {j} id {r} (buffer row {P}, sub-row {sub}) "
+                                 f"read {got[i, t.out_offset:t.out_offset + 4].tolist()}..., "
+                                 f"the pattern of its row is {want[:4].tolist()}...")
+    return inside, err
+
+
+def criteo_full_rank(rank, seed, device="cuda:0"):
+    """Phase 14 in a process of its own on ``device`` (``run_world`` with
+    no process group), so that the card holds nothing of the earlier phases
+    and the peak host memory read is this build's: criteo_terabyte at full
+    cardinality (``criteo_full_config``) generated on the card by
+    ``pack_pm1_sharded`` (pm1 tables), all-ones weights.  Raises on a
+    failed check; returns the results and the log lines."""
+    dev = torch.device(device)
+    lines, out = [], {}
+
+    def note(msg):
+        lines.append(msg)
+        print(msg, flush=True)
+
+    cfg = criteo_full_config(B_TIME)
+    plan = ModelPlan.create(cfg)
+    lay = plan.layout
+    pl = planner.plan(cfg, 1, batch_size=B_TIME)
+    free, total = torch.cuda.mem_get_info(dev)
+    out["allocated_before"] = torch.cuda.memory_allocated(dev)
+    note(f"before the build: memory_allocated {out['allocated_before']} B; the card has {free} "
+         f"of {total} B free; the plan: take {pl.take_bytes_total} B, classes "
+         f"{pl.onehot_bytes} B, per card {pl.per_chip_bytes} B of {pl.hbm_budget_bytes}")
+    out["rss_before_build"] = peak_rss()  # the CUDA context made, no table yet
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    packed = pack_pm1_sharded(cfg, lay, device=dev)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    model = FleetRecModel(plan, packed, init_mlp_params(cfg.mlp, "ones", device=dev))
+    del packed
+    out["allocated"] = torch.cuda.memory_allocated(dev)
+    out["take_bytes"] = model.take.nbytes
+    out["class_bytes"] = sum(b.nbytes for b in model.packed.onehot_buffers)
+    out["rss_after_build"] = peak_rss()
+    if out["take_bytes"] != pl.take_bytes_total:
+        raise AssertionError(f"take buffer {out['take_bytes']} B, the planner says "
+                             f"{pl.take_bytes_total}")
+    if out["class_bytes"] != pl.onehot_bytes:
+        raise AssertionError(f"class buffers {out['class_bytes']} B, the planner says "
+                             f"{pl.onehot_bytes}")
+    if out["allocated"] > pl.per_chip_bytes:
+        raise AssertionError(f"memory_allocated {out['allocated']} B after the build, over the "
+                             f"planner's {pl.per_chip_bytes}")
+    n_class = [c.num_tables for c in lay.onehot_classes]
+    note(f"built in {out['build_s']:.2f} s on the card: take buffer {tuple(model.take.shape)} "
+         f"int8 = {out['take_bytes']} B = plan(cfg, 1).take_bytes_total; {len(n_class)} class "
+         f"buffers ({sum(c.r2 > 0 for c in lay.onehot_classes)} factored; "
+         f"{sum(n_class)} tables) = {out['class_bytes']} B = onehot_bytes; "
+         f"{lay.n_take} take tables in {lay.take_stripes} stripes; memory_allocated "
+         f"{out['allocated']} B <= per_chip_bytes {pl.per_chip_bytes}; peak host RSS "
+         f"{out['rss_before_build']} B before the build (the CUDA context made), "
+         f"{out['rss_after_build']} B after it")
+
+    rng = np.random.default_rng(seed)
+    batches = []
+    for B in CRITEO_BATCHES:
+        idx = ids_with_bad(cfg, B, rng)
+        dense = rng.choice([-1.0, 1.0], (B, cfg.dense_dim)).astype(np.float32)
+        batches.append((idx, dense))
+    for k in KERNELS:
+        k.launches = 0
+    with torch.inference_mode():
+        scores = [model(torch.from_numpy(i).to(dev), torch.from_numpy(d).to(dev)).cpu().numpy()
+                  for i, d in batches]
+    out["launches"] = {k.__name__: k.launches for k in KERNELS}
+    if out["launches"] != _launches(len(batches), len(batches)):
+        raise AssertionError(f"launches of {len(batches)} forwards: {out['launches']}")
+    for (idx, dense), got in zip(batches, scores):
+        nan = bad_rows_np(cfg, idx)
+        golden = pm1_scores(cfg, idx, dense).astype(np.float32)
+        if not nan.any() or not np.array_equal(np.isnan(got), nan):
+            raise AssertionError(f"B={len(idx)}: NaN rows {np.flatnonzero(np.isnan(got))}, want "
+                                 f"{np.flatnonzero(nan)}")
+        if not np.array_equal(got[~nan], golden[~nan]):
+            raise AssertionError(f"B={len(idx)}: scores differ from the pm1 oracle (max abs err "
+                                 f"{np.abs(got[~nan] - golden[~nan]).max()})")
+    note(f"forwards at B={CRITEO_BATCHES} (uniform ids over every table, the 1e9-row one "
+         f"included, bad take ids on rows {np.flatnonzero(bad_rows_np(cfg, batches[0][0]))}): "
+         f"scores bit-equal to the pm1 oracle with TF32 off, NaN on exactly the bad rows; "
+         f"launches {out['launches']}")
+
+    cfg_s = criteo_full_config(B_SERVE)
+    served = [(_rand_ids(cfg_s, B_SERVE, rng),
+               rng.choice([-1.0, 1.0], (B_SERVE, cfg_s.dense_dim)).astype(np.float32))
+              for _ in range(N_SERVE)]
+    replies, out["serve_launches"], summary = serve_loopback(cfg_s, model, served)
+    for k, (idx, dense) in enumerate(served):
+        if not np.array_equal(replies[k], pm1_scores(cfg_s, idx, dense).astype(np.float32)):
+            raise AssertionError(f"served batch {k} differs from the pm1 oracle")
+    if out["serve_launches"] != _launches(N_SERVE, N_SERVE):
+        raise AssertionError(f"launches of the served run: {out['serve_launches']}")
+    note(f"ServingEngine.from_model served {N_SERVE} batches x {B_SERVE} over loopback, replies "
+         f"bit-equal to the pm1 oracle; launches {out['serve_launches']}; latency_ms_p50 "
+         f"{summary.get('latency_ms_p50')} (host clock)")
+
+    # pm1 rows are alike (row r holds r's parity), so the lookup's
+    # addressing is held on rows that spell their own index
+    t0 = time.perf_counter()
+    fill_row_pattern(model.take, 0)
+    torch.cuda.synchronize()
+    targets = edge_targets(cfg, lay, [(0, lay.take_phys_total)])
+    idx_t = torch.from_numpy(pattern_ids(cfg, targets, B_TIME, rng)).to(dev)
+    dense_t = torch.from_numpy(batches[0][1]).to(dev)
+    ops = model.lookup_operands()
+    _inside, out["max_abs_err"] = check_addressing(cfg, lay, ops, idx_t, dense_t, targets)
+    last = max(P for _j, _r, P, _s in targets)
+    past = sum(P * lay.take_lanes >= 1 << 32 for _j, _r, P, _s in targets)
+    big = max(range(cfg.num_tables), key=lambda j: cfg.tables[j].rows)
+    if last < (lay.take_stripes - 1) * lay.stripe_height or not past:
+        raise AssertionError(f"the targets stop at buffer row {last}, short of the last stripe")
+    if not any(j == big and r == cfg.tables[big].rows - 1 for j, r, _P, _s in targets):
+        raise AssertionError("no target reads the 1e9-row table's last id")
+    note(f"take rows overwritten with their index pattern in "
+         f"{time.perf_counter() - t0:.2f} s; lookup_fused bit-equal to lookup_fused_plain at "
+         f"B={B_TIME} (features and flags) and every one of {len(targets)} targets (the first "
+         f"and last rows of each of the {len(take_segments(lay, cfg))} (stripe, table) "
+         f"segments, at the first and last sub-row) equal to its row's pattern; targets reach "
+         f"buffer row {last} of {lay.take_phys_total} (byte offset {last * lay.take_lanes}), "
+         f"{past} of them past 4 GiB, table {big}'s last id {cfg.tables[big].rows - 1} among "
+         f"them; peak allocated {torch.cuda.max_memory_allocated(dev)} B")
+
+    # CUDA-event timings first: the profiler, once attached, slows every launch
+    cases = {"random": _rand_ids(cfg, B_TIME, rng),
+             "ids0": np.zeros((B_TIME, cfg.num_tables), np.int32),
+             "window_1gib": window_ids(cfg, B_TIME, rng)}
+    out["lookup"] = {}
+    with torch.inference_mode():
+        for name, ids in cases.items():
+            ids_c = torch.from_numpy(ids).to(dev)
+            kernel = functools.partial(lookup_fused, ids_c, dense_t, **ops)
+            nbytes = lookup_bytes(ops, ids_c, dense_t)
+            b_ms, b_by = bound(nbytes)
+            r = {"bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by}
+            if name == "random":
+                r["ms"], r["plain_ms"] = _pair_graph(
+                    kernel, functools.partial(lookup_fused_plain, ids_c, dense_t, **ops))
+            else:
+                r["ms"] = _graph_ms(kernel)
+            out["lookup"][name] = r
+            note(f"time lookup_fused criteo full cardinality B={B_TIME} {name}: "
+                 f"{r['ms']:.4f} ms" + (f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r
+                                        else "")
+                 + f"; bound {b_ms:.4f} ms ({b_by}: {nbytes} B counted once), at "
+                   f"{b_ms / r['ms']:.3f} (CUDA events over graph replays of 20 calls)")
+        out["forward"] = {}
+        for B in CRITEO_BATCHES:
+            ids_b = torch.from_numpy(_rand_ids(cfg, B, rng)).to(dev)
+            dense_b = dense_t[:B]
+            fwd = functools.partial(model, ids_b, dense_b)
+            r = {"graph_ms": _graph_ms(fwd), "eager_ms": _ms(fwd)}
+            split = _tower_split(fwd)
+            if split is not None:
+                r["split"], r["profiled_forwards"] = split
+            out["forward"][B] = r
+            parts = ("not measured" if split is None else ", ".join(
+                f"{p} {ms:.4f} ms ({k} launches)" for p, (ms, k) in split[0].items()))
+            note(f"time criteo full forward B={B}: graph replay {r['graph_ms']:.4f} ms, eager "
+                 f"{r['eager_ms']:.4f} ms; device time by part (profiler): {parts}")
+    out["rss"] = peak_rss()
+    if out["rss"] > CRITEO_RSS_LIMIT:
+        raise AssertionError(f"peak host RSS {out['rss']} B, over {CRITEO_RSS_LIMIT}")
+    note(f"peak host RSS of the phase's process {out['rss']} B <= {CRITEO_RSS_LIMIT} "
+         f"(getrusage; the process forked from the forkserver started before phase 1)")
+    out["lines"] = lines
+    return out
+
+
+def criteo_mesh_rank(rank, D, M, seed, mbytes=64):
+    """A rank of ``chip_mesh.py``'s criteo world, a one-row (1, M) mesh:
+    its take window of full-cardinality criteo (``criteo_full_config``)
+    generated on its card (``pack_pm1_sharded`` with the mesh), its shard
+    from it (``ShardedFleetRec.from_packed``: no whole model anywhere), the
+    take bytes held to ``plan(cfg, M).take_bytes_per_chip``; sharded
+    forwards at B = 4096 and 1024 bit-equal to the pm1 oracle with NaN on
+    the bad rows, one ``lookup_fused`` and one ``fused_mlp`` launch each;
+    then the window's rows overwritten with ``row_pattern`` and
+    ``lookup_fused`` over it held to ``lookup_fused_plain`` and to the
+    pattern on ids at the edges of every rank's window
+    (``check_addressing``); the forward's time by part with the exchange's
+    bytes; then ``ici_bench``
+    at ``mbytes`` MiB over the row.  Raises on a failed check."""
+    from fleetrec_tpu_torch.benchmarks import ici_bench
+    from fleetrec_tpu_torch.parallel import ShardedFleetRec, global_mesh
+
+    if D != 1:
+        raise ValueError("the criteo world is one data row")
+    mesh = global_mesh(D, M, device="cuda")
+    dev = mesh.device
+    cfg = criteo_full_config(B_TIME)
+    plan = ModelPlan.create(cfg)
+    pl = planner.plan(cfg, M, batch_size=B_TIME)
+    out = {"card": torch.cuda.get_device_name(dev), "rank": rank}
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    packed = pack_pm1_sharded(cfg, plan.layout, mesh)
+    torch.cuda.synchronize(dev)
+    out["build_s"] = time.perf_counter() - t0
+    sh = ShardedFleetRec.from_packed(plan, packed, mesh,
+                                     init_mlp_params(cfg.mlp, "ones", device=dev))
+    del packed
+    out["take_bytes"] = sh.operands["bufs"][-1].nbytes
+    out["allocated"] = torch.cuda.memory_allocated(dev)
+    out["rss"] = peak_rss()
+    if out["take_bytes"] != pl.take_bytes_per_chip:
+        raise AssertionError(f"rank {rank}: take window {out['take_bytes']} B, the planner "
+                             f"says {pl.take_bytes_per_chip}")
+    if out["allocated"] > pl.per_chip_bytes:
+        raise AssertionError(f"rank {rank}: memory_allocated {out['allocated']} B over the "
+                             f"planner's {pl.per_chip_bytes}")
+    rng = np.random.default_rng(seed)  # the same ids on every rank of the row
+    batches = [(ids_with_bad(cfg, B, rng),
+                rng.choice([-1.0, 1.0], (B, cfg.dense_dim)).astype(np.float32))
+               for B in CRITEO_BATCHES]
+    for k in KERNELS:
+        k.launches = 0
+    with torch.inference_mode():
+        scores = [sh.forward(torch.from_numpy(i).to(dev), torch.from_numpy(d).to(dev))
+                  .cpu().numpy() for i, d in batches]
+    out["launches"] = {k.__name__: k.launches for k in KERNELS}
+    if out["launches"] != _launches(len(batches), len(batches)):
+        raise AssertionError(f"rank {rank}: launches {out['launches']}")
+    for (idx, dense), got in zip(batches, scores):
+        nan = bad_rows_np(cfg, idx)
+        golden = pm1_scores(cfg, idx, dense).astype(np.float32)
+        if not nan.any() or not np.array_equal(np.isnan(got), nan):
+            raise AssertionError(f"rank {rank} B={len(idx)}: NaN rows "
+                                 f"{np.flatnonzero(np.isnan(got))}, want {np.flatnonzero(nan)}")
+        if not np.array_equal(got[~nan], golden[~nan]):
+            raise AssertionError(f"rank {rank} B={len(idx)}: scores differ from the pm1 oracle")
+    # the window's addressing, on rows that spell their own index: every
+    # rank targets the edges of all M windows, and reads zeros outside its own
+    lo, n = sh.operands["window"]
+    fill_row_pattern(sh.operands["bufs"][-1], lo)
+    rows_local = -(-plan.layout.take_phys_total // M)
+    targets = edge_targets(cfg, plan.layout, [(w * rows_local, min((w + 1) * rows_local,
+                                                                   plan.layout.take_phys_total))
+                                              for w in range(M)])
+    ids = torch.from_numpy(pattern_ids(cfg, targets, B_TIME, rng)).to(dev)
+    dense = torch.from_numpy(batches[0][1]).to(dev)
+    out["targets"] = len(targets)
+    out["targets_inside"], _err = check_addressing(cfg, plan.layout, sh.operands, ids,
+                                                   sh._lookup_dense(dense), targets, (lo, n))
+    out["window"] = (lo, n)
+    ids = torch.from_numpy(_rand_ids(cfg, B_TIME, rng)).to(dev)
+    with torch.inference_mode():
+        out["split"] = _split_forward(sh, ids, dense)
+    del sh
+    torch.cuda.empty_cache()
+    out["ici"] = ici_bench(mesh, mbytes=mbytes)
+    return out
+
+
+def dryrun_rank(rank, D, M):
+    """A rank of ``chip_mesh.py``'s dry-run world: ``parallel/dryrun.py``'s
+    ``dryrun_multichip`` on this rank's card; its loss and score shapes."""
+    from fleetrec_tpu_torch.parallel import dryrun_multichip, global_mesh
+
+    res = dryrun_multichip(global_mesh(D, M, device="cuda"))
+    return {"loss": res["loss"], "mesh": res["mesh"],
+            **{k: list(v.shape) for k, v in res.items() if k.startswith("scores")}}
+
+
+def phase_criteo_full(tmp):
+    """Phase 14 (``criteo_full_rank``) in a spawned process of its own;
+    its log lines are printed here.  Returns its results."""
+    t0 = time.time()
+    (res,), _ = run_world(1, criteo_full_rank, (14,), tmp, "criteo_full", backend=None,
+                          method="forkserver")
+    for line in res.pop("lines"):
+        log(f"phase 14 {line}")
+    log(f"phase 14 criteo_terabyte at full cardinality (int8 tables, 1,655,169,127 rows) on one "
+        f"card, built there with no table on the host: passed ({time.time() - t0:.1f}s)")
+    return res
+
+
 def _ms(fn, iters: int = 20) -> float:
     """Mean ms per call over ``iters`` back-to-back calls, from CUDA events
     (includes any gap the host leaves between launches)."""
@@ -2515,18 +2971,12 @@ def _profile(fn, iters: int = 20):
     return (busy if rows else None), wall, rows, sum(e.count for e in events) / iters
 
 
-def _forward_split(fn, iters: int = 20):
-    """Device ms and kernel launches per call of a DLRM forward by part,
-    from the profiler's device events in launch order: ``lookup_fused``;
-    the bottom tower (the fused-MLP kernels before the first other kernel
-    that follows them); the top tower (the fused-MLP kernels after it); the
-    poison (what runs after the top tower); the interaction's torch ops
-    (everything else: pads, cats, casts, the Gram ``bmm``, the triangle
-    gather).  Averaged over the forwards whose events all arrived (the
-    profiler can drop a few): those with the most common count of events,
-    each starting at its ``lookup_fused``.  Returns ({part: (ms, launches)},
-    forwards averaged), or None when the profiler reports no device
-    event."""
+def _profiled_forwards(fn, iters: int = 20):
+    """The profiler's device events of ``iters`` calls of a forward, in
+    launch order, one list a forward (each starting at its
+    ``lookup_fused``), kept only for the forwards whose events all arrived
+    (the profiler can drop a few): those with the most common count.  None
+    when the profiler reports no device event."""
     from collections import Counter
 
     from torch.autograd import DeviceType
@@ -2549,25 +2999,66 @@ def _forward_split(fn, iters: int = 20):
     if not forwards:
         return None
     n = Counter(len(f) for f in forwards).most_common(1)[0][0]
-    whole = [f for f in forwards if len(f) == n]
-    parts = {p: [0.0, 0] for p in ("lookup_fused", "bottom tower", "interaction ops",
-                                   "top tower", "poison")}
+    return [f for f in forwards if len(f) == n]
+
+
+def _split_parts(whole, names, part_of):
+    """({part: (device ms, launches) per forward}, forwards averaged) of the
+    forwards ``whole``, each event put in a part by ``part_of(event,
+    state)`` -> (part, state), ``state`` starting at "start" each forward."""
+    parts = {p: [0.0, 0] for p in names}
     for f in whole:
         state = "start"
         for e in f:
-            if "lookup_fused" in e.name:
-                part = "lookup_fused"
-            elif any(k in e.name for k in MLP_KERNELS):
-                part = "bottom tower" if state in ("start", "bottom") else "top tower"
-                state = "bottom" if part == "bottom tower" else "top"
-            elif state == "top":
-                part = "poison"
-            else:
-                part = "interaction ops"
-                state = "interaction" if state == "bottom" else state
+            part, state = part_of(e, state)
             parts[part][0] += e.time_range.elapsed_us() / 1e3 / len(whole)
             parts[part][1] += 1
     return {p: (ms, k // len(whole)) for p, (ms, k) in parts.items()}, len(whole)
+
+
+def _forward_split(fn, iters: int = 20):
+    """Device ms and kernel launches per call of a DLRM forward by part,
+    from the profiler's device events in launch order (``_profiled_forwards``):
+    ``lookup_fused``; the bottom tower (the fused-MLP kernels before the
+    first other kernel that follows them); the top tower (the fused-MLP
+    kernels after it); the poison (what runs after the top tower); the
+    interaction's torch ops (everything else: pads, cats, casts, the Gram
+    ``bmm``, the triangle gather).  Returns ({part: (ms, launches)},
+    forwards averaged), or None when the profiler reports no device
+    event."""
+    whole = _profiled_forwards(fn, iters)
+    if whole is None:
+        return None
+
+    def part_of(e, state):
+        if "lookup_fused" in e.name:
+            return "lookup_fused", state
+        if any(k in e.name for k in MLP_KERNELS):
+            part = "bottom tower" if state in ("start", "bottom") else "top tower"
+            return part, "bottom" if part == "bottom tower" else "top"
+        if state == "top":
+            return "poison", state
+        return "interaction ops", "interaction" if state == "bottom" else state
+
+    return _split_parts(whole, ("lookup_fused", "bottom tower", "interaction ops", "top tower",
+                                "poison"), part_of)
+
+
+def _tower_split(fn, iters: int = 20):
+    """The same for a forward with the plain tower: ``lookup_fused``, the
+    tower (the fused-MLP kernels), the poison and the rest (casts)."""
+    whole = _profiled_forwards(fn, iters)
+    if whole is None:
+        return None
+
+    def part_of(e, state):
+        if "lookup_fused" in e.name:
+            return "lookup_fused", state
+        if any(k in e.name for k in MLP_KERNELS):
+            return "tower", state
+        return "poison and the rest", state
+
+    return _split_parts(whole, ("lookup_fused", "tower", "poison and the rest"), part_of)
 
 
 def _fmt(ms):
@@ -3103,6 +3594,11 @@ def main() -> int:
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
     dev = torch.device("cuda:0")
+    # phase 14's process is forked from this server, started while this
+    # process is small: it inherits the server's peak host memory, not ours
+    import multiprocessing.forkserver
+
+    multiprocessing.forkserver.ensure_running()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     t0 = t_start = time.perf_counter()
@@ -3136,6 +3632,21 @@ def main() -> int:
     del timed_wb
     stats = phase_report(cfg, model, dev, gb, lookups, windows)
     profile_training(runs, trained)
+    # phase 14 needs the card to itself: 52.96 GB of tables
+    del model, model_u, tabs, ws, lookups, runs, windows, gb
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 14: this process holds {torch.cuda.memory_allocated(dev)} B allocated, "
+        f"{torch.cuda.memory_reserved(dev)} B reserved on the card after dropping every model; "
+        f"its peak host RSS so far {peak_rss()} B")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_criteo_")
+    try:
+        crit = phase_criteo_full(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    crit_lk = crit["lookup"]
     tiers, gb_a = stats["gather_rows all tiers"], stats["gather_rows gatherbench shape"]
     mlp, mlp_bf = stats[f"fused_mlp fp32 model1 B={B_TIME}"], stats[f"fused_mlp bf16 model1 B={B_TIME}"]
     lk = stats[f"lookup_fused fleetrec_model1 B={B_TIME}"]
@@ -3155,6 +3666,8 @@ def main() -> int:
          # dlrm_terabyte: two calls a forward (bottom and top tower, with ReLU;
          # multi_dot runs the chain without it), launches of its served run
          "launches_dlrm_serve": dlrm_launches["fused_mlp"], "max_abs_err_dlrm": err_dlrm,
+         "launches_criteo_full": crit["launches"]["fused_mlp"],
+         "launches_criteo_full_serve": crit["serve_launches"]["fused_mlp"],
          # each tower against fused_mlp_plain in phase 3, every B, ReLU off and on
          **{f"max_abs_err_{tower}{sfx}": err_towers[tower, dtype]
             for tower in ("dlrm_bottom", "dlrm_top")
@@ -3187,7 +3700,16 @@ def main() -> int:
          **{f"{k}_window_{tag}": stats[f"lookup_fused window fleetrec_{tag} B={B_TIME}"][k]
             for tag in ("model1", "model3") for k in ("ms", "plain_ms", "bound_ms")},
          **{f"{k}_dlrm": stats[f"lookup_fused dlrm_terabyte B={B_TIME}"][k]
-            for k in ("ms", "plain_ms", "bound_ms", "replaced_ms", "ms_ids0")}},
+            for k in ("ms", "plain_ms", "bound_ms", "replaced_ms", "ms_ids0")},
+         # phase 14: criteo_terabyte at full cardinality (int8, 52.96 GB take
+         # buffer), B_TIME: launches of its two forwards and its served run
+         "launches_criteo_full": crit["launches"]["lookup_fused"],
+         "launches_criteo_full_serve": crit["serve_launches"]["lookup_fused"],
+         "max_abs_err_criteo_full": crit["max_abs_err"],
+         "ms_criteo_full": crit_lk["random"]["ms"], "plain_ms_criteo_full": crit_lk["random"][
+             "plain_ms"], "bound_ms_criteo_full": crit_lk["random"]["bound_ms"],
+         "ms_ids0_criteo_full": crit_lk["ids0"]["ms"],
+         "ms_window_1gib_criteo_full": crit_lk["window_1gib"]["ms"]},
         # the bag form of the fused lookup: launches of the served pooled run
         # (bag_L = BAG_L, one a batch); the top-level times are model1's at
         # B_TIME and BAG_L; no one PyTorch call computes it (embedding_bag

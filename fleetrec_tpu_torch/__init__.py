@@ -9,7 +9,12 @@ bias-free MLP tower (the fused-MLP kernel, ``ops/csrc/fused_mlp.cu``) to [B]
 scores, served over the native ingest tier; feature mode serves the tower
 alone.  ``parallel/`` serves the same forward over a (data, model) mesh of
 ``torch.distributed`` ranks, one device a rank: tables sharded over the
-model axis, one all_reduce a forward (``serve --mesh``).  ``models/train.py`` trains a model in place on one device (BCE,
+model axis, one all_reduce a forward (``serve --mesh``); its planner says
+on how many cards a config fits (``cli plan``) and ``benchmarks/`` times
+the collectives (``cli icibench``).  ``models/biginit.py`` generates pm1
+tables on the card, a rank's window at a time, so criteo_terabyte at its
+full cardinality is built with no table on the host.  ``models/train.py``
+trains a model in place on one device (BCE,
 Adagrad; the lookup's backward is a hand-written kernel too).  ``io.py`` reads
 and writes the JAX package's npz checkpoints, and the CLI's ``bench``,
 ``gatherbench`` (with the grouped gather kernel,

@@ -13,6 +13,9 @@
   python -m fleetrec_tpu_torch.cli loadgen --config fleetrec_model1 --batch 1024 --read-scores --bag-l 8
   python -m fleetrec_tpu_torch.cli serve   --config fleetrec_model1 --batch 1024 --reply \
       --mesh 1,2 --procs 2 --proc-id I --coordinator host:port --backend gloo   # each rank I
+  python -m fleetrec_tpu_torch.cli plan    --config criteo_terabyte --dtype int8 --recommend 4
+  python -m fleetrec_tpu_torch.cli icibench --model-axis 4 --procs 4 --proc-id I \
+      --coordinator host:port                                                  # each rank I
 
 Every command that builds a model or times a kernel runs on ``--device``
 (default ``cuda``; nothing moves to the CPU when no card is found — pass
@@ -510,6 +513,72 @@ def cmd_export(args):
                       "fingerprint": fio.config_fingerprint(cfg)[:12]}))
 
 
+def cmd_plan(args):
+    """Placement plan: per-card byte accounting and shard load balance of a
+    config on an n_model-way mesh (the analog of the reference's
+    config_sp_*.txt bank-pinning files, computed instead of hand-written).
+    Runs on the host and touches no device.
+
+    --recommend N: pick the (data, model) split of N cards: model axis = the
+    smallest that fits the memory budget (the model axis divides table
+    bytes; the data axis divides the batch), data axis = N / model."""
+    from .parallel import H100_HBM_BYTES, plan, recommend
+
+    cfg = _make_cfg(args)
+    budget = H100_HBM_BYTES if args.hbm_gb is None else int(args.hbm_gb * 2**30)
+    if args.recommend:
+        N = args.recommend
+        m, p = recommend(cfg, N, hbm_budget_bytes=budget, batch_size=args.batch)
+        if m is None:
+            print(json.dumps({"recommend": None,
+                              "reason": f"does not fit {N} cards at {budget} bytes each; "
+                              f"min_model_shards={p.min_model_shards}"}))
+            return
+        print(json.dumps({
+            "chips": N, "data_axis": N // m, "model_axis": m,
+            "table_dtype": cfg.table_dtype,
+            "per_chip_bytes": p.per_chip_bytes,
+            "hbm_budget_bytes": p.hbm_budget_bytes,
+            "note": "model axis = min that fits (divides table bytes); "
+                    "data axis divides the batch",
+        }, indent=2))
+        return
+    p = plan(cfg, n_model=args.model_axis, hbm_budget_bytes=budget, batch_size=args.batch)
+    out = p.to_json()
+    if not args.shards:
+        out.pop("shards")
+    print(json.dumps(out, indent=2))
+
+
+def cmd_icibench(args):
+    """Collective bandwidth over the mesh's model group (iperf_krnl's
+    analog): every rank of a --procs world runs this command with its
+    --proc-id (serve --mesh's convention for worlds); rank 0 prints the
+    JSON."""
+    import torch.distributed as dist
+
+    from .benchmarks import ici_bench
+    from .parallel import global_mesh, init_distributed
+
+    n = args.procs
+    model_ax = args.model_axis or max(n // args.data, 1)
+    if args.data * model_ax != n:
+        raise SystemExit(f"--data {args.data} x --model-axis {model_ax} needs --procs "
+                         f"{args.data * model_ax} (one device a rank), got {n}")
+    if n > 1:
+        init_distributed(args.coordinator, n, args.proc_id, args.backend, device=args.device)
+    try:
+        mesh = global_mesh(args.data, model_ax, device=args.device)
+        res = ici_bench(mesh, mbytes=args.mbytes, iters=args.iters)
+        if mesh.rank == 0:
+            res["device"] = _device_name(mesh.device)
+            res["backend"] = dist.get_backend() if dist.is_initialized() else None
+            print(json.dumps(res))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="fleetrec_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -674,6 +743,36 @@ def main(argv=None):
     s.add_argument("--group", type=int, nargs="+", default=[8],
                    help="rows per barrier in the grouped kernel")
     s.set_defaults(fn=cmd_gatherbench)
+
+    s = sub.add_parser("plan", parents=[common],
+                       help="placement plan: per-card bytes + load balance (host only)")
+    s.add_argument("--model-axis", type=int, default=8)
+    s.add_argument("--hbm-gb", type=float, default=None,
+                   help="per-card memory budget in GiB (default: one H100's, "
+                   "parallel/planner.py::H100_HBM_BYTES)")
+    s.add_argument("--shards", action="store_true",
+                   help="include the per-shard row-range table")
+    s.add_argument("--recommend", type=int, default=0,
+                   help="recommend the (data, model) split of N cards (0 = off)")
+    s.set_defaults(fn=cmd_plan)
+
+    s = sub.add_parser("icibench", parents=[device],
+                       help="collective bandwidth over the mesh (iperf analog)")
+    s.add_argument("--data", type=int, default=1)
+    s.add_argument("--model-axis", type=int, default=0,
+                   help="model axis size; 0 = every rank of a data row")
+    s.add_argument("--mbytes", type=int, default=64, help="MiB of float32 a rank")
+    s.add_argument("--iters", type=int, default=16)
+    s.add_argument("--procs", type=int, default=1,
+                   help="ranks of the torch.distributed world, one device a rank")
+    s.add_argument("--proc-id", type=int, default=0, help="this process's rank")
+    s.add_argument("--coordinator", default=None,
+                   help="rendezvous: host:port, or a tcp:// or file:// URL "
+                   "(default: MASTER_ADDR / MASTER_PORT)")
+    s.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                   help="torch.distributed backend (default nccl on a CUDA "
+                   "device, gloo on the CPU)")
+    s.set_defaults(fn=cmd_icibench)
 
     args = ap.parse_args(argv)
     args.fn(args)

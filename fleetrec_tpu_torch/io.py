@@ -6,7 +6,7 @@ A checkpoint holds the packed buffers as the JAX package writes them
 ``cross_<layer>_<j>``, 2 or 3 arrays a layer by ``cross_rank``) and
 ``config_fingerprint``, the same digest for the same
 config, so files cross between the two packages both ways.  Orbax
-checkpoints (``save_orbax`` / ``load_orbax``) are JAX-only and not ported.
+checkpoints (``save_orbax`` / ``load_orbax``) are not ported yet.
 
 Two rules the reference lacks:
 

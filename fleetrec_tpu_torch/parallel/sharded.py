@@ -37,9 +37,18 @@ Every output column is one shard's value plus exact zeros from the others
 part), so on pm1 / parity data the scores are bit-equal to one device's.
 ``forward_pipelined`` overlaps batch k's exchange with batch k+1's lookup;
 ``forward_pooled`` is the bag form (``lookup_fused_bags`` with the window).
-The model to shard is built on the host (``init_model`` / ``load_npz`` /
-``params_from_jax`` with ``device="cpu"``); each rank copies only its slice
-to its device.
+A rank's shard comes from one of two places:
+
+* ``ShardedFleetRec(model, mesh)``: a whole model built on the host
+  (``init_model`` / ``load_npz`` / ``params_from_jax`` with
+  ``device="cpu"``), of which each rank copies only its slice to its device
+  (``shard_operands``);
+* ``ShardedFleetRec.from_packed(plan, packed, mesh, mlp)``: a
+  ``PackedTables`` whose take buffer is already this rank's window on its
+  device (``models/biginit.py::pack_pm1_sharded`` with the mesh), used as it
+  is (``packed_operands(..., window_only=True)``), so no whole model exists
+  on the host or on any card: the JAX package's ``shard_params`` whose
+  ``device_put`` is a no-op for a buffer already in place.
 
 ``train_step`` is one SGD step (``p - lr * g``, ``models/train.py::SGD``)
 on the mean BCE of the global batch, the D data rows' batches together, as
@@ -62,13 +71,13 @@ refresh: the port stages none.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-from ..models.embedding import TORCH_DTYPES, class_tables, lookup_tensors
-from ..models.fleetrec import (FleetRecModel, check_inputs, check_pooled_config,
+from ..models.embedding import TORCH_DTYPES, PackedTables, class_tables, lookup_tensors
+from ..models.fleetrec import (FleetRecModel, ModelPlan, check_inputs, check_pooled_config,
                                interaction_head)
 from ..models.interaction import cross_network
 from ..models.mlp import mlp_apply, mlp_train
@@ -90,29 +99,46 @@ def _slice_rows(t: torch.Tensor, lo: int, n: int, fill: float, device) -> torch.
 def shard_operands(model: FleetRecModel, m: int, M: int, device) -> dict:
     """``lookup_fused``'s operands (after the ids and dense) of model shard
     m of M on ``device``, sliced from ``model``'s buffers (the JAX
-    package's ``shard_params``): class i's tables ``[m * n_loc, (m + 1) *
-    n_loc)`` (``n_loc = ceil(n / M)``, past the last table all-zero pad
-    tables of int8 scale 1.0), the take buffer's physical rows ``[m *
-    rows_local, (m + 1) * rows_local)`` (``rows_local = ceil(rows / M)``,
-    zero rows past its end) and its window, its scales whole, and the
-    shard's descriptors.  Shard 0 alone reads the dense tail."""
-    lay, plan = model.layout, model.plan
-    quant = model._quant
+    package's ``shard_params``): ``packed_operands`` of its plan and packed
+    tables."""
+    return packed_operands(model.plan, model.packed, m, M, device)
+
+
+def packed_operands(plan: ModelPlan, packed: PackedTables, m: int, M: int, device,
+                    window_only: bool = False) -> dict:
+    """``lookup_fused``'s operands of model shard m of M on ``device``:
+    class i's tables ``[m * n_loc, (m + 1) * n_loc)`` of ``packed``
+    (``n_loc = ceil(n / M)``, past the last table all-zero pad tables of
+    int8 scale 1.0), the take buffer's physical rows ``[m * rows_local, (m +
+    1) * rows_local)`` (``rows_local = ceil(take_phys_total / M)``, zero
+    rows past its end) and its window, its scales whole, and the shard's
+    descriptors.  Shard 0 alone reads the dense tail.  ``window_only``:
+    ``packed``'s take buffer already holds just those rows
+    (``pack_pm1_sharded`` with a mesh) and is used as it is, not copied,
+    when it lies on ``device``."""
+    lay = plan.layout
+    quant = packed.onehot_scales is not None
     bufs, scales = [], ([] if quant else None)
     for i, c in enumerate(lay.onehot_classes):
         lo, _ = class_tables(c.num_tables, m, M)
         n_loc = -(-c.num_tables // M)
-        bufs.append(_slice_rows(getattr(model, f"onehot_{i}"), lo, n_loc, 0, device))
+        bufs.append(_slice_rows(packed.onehot_buffers[i], lo, n_loc, 0, device))
         if quant:
-            scales.append(_slice_rows(getattr(model, f"onehot_scale_{i}"), lo, n_loc, 1.0,
-                                      device))
+            scales.append(_slice_rows(packed.onehot_scales[i], lo, n_loc, 1.0, device))
     window = None
-    if model.take is not None:
-        rows_local = -(-model.take.shape[0] // M)
+    take = packed.take_buffer
+    if take is not None:
+        rows_local = -(-lay.take_phys_total // M)
         window = (m * rows_local, rows_local)
-        bufs.append(_slice_rows(model.take, m * rows_local, rows_local, 0, device))
+        if window_only:
+            if take.shape[0] != rows_local:
+                raise ValueError(f"the take window of shard {m} of {M} has {rows_local} rows, "
+                                 f"the buffer given {take.shape[0]}")
+            bufs.append(take.to(device).contiguous())
+        else:
+            bufs.append(_slice_rows(take, m * rows_local, rows_local, 0, device))
         if quant:
-            scales.append(model.take_scales.to(device, copy=True))
+            scales.append(packed.take_scales.to(device, copy=True))
     desc = lookup_tensors(lay, plan.index_perm, plan.qr_positions, device, shard=(m, M))
     return dict(bufs=bufs, scales=scales, cols=desc["cols"], pos=desc["pos"],
                 stripes=lay.take_stripes, stripe_height=lay.stripe_height,
@@ -153,11 +179,33 @@ class ShardedFleetRec:
     the row's scores."""
 
     def __init__(self, model: FleetRecModel, mesh: Mesh):
-        self.mesh = mesh
-        self.plan = model.plan
-        self.cfg = model.cfg
-        self.layout = model.layout
+        self._place(model.plan, mesh)
         self.shard_params(model)
+
+    def _place(self, plan: ModelPlan, mesh: Mesh) -> None:
+        self.mesh = mesh
+        self.plan = plan
+        self.cfg = plan.cfg
+        self.layout = plan.layout
+
+    @classmethod
+    def from_packed(cls, plan: ModelPlan, packed: PackedTables, mesh: Mesh,
+                    mlp: Sequence[torch.Tensor]) -> "ShardedFleetRec":
+        """This rank's shard from ``packed`` whose take buffer is already the
+        rank's window (``pack_pm1_sharded(cfg, layout, mesh)``), kept as it
+        is, and the tower's weights ``mlp`` (copied to the mesh's device): no
+        whole model is needed.  A config with an interaction head (a bottom
+        MLP, dot or cross) is refused: build it with ``__init__``."""
+        cfg = plan.cfg
+        if cfg.interaction != "none" or cfg.bottom_mlp is not None:
+            raise ValueError(f"from_packed builds the tower-only model; {cfg.name} has the "
+                             f"{cfg.interaction!r} interaction head")
+        self = cls.__new__(cls)
+        self._place(plan, mesh)
+        self.operands = packed_operands(plan, packed, mesh.m, mesh.model, mesh.device,
+                                        window_only=True)
+        self._copy_weights(mlp, (), (), None)
+        return self
 
     @property
     def _use_w1_fold(self) -> bool:
@@ -171,13 +219,17 @@ class ShardedFleetRec:
     def shard_params(self, model: FleetRecModel) -> None:
         """Keep this rank's slice of ``model``'s tables (``shard_operands``)
         and a copy of every weight on the mesh's device."""
+        self.operands = shard_operands(model, self.mesh.m, self.mesh.model, self.mesh.device)
+        self._copy_weights(model.mlp_weights, model.bottom_weights, model.cross_weights,
+                           model.pair_cols if self.cfg.interaction == "dot" else None)
+
+    def _copy_weights(self, mlp, bottom, cross, pair_cols) -> None:
+        """Copies of the replicated weights on the mesh's device."""
         dev = self.mesh.device
-        self.operands = shard_operands(model, self.mesh.m, self.mesh.model, dev)
-        self.mlp = [w.to(dev, copy=True) for w in model.mlp_weights]
-        self.bottom = [w.to(dev, copy=True) for w in model.bottom_weights]
-        self.cross = [[w.to(dev, copy=True) for w in layer] for layer in model.cross_weights]
-        self.pair_cols = (model.pair_cols.to(dev, copy=True)
-                          if self.cfg.interaction == "dot" else None)
+        self.mlp = [w.to(dev, copy=True) for w in mlp]
+        self.bottom = [w.to(dev, copy=True) for w in bottom]
+        self.cross = [[w.to(dev, copy=True) for w in layer] for layer in cross]
+        self.pair_cols = None if pair_cols is None else pair_cols.to(dev, copy=True)
 
     # ---- the three parts of a forward -----------------------------------
     def _lookup_dense(self, dense: Optional[torch.Tensor]) -> Optional[torch.Tensor]:

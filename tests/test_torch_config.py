@@ -140,7 +140,9 @@ def test_port_imports_neither_jax_nor_fleetrec_tpu():
     files = _port_files()
     assert len(files) > 15 and REPO / "fleetrec_tpu_torch/models/train.py" in files
     assert {REPO / f"fleetrec_tpu_torch/parallel/{m}.py"
-            for m in ("__init__", "mesh", "multihost", "sharded")} <= set(files)
+            for m in ("__init__", "mesh", "multihost", "sharded", "planner", "dryrun")} <= set(files)
+    assert {REPO / "fleetrec_tpu_torch/models/biginit.py",
+            REPO / "fleetrec_tpu_torch/benchmarks/collectives.py"} <= set(files)
     assert (REPO / "chip_mesh.py").is_file()
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -364,3 +364,29 @@ def test_init_distributed_binds_the_ranks_card(cuda, monkeypatch, tmp_path):
     finally:
         torch.cuda.set_device(prev)
     assert seen == [rank % n for rank in range(world)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("name", ["criteo", "tiers", "qr", "lanes256"])
+def test_pm1_generator_matches_pack_tables_on_card(cuda, name, dtype):
+    """pack_pm1_sharded on the card (whole, and each window of a (1, 4)
+    mesh) writes the bytes pack_tables writes for the pm1 tables, at small
+    rows; the window's scores through the sharded lookup of its shard."""
+    from fleetrec_tpu_torch.models import pack_pm1_sharded
+    from fleetrec_tpu_torch.parallel.mesh import Mesh
+
+    cfg = dataclasses.replace(variant(name, TC), table_dtype=dtype)
+    model = init_model(cfg, device=cuda)
+    want = model.packed
+    got = pack_pm1_sharded(cfg, model.layout, device=cuda, chunk_rows=777)
+    assert got.take_buffer.device == cuda
+    assert torch.equal(got.take_buffer, want.take_buffer)
+    for a, b in zip(got.onehot_buffers + (got.onehot_scales or []),
+                    want.onehot_buffers + (want.onehot_scales or [])):
+        assert a.shape == b.shape and torch.equal(a, b)
+    if want.take_scales is not None:
+        assert torch.equal(got.take_scales, want.take_scales)
+    for m in range(4):
+        win = pack_pm1_sharded(cfg, model.layout, Mesh(1, 4, 0, m, None, cuda), chunk_rows=777)
+        assert torch.equal(win.take_buffer, shard_operands(model, m, 4, cuda)["bufs"][-1])

@@ -17,7 +17,11 @@ dtype) and ``_finish`` (post) call in order.  A "train" case takes
 ``steps`` sharded SGD steps (``ShardedFleetRec.train_step``) and returns
 the losses, this rank's updated shard and weights, and the sharded forward's
 scores after them; an "engine" case with ``fuse`` scores its batches K at a
-time through ``ServingEngine.from_sharded``.
+time through ``ServingEngine.from_sharded``.  ``run_generated`` builds each
+rank's shard from its generated pm1 window (``ShardedFleetRec.from_packed``)
+and from a whole model; ``run_planner_cases``, ``run_ici_bench`` and
+``run_dryrun`` serve tests/test_torch_planner.py and
+tests/test_torch_collectives.py.
 
 This module imports neither JAX nor the JAX package, so the ranks import
 only the port.
@@ -119,6 +123,11 @@ def case_config(C, key, dtype=None):
                                                       table_dtype="float32"),
         "criteo_20265": lambda: cap(C.criteo_terabyte(batch_size=32, dtype="float32"), 20265),
         "criteo_4096": lambda: cap(C.criteo_terabyte(batch_size=32, dtype="float32"), 4096),
+        # criteo with every tier: take tables in 16 stripes, factored and
+        # one-hot classes (tests/test_torch_biginit.py)
+        "criteo_30000": lambda: cap(C.criteo_terabyte(batch_size=32, dtype="float32"), 30000),
+        "criteo_30000_int8": lambda: dataclasses.replace(
+            cap(C.criteo_terabyte(batch_size=32, dtype="float32"), 30000), table_dtype="int8"),
         "tiny_dlrm": lambda: cap(C.tiny_dlrm(batch_size=32), 4096),
         "micro_dlrm70": lambda: C.micro_dlrm(batch_size=32, onehot_max=70),
         "micro_cross70": lambda: dataclasses.replace(C.micro_cross(batch_size=32), onehot_max=70),
@@ -126,6 +135,93 @@ def case_config(C, key, dtype=None):
         "mixed_int8": lambda: mixed(C, table_dtype="int8"),
     }
     return extra[key]() if key in extra else variant(key, C)
+
+
+def run_generated(rank, D, M, names, inputs_path):
+    """For each config key of ``names``: this rank's shard built twice, from
+    generated pm1 buffers (``pack_pm1_sharded`` with the mesh, then
+    ``ShardedFleetRec.from_packed``) and from a whole pm1 model
+    (``ShardedFleetRec(init_model(...))``), and the data row's scores of
+    each on the parent's ids and dense (``<name>/idx``, ``<name>/dense``);
+    the generated take window's shape and bytes."""
+    import torch
+
+    from fleetrec_tpu_torch import config as TC
+    from fleetrec_tpu_torch.models import init_model, pack_pm1_sharded
+    from fleetrec_tpu_torch.models.fleetrec import ModelPlan
+    from fleetrec_tpu_torch.models.mlp import init_mlp_params
+    from fleetrec_tpu_torch.parallel import ShardedFleetRec, global_mesh
+
+    mesh = global_mesh(D, M, device="cpu")
+    data = dict(np.load(inputs_path))
+    out = {}
+    for name in names:
+        cfg = case_config(TC, name)
+        plan = ModelPlan.create(cfg)
+        packed = pack_pm1_sharded(cfg, plan.layout, mesh, chunk_rows=1000)
+        gen = ShardedFleetRec.from_packed(plan, packed, mesh,
+                                          init_mlp_params(cfg.mlp, "ones", device="cpu"))
+        whole = ShardedFleetRec(init_model(cfg, device="cpu"), mesh)
+        ids = torch.from_numpy(rows_of(data[f"{name}/idx"], mesh.d, D))
+        dense = torch.from_numpy(rows_of(data[f"{name}/dense"], mesh.d, D))
+        with torch.inference_mode():
+            out[name] = {"generated": gen.forward(ids, dense).numpy(),
+                         "whole": whole.forward(ids, dense).numpy(),
+                         "take_shape": tuple(packed.take_buffer.shape),
+                         "take_bytes": packed.take_buffer.nbytes}
+    return out
+
+
+def run_planner_cases(rank, D, M, inputs_path):
+    """The planner tests' sharded forwards on this rank: micro_test (512
+    rows) with its dim-32 table split into 2 column parts, and with a
+    4-stripe take layout, on the parent's uniform tables (the port's
+    seeded reference) and weights; the data row's scores of each."""
+    import torch
+
+    from fleetrec_tpu_torch import config as TC
+    from fleetrec_tpu_torch import reference as ref
+    from fleetrec_tpu_torch.models import init_model
+    from fleetrec_tpu_torch.parallel import (ShardedFleetRec, global_mesh, split_table_columns,
+                                             split_table_data)
+
+    mesh = global_mesh(D, M, device="cpu")
+    data = dict(np.load(inputs_path))
+    cfg = TC.micro_test(batch_size=16, rows=512)
+    tables = ref.init_tables(cfg, scheme="uniform")
+    ws = ref.init_mlp_weights(cfg, scheme="uniform")
+    tid = next(t.table_id for t in cfg.tables if t.dim == 32)
+    split_cfg, imap = split_table_columns(cfg, tid, 2)
+    models = {
+        "split": (init_model(split_cfg, tables_np=split_table_data(tables, cfg, tid, 2),
+                             mlp_np=ws, device="cpu"), imap),
+        "striped": (init_model(dataclasses.replace(cfg, take_stripes=4), tables_np=tables,
+                               mlp_np=ws, device="cpu"), np.arange(cfg.num_tables)),
+    }
+    ids = rows_of(data["idx"], mesh.d, D)
+    dense = torch.from_numpy(rows_of(data["dense"], mesh.d, D))
+    out = {}
+    with torch.inference_mode():
+        for name, (model, cols) in models.items():
+            sh = ShardedFleetRec(model, mesh)
+            out[name] = sh.forward(torch.from_numpy(np.ascontiguousarray(ids[:, cols])),
+                                   dense).numpy()
+    return out
+
+
+def run_ici_bench(rank, D, M, mbytes):
+    """``ici_bench`` on this rank of a (D, M) gloo world."""
+    from fleetrec_tpu_torch.benchmarks import ici_bench
+    from fleetrec_tpu_torch.parallel import global_mesh
+
+    return ici_bench(global_mesh(D, M, device="cpu"), mbytes=mbytes, iters=2)
+
+
+def run_dryrun(rank, D, M):
+    """The multi-device dry run (``parallel/dryrun.py``) on this rank."""
+    from fleetrec_tpu_torch.parallel import dryrun_multichip, global_mesh
+
+    return dryrun_multichip(global_mesh(D, M, device="cpu"))
 
 
 def rows_of(arr, d, D, axis=0):

@@ -649,6 +649,26 @@ def ids_with_bad(cfg, B, rng):
     return ids.astype(np.int32)
 
 
+# the backward's id draws: uniform, every id 0 (the most adds on one row),
+# skewed
+ID_DRAWS = ("uniform", "ids0", "skew")
+
+
+def draw_ids(cfg, B: int, rng, draw: str) -> np.ndarray:
+    """In-range ids [B, T] int32 of one draw of ID_DRAWS: ``uniform`` in
+    [0, rows), ``ids0`` every id 0, ``skew`` a Zipf draw ``(zipf(1.1) - 1) %
+    rows`` per table (about a tenth of the batch on row 0, as click logs
+    skew)."""
+    if draw == "uniform":
+        return np.stack([rng.integers(0, t.rows, B) for t in cfg.tables], 1).astype(np.int32)
+    if draw == "ids0":
+        return np.zeros((B, cfg.num_tables), np.int32)
+    if draw == "skew":
+        return np.stack([(rng.zipf(1.1, B) - 1) % t.rows for t in cfg.tables],
+                        1).astype(np.int32)
+    raise KeyError(draw)
+
+
 def bags_with_bad(cfg, B, L, rng):
     """Bags [B, T, L] (int32) of uniform in-range ids in random prefix
     lengths of 0 .. L (0: an empty bag), -1 after the prefix.  Row 0 is
@@ -1438,11 +1458,42 @@ def train_batch(cfg, B, seed, dev):
     return idx, dense, torch.from_numpy(rng.integers(0, 2, B).astype(np.float32)).to(dev)
 
 
-def check_backward(model, idx, ct, exact, what) -> float:
+def order_bound(ct, idx, bufs, cols, pos, stripes, stripe_height, window=None):
+    """Per element of each gradient buffer (in its shape), 2 (n - 1) 2^-24
+    sum|x| over the n cotangents x it sums: how far two float32 sums of the
+    same terms in two orders can lie apart (each lies within (n - 1) 2^-24
+    sum|x| of the exact sum, whatever its order).  BACKWARD_TOL holds for the
+    few terms an element of a uniform draw sums; every id 0 puts B terms on
+    one element, and there the sums of kernel and plain, each in an order of
+    its own, may differ by more than it allows.  From the plain backward of
+    |ct| and of ones, in float32."""
+    def sums(x):
+        return lookup_fused_backward_plain(
+            x, idx, bufs, cols, pos, stripes, stripe_height,
+            out=[torch.zeros(b.numel(), device=b.device) for b in bufs], window=window)
+
+    total = sums(ct.float().abs())
+    count = sums(torch.ones(ct.shape, device=ct.device))
+    return [(2.0 ** -23 * (n - 1).clamp(min=0) * t).view(b.shape)
+            for t, n, b in zip(total, count, bufs)]
+
+
+def within(a, b, tol, bound=None) -> bool:
+    """|a - b| <= atol + rtol |b| (+ ``bound``, order_bound's) everywhere."""
+    allowed = tol["atol"] + tol["rtol"] * b.float().abs()
+    if bound is not None:
+        allowed = allowed + bound
+    return bool(((a.float() - b.float()).abs() <= allowed).all())
+
+
+def check_backward(model, idx, ct, exact, what, draw="uniform") -> float:
     """lookup_fused_backward (one launch) against lookup_fused_backward_plain
     on the same operands and cotangents ``ct``: bit-equal when ``exact``
     (integer cotangents: every float32 sum exact in any order), else within
-    BACKWARD_TOL.  Returns the max abs error."""
+    BACKWARD_TOL, plus order_bound on the draws other than ``uniform``.
+    When ``exact``, also ``out=`` float32 sums that already hold integers,
+    which the kernel adds into: bit-equal to the plain version's into the
+    same sums.  Returns the max abs error."""
     ops = model.lookup_operands()
     args = (ops["bufs"], ops["cols"], ops["pos"], ops["stripes"], ops["stripe_height"])
     before = lookup_fused_backward.launches
@@ -1450,17 +1501,33 @@ def check_backward(model, idx, ct, exact, what) -> float:
     if lookup_fused_backward.launches != before + 1:
         raise AssertionError(f"lookup_fused_backward did not launch once: {what}")
     want = lookup_fused_backward_plain(ct, idx, *args)
+    bounds = (order_bound(ct, idx, *args) if not exact and draw != "uniform"
+              else [None] * len(got))
     torch.cuda.synchronize()
     worst = 0.0
-    for a, b in zip(got, want):
+    for a, b, bound in zip(got, want, bounds):
         if a.dtype != b.dtype or a.shape != b.shape:
             raise AssertionError(f"backward gradients of another dtype or shape: {what}")
         if exact and not torch.equal(bits(a), bits(b)):
             raise AssertionError(f"backward kernel differs from its plain version: {what}")
-        if not exact:
+        if not exact and bound is None:
             torch.testing.assert_close(a.float(), b.float(), **BACKWARD_TOL[a.dtype],
                                        msg=lambda m: f"backward kernel, {what}: {m}")
+        if bound is not None and not within(a, b, BACKWARD_TOL[a.dtype], bound):
+            raise AssertionError(f"backward kernel, {what}: beyond BACKWARD_TOL plus the "
+                                 f"summation-order bound")
         worst = max(worst, (a.float() - b.float()).abs().max().item())
+    if exact:
+        gen = torch.Generator(device=idx.device).manual_seed(13)
+        prior = [torch.randint(-50, 51, (b.numel(),), generator=gen, device=idx.device,
+                               dtype=torch.float32) for b in ops["bufs"]]
+        into = lookup_fused_backward(ct, idx, *args, out=[p.clone() for p in prior])
+        plain = lookup_fused_backward_plain(ct, idx, *args, out=prior)
+        torch.cuda.synchronize()
+        if not all(torch.equal(bits(a), bits(b)) for a, b in zip(into, plain)):
+            raise AssertionError(f"backward kernel with out= non-zero sums differs from its "
+                                 f"plain version: {what}")
+        del into, plain, prior
     return worst
 
 
@@ -1531,23 +1598,28 @@ def phase_train(dev, model1_pm1, model1, dlrm):
         cases.append((f"micro_test {tag}", init_model(cfg, table_scheme="uniform", device=dev)))
     n_checks = 0
     for name, m in cases:
-        ids = ids_with_bad(m.cfg, B_TIME, rng)
         dtype = m.lookup_operands()["bufs"][0].dtype
         F = m.layout.feature_dim
-        for idt in (torch.int32, torch.int64):
-            idx = torch.from_numpy(ids).to(dev, idt)
-            for exact in (True, False):
-                ct = (rng.integers(-3, 4, (B_TIME, F)) if exact
-                      else rng.uniform(-1, 1, (B_TIME, F))).astype(np.float32)
-                err = check_backward(m, idx, torch.from_numpy(ct).to(dev, dtype), exact,
-                                     f"{name} {idt} {'integer' if exact else 'uniform'}")
-                worst[dtype] = max(worst[dtype], err)
-                n_checks += 1
+        for draw in ID_DRAWS:
+            ids = (ids_with_bad(m.cfg, B_TIME, rng) if draw == "uniform"
+                   else draw_ids(m.cfg, B_TIME, rng, draw))
+            for idt in (torch.int32, torch.int64) if draw == "uniform" else (torch.int32,):
+                idx = torch.from_numpy(ids).to(dev, idt)
+                for exact in (True, False):
+                    ct = (rng.integers(-3, 4, (B_TIME, F)) if exact
+                          else rng.uniform(-1, 1, (B_TIME, F))).astype(np.float32)
+                    err = check_backward(m, idx, torch.from_numpy(ct).to(dev, dtype), exact,
+                                         f"{name} {draw} {idt} "
+                                         f"{'integer' if exact else 'uniform'}", draw)
+                    worst[dtype] = max(worst[dtype], err)
+                    n_checks += 1
     del cases
     notes = [f"(1) lookup_fused_backward against its plain version in {n_checks} checks "
              f"(model1 pm1 full rows, dlrm_terabyte at {DLRM_ROWS} rows, micro_test striped / "
-             f"QR / bf16; B={B_TIME}, int32 / int64 ids with bad ones): integer cotangents "
-             f"bit-equal, uniform ones within {BACKWARD_TOL[torch.float32]} (fp32 max_abs_err "
+             f"QR / bf16; B={B_TIME}, int32 / int64 uniform ids with bad ones, int32 ids of "
+             f"the draws {ID_DRAWS[1:]}, whose uniform cotangents also get order_bound): "
+             f"integer cotangents bit-equal, also added with out= into non-zero integer sums, "
+             f"uniform ones within {BACKWARD_TOL[torch.float32]} (fp32 max_abs_err "
              f"{worst[torch.float32]:.3g}) and {BACKWARD_TOL[torch.bfloat16]} (bf16 "
              f"{worst[torch.bfloat16]:.3g})"]
 
@@ -1687,17 +1759,20 @@ def check_backward_windows(model1, dlrm, dev):
     on each model shard m of M in WINDOW_MS (shard_operands: the shard's
     class tables, take rows and descriptors; the gradient buffers are the
     shard's): model1 at full rows and dlrm_terabyte at DLRM_ROWS rows a
-    table, B = B_TIME, int32 ids with bad ones, integer cotangents: kernel
-    and plain bit-equal, and the M shards' gradients, placed at their tables
-    and rows, bit-equal to the unsharded kernel's, pad tables and rows 0.
-    Returns the worst error, the checks made and (shard 0 of 2's operands,
-    the ids) of model1 for the report."""
+    table, B = B_TIME, int32 ids of each draw of ID_DRAWS (uniform with bad
+    ones, every id 0, skewed), integer cotangents: kernel and plain
+    bit-equal, and the M shards' gradients, placed at their tables and rows,
+    bit-equal to the unsharded kernel's, pad tables and rows 0.  Returns the
+    worst error, the checks made and (shard 0 of 2's operands, the uniform
+    ids, the config) of model1 for the report."""
     from fleetrec_tpu_torch.parallel import shard_operands
 
     rng = np.random.default_rng(26)
     worst, n, timed = 0.0, 0, None
-    for name, model in (("fleetrec_model1", model1), ("dlrm_terabyte", dlrm)):
-        ids = torch.from_numpy(ids_with_bad(model.cfg, B_TIME, rng)).to(dev)
+    for name, model, draw in [(name, model, draw) for name, model in (
+            ("fleetrec_model1", model1), ("dlrm_terabyte", dlrm)) for draw in ID_DRAWS]:
+        ids = torch.from_numpy(ids_with_bad(model.cfg, B_TIME, rng) if draw == "uniform"
+                               else draw_ids(model.cfg, B_TIME, rng, draw)).to(dev)
         F = model.layout.feature_dim
         ct = torch.from_numpy(rng.integers(-3, 4, (B_TIME, F)).astype(np.float32)).to(dev)
         ops = model.lookup_operands()
@@ -1712,7 +1787,7 @@ def check_backward_windows(model1, dlrm, dev):
                 got = lookup_fused_backward(*args, window=s["window"])
                 want = lookup_fused_backward_plain(*args, window=s["window"])
                 torch.cuda.synchronize()
-                what = f"lookup_fused_backward window {name} shard {m} of {M}"
+                what = f"lookup_fused_backward window {name} {draw} shard {m} of {M}"
                 if lookup_fused_backward.launches != before + 1:
                     raise AssertionError(f"{what}: the kernel did not launch once")
                 for i, (a, b) in enumerate(zip(got, want)):
@@ -1721,15 +1796,16 @@ def check_backward_windows(model1, dlrm, dev):
                     worst = max(worst, (a - b).abs().max().item())
                     placed[i].append(a)
                 n += 1
-                if name == "fleetrec_model1" and M == 2 and m == 0:
-                    timed = (s, ids)
+                if name == "fleetrec_model1" and M == 2 and m == 0 and draw == "uniform":
+                    timed = (s, ids, model.cfg)
                 del s, got, want
             for i, (w, parts) in enumerate(zip(whole, placed)):
                 cat = torch.cat(parts)
                 if not (torch.equal(bits(cat[:w.shape[0]]), bits(w))
                         and not cat[w.shape[0]:].any()):
-                    raise AssertionError(f"{name}: the {M} shards' gradients (buffer {i}) placed "
-                                         f"at their windows differ from the unsharded one's")
+                    raise AssertionError(f"{name} {draw}: the {M} shards' gradients (buffer "
+                                         f"{i}) placed at their windows differ from the "
+                                         f"unsharded one's")
             del placed
         del whole
         torch.cuda.empty_cache()
@@ -2307,7 +2383,8 @@ def phase_sharded(dev, model1, tabs, ws, model3, dlrm):
     log(f"phase 12 (1b) lookup_fused_backward with shard descriptors and take windows, M in "
         f"{WINDOW_MS}: bit-equal to its plain version on integer cotangents in {n_b} checks "
         f"(model1 full rows and dlrm_terabyte at {DLRM_ROWS} rows a table, B={B_TIME}, int32 "
-        f"ids with bad ones), the shards' gradients placed at their windows bit-equal to the "
+        f"ids of each draw {ID_DRAWS}, uniform with bad ones), the shards' gradients placed at "
+        f"their windows bit-equal to the "
         f"unsharded backward's, pad tables and rows 0 (max_abs_err {err_b}; "
         f"{time.time() - t1:.1f}s)")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
@@ -3439,6 +3516,58 @@ def backward_yardstick(ops, ct, idx):
     return functools.partial(flat.index_add_, 0, where, vals), nbytes
 
 
+def time_backward_draws(cfg, ops, idx, dev, rng, window=None):
+    """The backward kernel at each draw of ID_DRAWS (``idx``: the uniform
+    draw's ids; the others from draw_ids), uniform cotangents, preallocated
+    float32 sums: the kernel over graph replays and eagerly against its
+    plain version (eager, CUDA events: its boolean masks have data-dependent
+    shapes, no graph), the index_add_ yardstick over graph replays, the byte
+    bound of the draw.  {draw: timings}."""
+    out = {}
+    F = ops["pos"].shape[0]
+    for draw in ID_DRAWS:
+        ids = idx if draw == "uniform" else torch.from_numpy(
+            draw_ids(cfg, idx.shape[0], rng, draw)).to(dev, idx.dtype)
+        ct = torch.from_numpy(rng.uniform(-1, 1, (idx.shape[0], F)).astype(np.float32)).to(dev)
+        args = (ct, ids, ops["bufs"], ops["cols"], ops["pos"], ops["stripes"],
+                ops["stripe_height"])
+        sums_k = [torch.zeros(b.numel(), device=dev) for b in ops["bufs"]]
+        sums_p = [torch.zeros(b.numel(), device=dev) for b in ops["bufs"]]
+        kernel = functools.partial(lookup_fused_backward, *args, out=sums_k, window=window)
+        plain = functools.partial(lookup_fused_backward_plain, *args, out=sums_p, window=window)
+        ke, pe = _pair(kernel, plain)
+        kg = _graph_ms(kernel)
+        library, nbytes = backward_yardstick(ops, ct, ids)
+        lib_ms = _graph_ms(library)
+        del sums_k, sums_p, library
+        bound_ms, bound_by = bound(nbytes)
+        out[draw] = {"ms": kg, "ms_eager": ke, "plain_ms": pe, "library_ms": lib_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
+    return out
+
+
+def _log_draws(what, draws):
+    for draw, r in draws.items():
+        log(f"time {what} {draw}: kernel {r['ms']:.4f} ms (CUDA events over graph replays; "
+            f"eager back-to-back {r['ms_eager']:.4f} ms), plain {r['plain_ms']:.4f} ms (eager), "
+            f"index_add_ {r['library_ms']:.4f} ms (graph replays, kernel at "
+            f"{r['library_ms'] / r['ms']:.2f}x its speed); bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}: {r['bytes']} B counted once), kernel at "
+            f"{r['bound_ms'] / r['ms']:.3f} of it")
+
+
+def _draw_keys(draws, sfx=""):
+    """A backward record's keys: the uniform draw's at the top level, then
+    each other draw's ms, library_ms, bound_ms and plain_ms under its name;
+    ``sfx`` after each key (another model's)."""
+    keys = {f"{k}{sfx}": draws["uniform"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    for draw in ID_DRAWS[1:]:
+        keys.update({f"{k}_{draw}{sfx}": draws[draw][k]
+                     for k in ("ms", "library_ms", "bound_ms", "plain_ms")})
+    return keys
+
+
 def time_training(runs, dev):
     """CUDA-event and host-clock timings of the training step (before any
     profiled pass), per model of ``runs`` ({name: (model, trainer, batch)}):
@@ -3475,63 +3604,27 @@ def time_training(runs, dev):
 
         for _ in range(TIME_STEPS):
             staged_step(model, trainer, batch, mark)
-        idx = batch[0]
-        ops = model.lookup_operands()
-        F = model.layout.feature_dim
-        ct = torch.from_numpy(rng.uniform(-1, 1, (idx.shape[0], F)).astype(np.float32)).to(dev)
-        args = (ct, idx, ops["bufs"], ops["cols"], ops["pos"], ops["stripes"], ops["stripe_height"])
-        sums_k = [torch.zeros(b.numel(), device=dev) for b in ops["bufs"]]
-        sums_p = [torch.zeros(b.numel(), device=dev) for b in ops["bufs"]]
-        kernel = functools.partial(lookup_fused_backward, *args, out=sums_k)
-        plain = functools.partial(lookup_fused_backward_plain, *args, out=sums_p)
-        ke, pe = _pair(kernel, plain)
-        kg = _graph_ms(kernel)
-        library, nbytes = backward_yardstick(model.lookup_operands(), ct, idx)
-        lib_ms = _graph_ms(library)
-        del sums_k, sums_p
-        bound_ms, bound_by = bound(nbytes)
+        draws = time_backward_draws(model.cfg, model.lookup_operands(), batch[0], dev, rng)
         out[name] = {"wall_ms": wall,
-                     "parts_ms": {p: float(np.median(v)) for p, v in parts.items()}, "ms": kg, "ms_eager": ke, "plain_ms": pe, "library_ms": lib_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
+                     "parts_ms": {p: float(np.median(v)) for p, v in parts.items()},
+                     "draws": draws, **draws["uniform"]}
         r = out[name]
         log(f"time training step {name} B={B_TIME}: {wall:.4f} ms a step (host clock over "
             f"{TIME_STEPS} steps, synchronized); by part (CUDA events, each part closed by a "
             f"synchronize): " + ", ".join(f"{p} {ms:.4f} ms" for p, ms in r["parts_ms"].items()))
-        log(f"time lookup_fused_backward {name} B={B_TIME}: kernel {kg:.4f} ms (CUDA events over "
-            f"graph replays; eager back-to-back {ke:.4f} ms), plain {pe:.4f} ms (eager), "
-            f"index_add_ {lib_ms:.4f} ms (graph replays); bound {bound_ms:.4f} ms ({bound_by}: "
-            f"{nbytes} B counted once), kernel at {bound_ms / kg:.3f} of it")
+        _log_draws(f"lookup_fused_backward {name} B={B_TIME}", draws)
     return out
 
 
 def time_window_backward(timed_b, dev):
     """The backward kernel's row-window form on phase 12's shard 0 of 2 of
-    model1 (B = B_TIME, uniform cotangents, preallocated float32 sums): the
-    kernel over graph replays and eagerly against its plain version (eager:
-    data-dependent shapes), ``index_add_`` into the shard's sums over graph
-    replays, the bound at the shard's bytes."""
-    ops, idx = timed_b
-    rng = np.random.default_rng(27)
-    ct = torch.from_numpy(rng.uniform(-1, 1, (idx.shape[0], ops["pos"].shape[0]))
-                          .astype(np.float32)).to(dev)
-    args = (ct, idx, ops["bufs"], ops["cols"], ops["pos"], ops["stripes"], ops["stripe_height"])
-    sums_k = [torch.zeros(b.numel(), device=dev) for b in ops["bufs"]]
-    sums_p = [torch.zeros(b.numel(), device=dev) for b in ops["bufs"]]
-    kernel = functools.partial(lookup_fused_backward, *args, out=sums_k, window=ops["window"])
-    plain = functools.partial(lookup_fused_backward_plain, *args, out=sums_p,
-                              window=ops["window"])
-    ke, pe = _pair(kernel, plain)
-    kg = _graph_ms(kernel)
-    library, nbytes = backward_yardstick(ops, ct, idx)
-    lib_ms = _graph_ms(library)
-    bound_ms, bound_by = bound(nbytes)
-    log(f"time lookup_fused_backward window fleetrec_model1 B={B_TIME}, shard 0 of 2 (take window "
-        f"{ops['window']}): kernel {kg:.4f} ms (CUDA events over graph replays; eager "
-        f"back-to-back {ke:.4f} ms), plain {pe:.4f} ms (eager), index_add_ into the shard's sums "
-        f"{lib_ms:.4f} ms (graph replays); bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B of the "
-        f"shard counted once), kernel at {bound_ms / kg:.3f} of it")
-    return {"ms": kg, "ms_eager": ke, "plain_ms": pe, "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    model1 (B = B_TIME), by time_backward_draws: ``index_add_`` into the
+    shard's sums, the bound at the shard's bytes."""
+    ops, idx, cfg = timed_b
+    draws = time_backward_draws(cfg, ops, idx, dev, np.random.default_rng(27), ops["window"])
+    _log_draws(f"lookup_fused_backward window fleetrec_model1 B={B_TIME}, shard 0 of 2 (take "
+               f"window {ops['window']})", draws)
+    return {"draws": draws, **draws["uniform"]}
 
 
 def profile_training(runs, timed):
@@ -3737,10 +3830,9 @@ def main() -> int:
          "replaces": "fleetrec_tpu/models/embedding.py:531",
          "launches": train_launches["lookup_fused_backward"],
          "max_abs_err": err_bwd[torch.float32], "max_abs_err_bf16": err_bwd[torch.bfloat16],
-         **{k: trained["fleetrec_model1"][k]
-            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-         **{f"{k}_dlrm": trained["dlrm_terabyte"][k]
-            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         # each id draw: uniform (the top-level keys), every id 0, skewed
+         **_draw_keys(trained["fleetrec_model1"]["draws"]),
+         **_draw_keys(trained["dlrm_terabyte"]["draws"], "_dlrm"),
          **{f"step_{k}_{tag}": trained[name][k]
             for tag, name in (("model1", "fleetrec_model1"), ("dlrm", "dlrm_terabyte"))
             for k in ("wall_ms", "busy_ms")}},
@@ -3754,8 +3846,7 @@ def main() -> int:
          "replaces": "fleetrec_tpu/parallel/sharded.py:625",
          "launches": sharded["train_model1"]["launches"]["lookup_fused_backward"],
          "max_abs_err": err_wb,
-         **{k: window_bwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-         "ms_eager": window_bwd["ms_eager"]},
+         **_draw_keys(window_bwd["draws"]), "ms_eager": window_bwd["ms_eager"]},
     ]}
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps(record), flush=True)

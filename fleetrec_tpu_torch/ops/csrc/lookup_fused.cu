@@ -93,15 +93,22 @@
 // The backward kernel (lookup_backward_kernel, entry point
 // fr_lookup_fused_backward) is the single-id kernel's gradient for training:
 // it walks the same descriptors and adds the features' cotangent into float32
-// gradient buffers laid out as the packed buffers (see the kernel).  It takes
-// the same row window, for one model shard's step of the sharded training
+// gradient buffers laid out as the packed buffers.  What bounds it is the
+// reductions into device memory and their contention on small class tables,
+// so it issues as few as the descriptors allow (see the kernel): one pass
+// over the batch's (row, 4 output columns) units, adding 4 columns that are
+// one aligned word of one row as one 16-byte reduction.  It takes the same
+// row window, for one model shard's step of the sharded training
 // (parallel/sharded.py::ShardedFleetRec.train_step): its take gradient buffer
 // is the shard's rows_local rows, and a take row outside the window adds
-// nothing (an unwindowed add there would land past the end of the buffer).
+// nothing (an unwindowed add there would land past the end of the buffer);
+// the shard's class columns of other shards' tables (lim = 0) add nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -693,73 +700,195 @@ __global__ void __launch_bounds__(kThreads)
 
 // The backward of the single-id kernel (entry point fr_lookup_fused_backward):
 // the features' cotangent grad [B, F] float32 added into float32 gradient
-// buffers laid out as the packed buffers (`bufs` holds their pointers).
+// buffers laid out as the packed buffers (`grads` holds their pointers).
 // Replaces XLA's VJP of lookup_concat (fleetrec_tpu/models/embedding.py:503-528,
 // the transposed one-hot products; :581 and :598-599, the take and its
 // mask-einsum, a scatter-add; :604, the QR sums; :616, the feature_perm take).
-// Pass 1 is the forward's: a row address a (row, plan column), here into the
-// gradient buffers, null for an id that reads no row.  Pass 2 walks the tile's
-// cotangents in order (coalesced loads) and adds each into the element its
-// output column read, and into the QR remainder column's element too; a zero
-// or dense column and a null row add nothing.  Every add is an atomicAdd
-// (float sums in an order that changes from run to run; exact for integers
-// below 2^24).  What bounds it: the adds, one a (row, embedding column);
-// model1's small one-hot tables take thousands of adds on one element.  The
-// row window (row_lo, rows_local) is the forward kernels': pass 1's null row
-// for a take row another shard holds, so its cotangent adds nothing here; a
-// class column the shard's descriptors give lim = 0 adds nothing either.
+// Each cotangent adds into the element its output column read, and a QR
+// quotient column's into its remainder column's element too; a zero or dense
+// column and an id that reads no row add nothing.
+//
+// What bounds it: the reductions into device memory, not the bytes.  Added
+// one scalar atomic a (row, column), a batch is B x F reductions (1.44M at
+// model1, 13.6M at dlrm_terabyte), and a small class table's elements each
+// take tens to thousands of them from blocks all over the card, which
+// serialize in L2's atomic units (every add of a column of a 3-row table
+// lands on 3 addresses).  So the kernel issues as few reductions as the
+// descriptors allow, in one pass over the batch's (row, 4 output columns)
+// units, grid-stride, with no staged row addresses and one barrier (after
+// the descriptors): a unit reads its id, finds its gradient row (null for an
+// id that reads no row or a take row outside the window), and where the 4
+// columns are one aligned run of one row (the descriptors' kVec4 bit) loads
+// them as one float4 and adds them as one 16-byte reduction
+// (red.global.add.v4.f32, sm_90); other columns add element by element.
+// Summing small class tables in shared memory first (a block a slab of class
+// columns and a chunk of the batch, flushed once) was slower on an H100 at
+// model1, model3 and dlrm_terabyte (PERF.md): a shared float add is a
+// compare-and-swap loop on sm_90, and the 16-byte reductions leave the class
+// tiers a small share of the time.
+//
+// Float sums in an order that changes from run to run (device-memory adds
+// across threads and blocks): exact for integers below 2^24.  The row window
+// (row_lo, rows_local) is the forward kernels': a take row another shard
+// holds adds nothing here, and so does a class column the shard's
+// descriptors give lim = 0 (a table another shard holds).
+
+// Float reductions into device memory: the gradient rows' pointers come from
+// shared memory, so the compiler cannot tell their address space and would
+// test it at every add; these say it.  red4: one 16-byte reduction.
+__device__ __forceinline__ void red4(float* p, float4 v) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(__cvta_generic_to_global(p)),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ void red1(float* p, float v) {
+  asm volatile("red.global.add.f32 [%0], %1;" ::"l"(__cvta_generic_to_global(p)), "f"(v)
+               : "memory");
+}
+
+// The gradient row plan column c reads for the id x (the QR split applied),
+// or null (no row, or a take row outside the window).
+__device__ __forceinline__ float* grad_row(const Col& c, int64_t x, const void* const* s_buf,
+                                           uint32_t S, int64_t stripe_height, int64_t row_lo,
+                                           int64_t rows_local) {
+  if (c.op == kOpDiv) x = floor_div(x, c.rem);
+  else if (c.op == kOpMod) x = floor_mod(x, c.rem);
+  if (x < 0 || x >= c.lim) return nullptr;
+  return static_cast<float*>(const_cast<void*>(
+      row_address<float>(c, (uint32_t)x, s_buf, S, stripe_height, row_lo, rows_local)));
+}
+
+// Output columns p0 .. p0 + n - 1 of batch row b, element by element.
 template <typename I>
+__device__ __forceinline__ void add_elements(const void* const* s_buf, const Col* s_col,
+                                             const int2* s_pos, const I* __restrict__ ids,
+                                             const float* __restrict__ grad, int64_t b, int p0,
+                                             int n, int T, int F, uint32_t S,
+                                             int64_t stripe_height, int64_t row_lo,
+                                             int64_t rows_local) {
+  for (int p = p0; p < p0 + n; ++p) {
+    const int2 e = s_pos[p];
+    const int col = (short)(e.x & 0xFFFF), add = e.x >> 16;  // low half sign-extended
+    if (col < 0) continue;
+    const int o = e.y & kOffMask;
+    float* a = grad_row(s_col[col], (int64_t)ids[b * T + s_col[col].src], s_buf, S,
+                        stripe_height, row_lo, rows_local);
+    float* c = add >= 0 ? grad_row(s_col[add], (int64_t)ids[b * T + s_col[add].src], s_buf, S,
+                                   stripe_height, row_lo, rows_local)
+                        : nullptr;
+    if (a == nullptr && c == nullptr) continue;
+    const float v = __ldg(grad + b * F + p);
+    if (a != nullptr) red1(a + o, v);
+    if (c != nullptr) red1(c + o, v);
+  }
+}
+
+constexpr int kAddUnroll = 4;  // units a thread loads before it adds
+
+// Units u_first, u_first + u_step, ... of the batch's (row, chunk) units,
+// row-major, so a warp's lanes take neighbouring chunks of one row and its
+// cotangent loads coalesce.  VEC: a unit is 4 output columns, one float4
+// load and one 16-byte reduction where the descriptors' kVec4 bit says they
+// are one aligned word (else element by element); otherwise a unit is one
+// column.  A thread issues kAddUnroll units' id and cotangent loads before it
+// waits on any.
+template <typename I, bool VEC>
+__device__ __forceinline__ void add_units(const void* const* s_buf, const Col* s_col,
+                                          const int2* s_pos, const I* __restrict__ ids,
+                                          const float* __restrict__ grad, int B, int T, int F,
+                                          uint32_t S, int64_t stripe_height, int64_t row_lo,
+                                          int64_t rows_local, int u_first, int u_step) {
+  constexpr int kW = VEC ? 4 : 1;  // output columns a unit
+  using G = typename std::conditional<VEC, float4, float>::type;
+  const int per_row = F / kW;
+  // unit u is (row u / per_row, chunk u % per_row), followed without a
+  // division a unit: a step moves step_b rows and step_c chunks
+  const int step_b = u_step / per_row, step_c = u_step % per_row;
+  int b0 = u_first / per_row, c0 = u_first % per_row;
+  while (b0 < B) {
+    int bj[kAddUnroll], p0[kAddUnroll], qy[kAddUnroll], ka[kAddUnroll], kc[kAddUnroll];
+    I xa[kAddUnroll], xc[kAddUnroll];
+    G g[kAddUnroll];
+#pragma unroll
+    for (int j = 0; j < kAddUnroll; ++j) {
+      bj[j] = b0;
+      p0[j] = c0 * kW;
+      ka[j] = kc[j] = -1;
+      c0 += step_c;
+      b0 += step_b;
+      if (c0 >= per_row) {
+        c0 -= per_row;
+        ++b0;
+      }
+      if (bj[j] >= B) {
+        p0[j] = -1;
+        continue;
+      }
+      const int2 q = s_pos[p0[j]];
+      qy[j] = q.y;
+      if (VEC && !(q.y & kVec4)) continue;  // element by element, below
+      const int col = (short)(q.x & 0xFFFF), add = q.x >> 16;
+      const int64_t row = (int64_t)bj[j] * T;
+      // a column of a table another model shard holds (lim 0) reads no id
+      // and no cotangent
+      if (col >= 0 && s_col[col].lim > 0) {
+        ka[j] = col;
+        xa[j] = ids[row + s_col[col].src];
+      }
+      if (col >= 0 && add >= 0 && s_col[add].lim > 0) {
+        kc[j] = add;
+        xc[j] = ids[row + s_col[add].src];
+      }
+      if (ka[j] >= 0 || kc[j] >= 0)
+        g[j] = __ldg(reinterpret_cast<const G*>(grad + (int64_t)bj[j] * F + p0[j]));
+    }
+#pragma unroll
+    for (int j = 0; j < kAddUnroll; ++j) {
+      if (p0[j] < 0) continue;
+      if (VEC && !(qy[j] & kVec4)) {
+        add_elements<I>(s_buf, s_col, s_pos, ids, grad, bj[j], p0[j], kW, T, F, S,
+                        stripe_height, row_lo, rows_local);
+        continue;
+      }
+      const int o = qy[j] & kOffMask;
+      float* dst[2] = {nullptr, nullptr};
+      if (ka[j] >= 0)
+        dst[0] = grad_row(s_col[ka[j]], (int64_t)xa[j], s_buf, S, stripe_height, row_lo,
+                          rows_local);
+      if (kc[j] >= 0)
+        dst[1] = grad_row(s_col[kc[j]], (int64_t)xc[j], s_buf, S, stripe_height, row_lo,
+                          rows_local);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (dst[h] == nullptr) continue;
+        if constexpr (VEC) red4(dst[h] + o, g[j]);
+        else red1(dst[h] + o, g[j]);
+      }
+    }
+  }
+}
+
+// Dynamic shared memory smem_bytes(F, n_plan, 0): the output columns, then
+// the plan columns.
+template <typename I, bool VEC>
 __global__ void __launch_bounds__(kThreads)
     lookup_backward_kernel(Buffers grads, const I* __restrict__ ids,
                            const int64_t* __restrict__ cols, const int2* __restrict__ pos,
                            const float* __restrict__ grad, int B, int T, int n_plan, int F,
-                           int rows, int64_t stripes, int64_t stripe_height, int64_t row_lo,
+                           int64_t stripes, int64_t stripe_height, int64_t row_lo,
                            int64_t rows_local) {
   extern __shared__ __align__(16) unsigned char smem[];
   int2* s_pos = reinterpret_cast<int2*>(smem);
   Col* s_col = reinterpret_cast<Col*>(s_pos + F);
-  const void** s_row = reinterpret_cast<const void**>(s_col + n_plan);
   __shared__ const void* s_buf[kMaxBufs];
   __shared__ const float* s_sc[kMaxBufs];
 
   stage(grads, cols, pos, n_plan, F, s_pos, s_col, s_buf, s_sc);
-  const uint32_t S = (uint32_t)stripes;
-  const int tiles = (B + rows - 1) / rows;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int b0 = tile * rows;
-    const int nr = min(rows, B - b0);
-    __syncthreads();  // s_col is staged; the last tile is done with s_row
-
-    // pass 1: a gradient row address a (row, plan column), null for none
-    const I* tile_ids = ids + (int64_t)b0 * T;
-    for (int u = threadIdx.x; u < nr * n_plan; u += kThreads) {
-      const int r = u / n_plan;
-      const Col& c = s_col[u - r * n_plan];
-      int64_t id = (int64_t)tile_ids[(int64_t)r * T + c.src];
-      if (c.op == kOpDiv) id = floor_div(id, c.rem);
-      else if (c.op == kOpMod) id = floor_mod(id, c.rem);
-      s_row[u] = id >= 0 && id < c.lim
-                     ? row_address<float>(c, (uint32_t)id, s_buf, S, stripe_height, row_lo,
-                                          rows_local)
-                     : nullptr;
-    }
-    __syncthreads();
-
-    // pass 2: each cotangent into the element(s) its output column read
-    const float* tile_grad = grad + (int64_t)b0 * F;
-    for (int u = threadIdx.x; u < nr * F; u += kThreads) {
-      const int r = u / F;
-      const int2 e = s_pos[u - r * F];
-      const int col = (short)(e.x & 0xFFFF), add = e.x >> 16;  // low half sign-extended
-      if (col < 0) continue;
-      const float g = __ldg(tile_grad + u);
-      const int o = e.y & kOffMask;
-      const void* const* rp = s_row + r * n_plan;
-      if (rp[col] != nullptr) atomicAdd(static_cast<float*>(const_cast<void*>(rp[col])) + o, g);
-      if (add >= 0 && rp[add] != nullptr)
-        atomicAdd(static_cast<float*>(const_cast<void*>(rp[add])) + o, g);
-    }
-  }
+  __syncthreads();
+  add_units<I, VEC>(s_buf, s_col, s_pos, ids, grad, B, T, F, (uint32_t)stripes, stripe_height,
+                    row_lo, rows_local, (int)blockIdx.x * kThreads + (int)threadIdx.x,
+                    (int)gridDim.x * kThreads);
 }
 
 // Raises the kernel's dynamic shared-memory limit to the block's maximum,
@@ -814,14 +943,14 @@ cudaError_t launch_bags(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename I>
+template <typename I, bool VEC>
 cudaError_t launch_backward(const Args& a, const float* grad, cudaStream_t st) {
   static unsigned long long smem_set = 0;
-  cudaError_t err = allow_smem(lookup_backward_kernel<I>, smem_set);
+  cudaError_t err = allow_smem(lookup_backward_kernel<I, VEC>, smem_set);
   if (err != cudaSuccess) return err;
-  lookup_backward_kernel<I><<<a.grid, kThreads, smem_bytes(a.F, a.n_plan, a.rows), st>>>(
+  lookup_backward_kernel<I, VEC><<<a.grid, kThreads, smem_bytes(a.F, a.n_plan, 0), st>>>(
       a.bufs, static_cast<const I*>(a.ids), static_cast<const int64_t*>(a.cols),
-      static_cast<const int2*>(a.pos), grad, a.B, a.T, a.n_plan, a.F, a.rows, a.stripes,
+      static_cast<const int2*>(a.pos), grad, a.B, a.T, a.n_plan, a.F, a.stripes,
       a.stripe_height, a.row_lo, a.rows_local);
   return cudaGetLastError();
 }
@@ -937,18 +1066,19 @@ extern "C" int fr_lookup_fused_bags(const void* const* bufs, const void* const* 
 // buffers laid out as the packed buffers (the class buffers, then the take
 // buffer), which it adds into; ids [B, T] int32 (ids_64 = 0) or int64; cols /
 // pos: lookup_tensors' descriptors; grad [B, F] float32, the features'
-// cotangent; rows / grid from ops/lookup.py::launch_shape; row_lo /
-// rows_local: the take gradient buffer's row window (0 / INT64_MAX: the whole
-// buffer).
+// cotangent; grid from ops/lookup.py::backward_plan; vec: 16-byte loads and
+// reductions (F a multiple of 4, grad and every gradient buffer 16-byte
+// aligned); row_lo / rows_local: the take gradient buffer's row window (0 /
+// INT64_MAX: the whole buffer).
 extern "C" int fr_lookup_fused_backward(void* const* grads, int n_bufs, const void* ids,
                                         int ids_64, const void* cols, const void* pos,
                                         const void* grad, int64_t B, int T, int n_plan, int F,
-                                        int rows, int grid, int64_t stripes,
+                                        int grid, int vec, int64_t stripes,
                                         int64_t stripe_height, int64_t row_lo,
                                         int64_t rows_local, void* stream) {
-  if (n_bufs < 1 || n_bufs > kMaxBufs || B < 1 || B > INT32_MAX || rows < 1 || grid < 1 ||
-      (int64_t)rows * F > INT32_MAX / 2 || (int64_t)rows * n_plan > INT32_MAX / 2 ||
-      smem_bytes(F, n_plan, rows) > kSmemMax || stripes < 1 || row_lo < 0 || rows_local < 0)
+  if (n_bufs < 1 || n_bufs > kMaxBufs || B < 1 || B > INT32_MAX || grid < 1 ||
+      (int64_t)B * F > INT32_MAX / 2 || smem_bytes(F, n_plan, 0) > kSmemMax || stripes < 1 ||
+      row_lo < 0 || rows_local < 0 || (vec && F % 4 != 0))
     return (int)cudaErrorInvalidValue;
   Args a = {};
   for (int i = 0; i < n_bufs; ++i) a.bufs.ptr[i] = grads[i];
@@ -959,7 +1089,6 @@ extern "C" int fr_lookup_fused_backward(void* const* grads, int n_bufs, const vo
   a.T = T;
   a.n_plan = n_plan;
   a.F = F;
-  a.rows = rows;
   a.grid = grid;
   a.stripes = stripes;
   a.stripe_height = stripe_height;
@@ -967,5 +1096,12 @@ extern "C" int fr_lookup_fused_backward(void* const* grads, int n_bufs, const vo
   a.rows_local = rows_local;
   const float* g = static_cast<const float*>(grad);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(ids_64 ? launch_backward<int64_t>(a, g, st) : launch_backward<int32_t>(a, g, st));
+  cudaError_t err;
+  if (vec)
+    err = ids_64 ? launch_backward<int64_t, true>(a, g, st)
+                 : launch_backward<int32_t, true>(a, g, st);
+  else
+    err = ids_64 ? launch_backward<int64_t, false>(a, g, st)
+                 : launch_backward<int32_t, false>(a, g, st);
+  return (int)err;
 }

@@ -55,17 +55,21 @@ buffer, as on one device.
 the packed buffers, for training (the port of the VJP XLA derives from
 ``lookup_concat`` in the JAX package): the third kernel of
 ``lookup_fused.cu`` walks the same descriptors and adds each cotangent
-into the element its output column read, with float32 atomics;
-``lookup_fused_backward_plain`` does the same with ``index_add_``.  It
-takes the same ``window``, for one model shard's training step
-(``ShardedFleetRec.train_step``): the take gradient is the shard's
-``rows_local`` rows, and a take row outside the window adds nothing.
+into the element its output column read, as float32 reductions into
+device memory, 16 bytes at a time where 4 output columns are one aligned
+word of one row, in one pass over the batch whose grid ``backward_plan``
+gives.  ``lookup_fused_backward_plain`` computes the same sums with
+``index_add_``.  It takes the same ``window``, for one model shard's
+training step (``ShardedFleetRec.train_step``): the take gradient is the
+shard's ``rows_local`` rows, and a take row outside the window adds
+nothing.
 ``LookupFunction`` is the ``torch.autograd.Function`` that pairs the two.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional, Sequence, Tuple
 
@@ -565,19 +569,54 @@ def lookup_fused_backward_plain(grad_out: torch.Tensor, ids: torch.Tensor,
 def _entry_backward():
     fn = _build.kernels().fr_lookup_fused_backward
     fn.restype = ctypes.c_int
+    # grads, n_bufs, ids, ids_64, cols, pos, grad; B; T, n_plan, F, grid,
+    # vec; stripes, stripe_height, row_lo, rows_local; the stream
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_void_p]
+                   *[ctypes.c_int] * 5, *[ctypes.c_int64] * 4, ctypes.c_void_p]
     return fn
+
+
+# The backward's grid: a block a 256 (row, 4 columns) units, at most
+# BACKWARD_BLOCKS_PER_SM an SM.  On an H100 at B=4096 (utils/backward_sweep.py,
+# PERF.md) 3 an SM beat 2 and 4 at model1, whole and on shard 0 of 2, and at
+# dlrm_terabyte, although 4 fit on an SM at once.
+BACKWARD_BLOCKS_PER_SM = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """The backward kernel's launch shape (``backward_plan``): ``grid``
+    blocks of 256 threads walk the batch's (row, 4 output columns) units
+    grid-stride; ``vec``: 16-byte loads and reductions where the operands
+    allow them (else one float at a time)."""
+
+    grid: int
+    vec: bool = True
+
+
+def backward_plan(cols, pos, B: int, sm_count: int,
+                  blocks_per_sm: int = BACKWARD_BLOCKS_PER_SM, vec: bool = True) -> BackwardPlan:
+    """The backward kernel's launch shape for descriptors ``cols`` / ``pos``
+    (``lookup_tensors``'; tensors or arrays) and B batch rows on a card of
+    ``sm_count`` SMs: a block a 256 units, at most ``blocks_per_sm`` an SM,
+    and at least one.  Raises when a block's shared memory (the output and
+    plan columns' descriptors) does not fit."""
+    n_plan, F = cols.shape[0], pos.shape[0]
+    if smem_bytes(F, n_plan, 0) > SMEM_BYTES:
+        raise ValueError(f"the backward of feature_dim {F} with {n_plan} index columns needs "
+                         f"{smem_bytes(F, n_plan, 0)} bytes of shared memory a block, more "
+                         f"than {SMEM_BYTES}")
+    units = B * (F // 4 if F % 4 == 0 else F)
+    return BackwardPlan(max(1, min(blocks_per_sm * sm_count, -(-units // 256))), vec)
 
 
 def lookup_fused_backward(grad_out: torch.Tensor, ids: torch.Tensor,
                           bufs: Sequence[torch.Tensor], cols: torch.Tensor,
                           pos: torch.Tensor, stripes: int = 1, stripe_height: int = 0,
                           out: Optional[Sequence[torch.Tensor]] = None,
-                          window: Optional[Tuple[int, int]] = None) -> list:
+                          window: Optional[Tuple[int, int]] = None,
+                          plan: Optional[BackwardPlan] = None) -> list:
     """The gradient of ``lookup_fused``'s features with respect to the packed
     buffers: the cotangent ``grad_out`` [B, feature_dim] (float32 or
     bfloat16) and ``lookup_fused``'s ids, float buffers (classes, then the
@@ -594,10 +633,12 @@ def lookup_fused_backward(grad_out: torch.Tensor, ids: torch.Tensor,
     docstring); the take buffer given is the shard's.
 
     On a CUDA tensor it launches the backward kernel of ``lookup_fused.cu``
-    or raises (its atomic float adds sum in an order that changes from run
-    to run: bit-equal to ``lookup_fused_backward_plain`` on integer
-    cotangents whose sums stay below 2^24); on a CPU tensor it runs
-    ``lookup_fused_backward_plain``."""
+    once, in the shape ``plan`` gives (by default ``backward_plan``'s), or
+    raises: float32 reductions into device memory, 16 bytes at a time where
+    4 output columns are one aligned word of one row, summed in an order
+    that changes from run to run (bit-equal to
+    ``lookup_fused_backward_plain`` on integer cotangents whose sums stay
+    below 2^24).  On a CPU tensor it runs ``lookup_fused_backward_plain``."""
     _check_backward(grad_out, ids, bufs, cols, pos, out, window)
     if ids.device.type == "cpu":
         return lookup_fused_backward_plain(grad_out, ids, bufs, cols, pos, stripes,
@@ -614,14 +655,17 @@ def lookup_fused_backward(grad_out: torch.Tensor, ids: torch.Tensor,
     n_plan, F = cols.shape[0], pos.shape[0]
     if B:
         dev = ids.device
-        rows, grid = launch_shape(B, F, n_plan, _sm_count(dev.index or 0))
+        plan = plan or backward_plan(cols, pos, B, _sm_count(dev.index or 0))
+        # 16-byte cotangent loads and sums where 4 columns are one aligned word
+        vec = plan.vec and F % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in [g, *grads])
         ptrs = (ctypes.c_void_p * len(grads))(*[t.data_ptr() for t in grads])
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             rc = _entry_backward()(ptrs, len(grads), ids.data_ptr(),
                                    int(ids.dtype == torch.int64), cols.data_ptr(),
-                                   pos.data_ptr(), g.data_ptr(), B, T, n_plan, F, rows, grid,
-                                   stripes, stripe_height, *(window or _WHOLE), stream)
+                                   pos.data_ptr(), g.data_ptr(), B, T, n_plan, F, plan.grid,
+                                   int(vec), stripes, stripe_height, *(window or _WHOLE),
+                                   stream)
         _build.check(rc, "lookup_fused_backward")
         lookup_fused_backward.launches += 1
     return _finish(grads, bufs, out)

@@ -204,3 +204,24 @@ def test_port_names_no_path_under_fleetrec_tpu():
                 if text.strip("/\\") == "fleetrec_tpu" or re.search(r"fleetrec_tpu[/\\]", text):
                     bad.append(f"{path.relative_to(REPO)}:{node.lineno} {node.value!r}")
     assert not bad, bad
+
+
+@pytest.mark.parametrize("where", ["port", "tests"])
+def test_no_module_defines_a_function_or_class_twice(where):
+    """AST scan of the port's modules, chip_smoke.py and chip_mesh.py, or of
+    the port's test modules: no module or class body defines one name twice
+    (the later definition would hide the earlier, and pytest would collect
+    only the later of two tests of one name)."""
+    files = (_port_files() if where == "port" else
+             sorted((REPO / "tests").glob("test_torch_*.py")) + [REPO / "tests/torch_variants.py"])
+    assert len(files) > 10
+    bad = []
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if not isinstance(node, (ast.Module, ast.ClassDef)):
+                continue
+            names = [n.name for n in node.body
+                     if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))]
+            bad += [f"{path.relative_to(REPO)}: {n}" for n in set(names) if names.count(n) > 1]
+    assert not bad, bad

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import GB_FLAGS, bags_with_bad, bits, ids_with_bad, ragged_rings
+from chip_smoke import (BACKWARD_TOL, GB_FLAGS, ID_DRAWS, bags_with_bad, bits, draw_ids,
+                        ids_with_bad, order_bound, ragged_rings, within)
 from fleetrec_tpu_torch import config as TC
 from fleetrec_tpu_torch import reference as ref
 from fleetrec_tpu_torch.config import MLPSpec
@@ -250,17 +251,37 @@ def test_interaction_heads_match_the_oracle_on_card(cuda, name):
     np.testing.assert_array_equal(got, want.astype(np.float32))
 
 
+def _check_backward_pair(got, want, kind, what, bounds=None):
+    """Kernel against plain gradients: bit-equal on integer cotangents
+    (every float32 sum an integer below 2^24, exact in any order of the
+    adds, then rounded once to the storage dtype by both), within rtol 1e-5
+    / atol 1e-4 on uniform ones (float32 sums of a few terms in another
+    order), and for bfloat16 within one bfloat16 rounding of those sums
+    (rtol 2^-7).  ``bounds``: chip_smoke.order_bound's, added to the
+    tolerance for a draw that puts up to B terms on one element."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and a.shape == b.shape, what
+        if kind == "integer":
+            assert torch.equal(bits(a), bits(b)), what
+        elif bounds is not None:
+            tol = BACKWARD_TOL[a.dtype]
+            assert within(a, b, tol, bounds[i]), what
+        elif a.dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+        else:
+            torch.testing.assert_close(a.float(), b.float(), rtol=2.0 ** -7, atol=1e-4)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", LAYOUT_CASES + ["criteo"])
+@pytest.mark.parametrize("name", LAYOUT_CASES + ["criteo", "narrow"])
 def test_lookup_backward_kernel_matches_plain_on_card(cuda, name):
     """lookup_fused_backward (one launch a call) against
     lookup_fused_backward_plain on the same operands, float32 and bfloat16
     storage, int32 and int64 ids with bad ones (which add nothing), B = the
-    config's and 3000: bit-equal on integer cotangents (every float32 sum an
-    integer below 2^24, exact in any order of the atomic adds, then rounded
-    once to the storage dtype by both), within rtol 1e-5 / atol 1e-4 on
-    uniform ones (float32 sums of up to B terms in another order), and for
-    bfloat16 within one bfloat16 rounding of those sums (rtol 2^-7)."""
+    config's and 3000, by _check_backward_pair; at B = 3000 also every id 0
+    and skewed ids (chip_smoke.draw_ids), and ``out=`` float32 sums that
+    already hold integers, which the kernel adds into (bit-equal to the
+    plain version's, and to the prior sums plus a zeroed call's)."""
     rng = np.random.default_rng(13)
     for table_dtype in ("bfloat16",) if name == "criteo" else ("float32", "bfloat16"):
         cfg = dataclasses.replace(variant(name, TC), table_dtype=table_dtype)
@@ -268,8 +289,10 @@ def test_lookup_backward_kernel_matches_plain_on_card(cuda, name):
         ops = model.lookup_operands()
         args = (ops["bufs"], ops["cols"], ops["pos"], ops["stripes"], ops["stripe_height"])
         F = model.layout.feature_dim
-        for B in (cfg.batch_size, 3000):
-            ids = torch.from_numpy(ids_with_bad(cfg, B, rng))
+        draws = [(B, "uniform", torch.from_numpy(ids_with_bad(cfg, B, rng)))
+                 for B in (cfg.batch_size, 3000)]
+        draws += [(3000, d, torch.from_numpy(draw_ids(cfg, 3000, rng, d))) for d in ID_DRAWS[1:]]
+        for B, draw, ids in draws:
             for idt in (torch.int32, torch.int64):
                 idx = ids.to(cuda, idt)
                 for kind in ("integer", "uniform"):
@@ -280,22 +303,64 @@ def test_lookup_backward_kernel_matches_plain_on_card(cuda, name):
                     got = lookup_fused_backward(g, idx, *args)
                     assert lookup_fused_backward.launches == before + 1
                     want = lookup_fused_backward_plain(g, idx, *args)
+                    bounds = (order_bound(g, idx, *args)
+                              if kind == "uniform" and draw != "uniform" else None)
                     torch.cuda.synchronize()
-                    what = (name, table_dtype, B, idt, kind)
-                    for a, b in zip(got, want):
-                        assert a.dtype == b.dtype and a.shape == b.shape, what
-                        if kind == "integer":
-                            assert torch.equal(bits(a), bits(b)), what
-                        elif table_dtype == "float32":
-                            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
-                        else:
-                            torch.testing.assert_close(a.float(), b.float(), rtol=2.0 ** -7,
-                                                       atol=1e-4)
+                    _check_backward_pair(got, want, kind, (name, table_dtype, B, draw, idt, kind),
+                                         bounds)
+                    if kind == "integer" and idt == torch.int32 and B == 3000:
+                        prior = [torch.from_numpy(rng.integers(-50, 51, b.numel()).astype(
+                            np.float32)).to(cuda) for b in ops["bufs"]]
+                        into = lookup_fused_backward(g, idx, *args, out=[p.clone() for p in prior])
+                        plain = lookup_fused_backward_plain(g, idx, *args,
+                                                            out=[p.clone() for p in prior])
+                        zeroed = lookup_fused_backward(g, idx, *args,
+                                                       out=[torch.zeros_like(p) for p in prior])
+                        torch.cuda.synchronize()
+                        for a, b, z, p in zip(into, plain, zeroed, prior):
+                            assert torch.equal(bits(a), bits(b)), (name, table_dtype, draw, "out=")
+                            assert torch.equal(a, z + p), (name, table_dtype, draw, "out=")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["micro", "qr", "micro_dlrm", "narrow"])
+def test_backward_kernel_one_float_at_a_time_on_card(cuda, name):
+    """The backward kernel without its 16-byte loads and reductions, in a
+    plan with ``vec=False`` and with ``out=`` sums that start 4 bytes past
+    a 16-byte boundary (which the wrapper must take one float at a time),
+    against the plain version, every draw: integer cotangents bit-equal,
+    uniform ones within _check_backward_pair's tolerances."""
+    from fleetrec_tpu_torch.ops import lookup as tlk
+
+    rng = np.random.default_rng(15)
+    cfg = dataclasses.replace(variant(name, TC), table_dtype="float32")
+    model = init_model(cfg, device=cuda)
+    ops = model.lookup_operands()
+    args = (ops["bufs"], ops["cols"], ops["pos"], ops["stripes"], ops["stripe_height"])
+    B, F = 3000, model.layout.feature_dim
+    plan = tlk.backward_plan(ops["cols"], ops["pos"], B, torch.cuda.get_device_properties(
+        cuda).multi_processor_count, vec=False)
+    for draw in ID_DRAWS:
+        idx = torch.from_numpy(draw_ids(cfg, B, rng, draw)).to(cuda)
+        for kind in ("integer", "uniform"):
+            ct = rng.integers(-1, 2, (B, F)) if kind == "integer" else rng.uniform(-1, 1, (B, F))
+            g = torch.from_numpy(ct.astype(np.float32)).to(cuda)
+            want = lookup_fused_backward_plain(g, idx, *args)
+            bounds = (order_bound(g, idx, *args)
+                      if kind == "uniform" and draw != "uniform" else None)
+            got = lookup_fused_backward(g, idx, *args, plan=plan)
+            off = [torch.zeros(b.numel() + 1, device=cuda)[1:] for b in ops["bufs"]]
+            assert all(o.data_ptr() % 16 for o in off)
+            lookup_fused_backward(g, idx, *args, out=off)
+            torch.cuda.synchronize()
+            _check_backward_pair(got, want, kind, (name, draw, kind, "vec=False"), bounds)
+            _check_backward_pair([o.view(w.shape) for o, w in zip(off, want)], want, kind,
+                                 (name, draw, kind, "unaligned out="), bounds)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [2, 4])
-@pytest.mark.parametrize("name", LAYOUT_CASES + ["criteo"])
+@pytest.mark.parametrize("name", LAYOUT_CASES + ["criteo", "narrow"])
 def test_window_backward_kernel_matches_plain_on_card(cuda, name, M):
     """lookup_fused_backward in its row-window form (model shard m of M:
     shard_operands' class slices, take window and descriptors; one launch a
@@ -303,44 +368,44 @@ def test_window_backward_kernel_matches_plain_on_card(cuda, name, M):
     and bfloat16: integer cotangents bit-equal, uniform ones within the
     unwindowed test's tolerances; the shards' integer gradients, placed at
     their tables and rows, are the unsharded kernel's bit for bit, the pad
-    tables and rows 0."""
+    tables and rows 0.  Every draw of chip_smoke.ID_DRAWS (uniform with bad
+    ids, every id 0, skewed)."""
     rng = np.random.default_rng(14)
     for table_dtype in ("bfloat16",) if name == "criteo" else ("float32", "bfloat16"):
         cfg = dataclasses.replace(variant(name, TC), table_dtype=table_dtype)
         model = init_model(cfg, device=cuda)
         ops = model.lookup_operands()
         B, F = 3000, model.layout.feature_dim
-        idx = torch.from_numpy(ids_with_bad(cfg, B, rng)).to(cuda)
         dtype = ops["bufs"][0].dtype
-        cts = {kind: torch.from_numpy(
-            (rng.integers(-1, 2, (B, F)) if kind == "integer" else rng.uniform(-1, 1, (B, F)))
-            .astype(np.float32)).to(cuda, dtype) for kind in ("integer", "uniform")}
-        whole = lookup_fused_backward(cts["integer"], idx, ops["bufs"], ops["cols"], ops["pos"],
-                                      ops["stripes"], ops["stripe_height"])
-        placed = [[] for _ in whole]
-        for m in range(M):
-            s = shard_operands(model, m, M, cuda)
-            args = (s["bufs"], s["cols"], s["pos"], s["stripes"], s["stripe_height"])
-            for kind, ct in cts.items():
-                before = lookup_fused_backward.launches
-                got = lookup_fused_backward(ct, idx, *args, window=s["window"])
-                assert lookup_fused_backward.launches == before + 1
-                want = lookup_fused_backward_plain(ct, idx, *args, window=s["window"])
-                torch.cuda.synchronize()
-                what = (name, table_dtype, M, m, kind)
-                for i, (a, b) in enumerate(zip(got, want)):
-                    assert a.dtype == b.dtype and a.shape == b.shape, what
+        shards = [shard_operands(model, m, M, cuda) for m in range(M)]
+        for draw in ID_DRAWS:
+            idx = torch.from_numpy(ids_with_bad(cfg, B, rng) if draw == "uniform"
+                                   else draw_ids(cfg, B, rng, draw)).to(cuda)
+            cts = {kind: torch.from_numpy(
+                (rng.integers(-1, 2, (B, F)) if kind == "integer" else rng.uniform(-1, 1, (B, F)))
+                .astype(np.float32)).to(cuda, dtype) for kind in ("integer", "uniform")}
+            whole = lookup_fused_backward(cts["integer"], idx, ops["bufs"], ops["cols"],
+                                          ops["pos"], ops["stripes"], ops["stripe_height"])
+            placed = [[] for _ in whole]
+            for m, s in enumerate(shards):
+                args = (s["bufs"], s["cols"], s["pos"], s["stripes"], s["stripe_height"])
+                for kind, ct in cts.items():
+                    before = lookup_fused_backward.launches
+                    got = lookup_fused_backward(ct, idx, *args, window=s["window"])
+                    assert lookup_fused_backward.launches == before + 1
+                    want = lookup_fused_backward_plain(ct, idx, *args, window=s["window"])
+                    bounds = (order_bound(ct, idx, *args, window=s["window"])
+                              if kind == "uniform" and draw != "uniform" else None)
+                    torch.cuda.synchronize()
+                    _check_backward_pair(got, want, kind, (name, table_dtype, draw, M, m, kind),
+                                         bounds)
                     if kind == "integer":
-                        assert torch.equal(bits(a), bits(b)), what
-                        placed[i].append(a)
-                    elif table_dtype == "float32":
-                        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
-                    else:
-                        torch.testing.assert_close(a.float(), b.float(), rtol=2.0 ** -7, atol=1e-4)
-        for w, parts in zip(whole, placed):
-            cat = torch.cat(parts)
-            assert torch.equal(bits(cat[:w.shape[0]]), bits(w)), (name, table_dtype, M)
-            assert not cat[w.shape[0]:].any(), (name, table_dtype, M)
+                        for i, a in enumerate(got):
+                            placed[i].append(a)
+            for w, parts in zip(whole, placed):
+                cat = torch.cat(parts)
+                assert torch.equal(bits(cat[:w.shape[0]]), bits(w)), (name, table_dtype, draw, M)
+                assert not cat[w.shape[0]:].any(), (name, table_dtype, draw, M)
 
 
 @pytest.mark.cuda

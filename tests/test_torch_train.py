@@ -22,6 +22,7 @@ import optax
 import pytest
 import torch
 
+from chip_smoke import ID_DRAWS, draw_ids
 from fleetrec_tpu import config as JC
 from fleetrec_tpu import reference as jref
 from fleetrec_tpu.models import FleetRecModel as JModel
@@ -132,15 +133,17 @@ def test_int8_tables_are_refused():
                                                                 table_dtype="int8"))[1])
 
 
+@pytest.mark.parametrize("draw", ID_DRAWS)
 @pytest.mark.parametrize("table_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", LAYOUT_CASES)
-def test_lookup_backward_matches_jax_vjp(name, table_dtype):
+def test_lookup_backward_matches_jax_vjp(name, table_dtype, draw):
     """lookup_fused_backward (plain on the CPU) against jax.vjp of JAX's
     lookup_concat(packed, plan_indices(ids), dense) with respect to the
     packed buffers, and against autograd through lookup_fused_plain, on pm1
     tables (the lookup is linear in the tables: its gradient reads no table
     value): small integer cotangents bit-equal, uniform ones within the
-    dtype's tolerance."""
+    dtype's tolerance.  ``draw``: the ids, uniform, every id 0 (every
+    cotangent of a table on one row) or skewed (chip_smoke.draw_ids)."""
     jc = dataclasses.replace(variant(name, JC), table_dtype=table_dtype)
     tc = dataclasses.replace(variant(name, TC), table_dtype=table_dtype)
     dt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[table_dtype]
@@ -148,6 +151,8 @@ def test_lookup_backward_matches_jax_vjp(name, table_dtype):
     rng = np.random.default_rng(21)
     jm, jp, model = _pair(jc, tc, table_scheme="pm1")
     idx, dense, _ = _batch(jc, B, 22)
+    if draw != "uniform":
+        idx = draw_ids(tc, B, np.random.default_rng(23), draw)
     gi = jm.plan_indices(jnp.asarray(idx))
     vjp = jax.jit(lambda packed, ct: jax.vjp(
         lambda p: jemb.lookup_concat(p, gi, _j(dense)), packed)[1](ct)[0])
@@ -168,7 +173,7 @@ def test_lookup_backward_matches_jax_vjp(name, table_dtype):
         auto = torch.autograd.grad(feats, leaves, ct_t, retain_graph=True)
         assert len(got) == len(want) == len(auto)
         for i, (g, w, a) in enumerate(zip(got, want, auto)):
-            what = f"{name} {table_dtype} {kind} buffer {i}"
+            what = f"{name} {table_dtype} {draw} {kind} buffer {i}"
             assert g.dtype == ops["bufs"][i].dtype and g.shape == ops["bufs"][i].shape, what
             if kind == "integer":
                 np.testing.assert_array_equal(_bits(g), _bits(w), err_msg=what)

@@ -71,6 +71,13 @@ def variant(name, C):
         # one layer: two all-ones rank-4 layers pass 2^24, where fp32
         # integer sums stop being exact
         return C.micro_cross(batch_size=32, cross_layers=1, cross_rank=4)
+    if name == "narrow":
+        # rows 1, 2, 4 and 8 wide: output quads that straddle two tables,
+        # which the backward kernel adds column by column
+        base = C.micro_test(batch_size=24)
+        dims = (1, 2, 1, 4, 8, 2, 1, 1)
+        return dataclasses.replace(base, tables=tuple(
+            dataclasses.replace(t, dim=d) for t, d in zip(base.tables, dims)))
     if name == "criteo":
         # criteo's geometry (bf16, 16 stripes, 845-wide features, a factored
         # class and a take group) with rows capped at 40000

@@ -84,9 +84,12 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
    (``pooled_lookup_concat(plan_bags(ids))`` and ``pooled_bad_rows``) on
    model1 at full rows (B = 4096 and 1024, L = 8 and 1), model3 (int8), the
    criteo-shaped config (bf16, the element path) and the QR variant at
-   L = 4, sum and mean pooling, int32 and int64 ids with padding, empty
-   bags, ids below -1 and out-of-range ids; L = 1 bit-equal to
-   ``lookup_fused``; model1's pooled forward at B = 4096, L = 8 bit-equal
+   L = 4, model1 and the criteo-shaped config at L = 3 (tiles of ids that
+   start and end off 16-byte lines), sum and mean pooling, int32 and int64
+   ids with padding, empty bags, ids below -1 and out-of-range ids; bags
+   whose only members are out of range (+0, their rows flagged) and bags
+   whose first member reads -0.0 (micro_test, float32 and bfloat16: the
+   sign kept); L = 1 bit-equal to ``lookup_fused``; model1's pooled forward at B = 4096, L = 8 bit-equal
    to the float64 oracle (sum; mean within rtol 1e-5 and atol 352 * 2^-24 *
    max|oracle|), NaN on exactly the
    rows with a bad take id, 1 ``lookup_fused_bags``, 0 ``lookup_fused``, 0
@@ -161,7 +164,8 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
    widths, B = 4096 and 1024, and at dlrm's bottom and top towers (ReLU)
    at B = 4096, ``lookup_fused`` at model1 B = 1024 and 4096, model3 and
    dlrm B = 4096, and ``lookup_fused_bags`` at model1 B = 4096 and 1024 for
-   L = 1, 4, 8 and model3 L = 4, each beside the path it replaced, and
+   L = 1, 4, 8 and model3 L = 4, each beside the path it replaced and the
+   kernel on the id draws every id 0 and skewed (``draw_bags``), and
    both in their window form on phase 12's shard 0 of 2 (bound at the
    shard's bytes; the backward's window form too, beside ``index_add_``
    into the shard's sums) (CUDA events over
@@ -705,6 +709,29 @@ def make_bags(cfg, B, L, seed=0, all_empty_row=None):
     return idx, dense
 
 
+# the bag lookup's id draws: loadgen's prefixes of uniform ids, every id 0
+# (every slot a member reading row 0), loadgen's prefixes of skewed ids
+BAG_DRAWS = ("loadgen", "ids0", "skew")
+
+
+def draw_bags(cfg, B: int, L: int, draw: str, seed: int = 0) -> np.ndarray:
+    """Bags [B, T, L] int32 of one draw of BAG_DRAWS: ``loadgen`` is
+    ``make_bags``' ids, ``ids0`` every id 0, ``skew`` the same prefixes as
+    ``loadgen`` holding ``(zipf(1.1) - 1) % rows`` draws per table (as
+    ``draw_ids``' skew)."""
+    idx = make_bags(cfg, B, L, seed)[0]
+    if draw == "loadgen":
+        return idx
+    if draw == "ids0":
+        return np.zeros_like(idx)
+    if draw == "skew":
+        rng = np.random.default_rng(seed + 1)
+        rows = np.asarray([t.rows for t in cfg.tables])
+        zipf = ((rng.zipf(1.1, idx.shape) - 1) % rows[None, :, None]).astype(np.int32)
+        return np.where(idx >= 0, zipf, idx)
+    raise KeyError(draw)
+
+
 def pooled_oracle(cfg, tables, weights, idx, dense, mean=False):
     """float64 scores of bags [B, T, L] (a negative id is padding): per
     table the sum (mean: over its members) of the rows its bag reads at the
@@ -1233,6 +1260,62 @@ def check_bags(model, idx, dense, mean, what) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
+def check_bag_edges(model1, dev) -> float:
+    """Two bag cases by check_bags.  (a) On model1 (full rows), B_SERVE bags
+    of BAG_L from bags_with_bad, with every bag of row 6 holding only
+    out-of-range ids and row 7 one such bag, the rest empty: those bags give
+    +0 (every bit 0) and, through the take tables, flag their rows; sum and
+    mean, int32 and int64.  (b) micro_test in float32 and bfloat16 with one
+    class row set to -0.0: a bag whose only member reads it, one with a hole
+    before it, one of two such members and one of -0.0 after +0.0; the
+    kernel keeps -0.0 where the sum starts from it (+0.0 for the last), sum
+    and mean.  Returns the worst error against the plain version (0)."""
+    rng = np.random.default_rng(17)
+    cfg = model1.cfg
+    rows = np.asarray([t.rows for t in cfg.tables])
+    ids = bags_with_bad(cfg, B_SERVE, BAG_L, rng)
+    ids[6] = rows[:, None]
+    ids[7] = -1
+    ids[7, _take_columns(cfg)[0], :] = rows[_take_columns(cfg)[0]]
+    worst = 0.0
+    for idt in (torch.int32, torch.int64):
+        idx = torch.from_numpy(ids).to(dev, idt)
+        for mean in (False, True):
+            worst = max(worst, check_bags(model1, idx, None, mean,
+                                          f"out-of-range-only bags {idt} mean={mean}"))
+            got, bad = model1.lookup_pooled(idx, None, mean)
+            if bits(got[6:8]).any() or not bool(bad[6]) or not bool(bad[7]):
+                raise AssertionError("bags of only out-of-range members: not +0 and flagged")
+    for table_dtype in ("float32", "bfloat16"):
+        mcfg = dataclasses.replace(C.micro_test(batch_size=8), table_dtype=table_dtype)
+        micro = init_model(mcfg, table_scheme="uniform", device=dev)
+        ops = micro.lookup_operands()
+        c0 = ops["cols"][0].tolist()
+        f = {name: c0[i] for i, name in enumerate(LOOKUP_COL_FIELDS)}
+        if f["kind"] != lookup_mod.KIND_CLASS:
+            raise AssertionError("micro_test's plan column 0 is not a class column")
+        buf = ops["bufs"][f["buf"]].view(-1)
+        buf[(f["base"] + 2) * f["dim"]:(f["base"] + 3) * f["dim"]] = 0.0
+        buf[(f["base"] + 1) * f["dim"]:(f["base"] + 2) * f["dim"]] = -0.0
+        ids = np.full((8, mcfg.num_tables, 3), -1, np.int32)
+        ids[0, f["src"], 0] = 1
+        ids[1, f["src"], 1] = 1
+        ids[2, f["src"], :2] = 1
+        ids[3, f["src"], :2] = (2, 1)
+        dense = _dense(micro.layout.dense_dim, 8, rng, dev)
+        col = ((ops["pos"][:, 0] & 0xFFFF) ^ 0x8000) - 0x8000
+        outs = torch.nonzero(col == 0).flatten()
+        for mean in (False, True):
+            idx = torch.from_numpy(ids).to(dev)
+            worst = max(worst, check_bags(micro, idx, dense, mean,
+                                          f"-0.0 first member {table_dtype} mean={mean}"))
+            got, _ = micro.lookup_pooled(idx, dense, mean)
+            sign = torch.signbit(got[:4][:, outs].float()).all(dim=1).tolist()
+            if sign != [True, True, True, False]:
+                raise AssertionError(f"-0.0 first members: signs {sign} ({table_dtype})")
+    return worst
+
+
 def _take_columns(cfg):
     """The config-order columns of the take tier's tables."""
     return [j for j, t in enumerate(cfg.tables)
@@ -1307,6 +1390,10 @@ def phase_bags(dev, model1, tabs, ws, models):
                  for L in (BAG_L, 1)]
         cases += [(name, models[name], B_TIME, BAG_L_SMALL)
                   for name in ("fleetrec_model3", "criteo_terabyte", "qr")]
+        # L = 3: a tile's ids start and end off 16-byte lines (the ring's
+        # unaligned ends)
+        cases += [("fleetrec_model1", (cfg1, model1), B_TIME, 3),
+                  ("criteo_terabyte", models["criteo_terabyte"], B_TIME, 3)]
         n_checks = 0
         for name, (cfg, model), B, L in cases:
             ids = bags_with_bad(cfg, B, L, rng)
@@ -1326,12 +1413,16 @@ def phase_bags(dev, model1, tabs, ws, models):
                 same_bad = (bad is None and one_bad is None) or torch.equal(bad, one_bad)
                 if not torch.equal(bits(got), bits(one)) or not same_bad:
                     raise AssertionError(f"L = 1 differs from lookup_fused: {name} B={B}")
+        worst = max(worst, check_bag_edges(model1, dev))
         notes.append(f"(1) lookup_fused_bags bit-equal to its plain version and within "
                      f"tolerance of the replaced path in {n_checks} checks: model1 full rows "
                      f"B={B_TIME} / {B_SERVE} x L={BAG_L} / 1, model3 (int8), criteo-shaped "
                      f"(bf16, element path) and the QR variant at B={B_TIME} L={BAG_L_SMALL}, "
-                     f"each int32 / int64 ids x sum / mean, with padding, empty bags, ids "
-                     f"below -1 and out-of-range ids; L=1 == lookup_fused (max_abs_err {worst})")
+                     f"model1 and criteo-shaped at L=3 (unaligned id runs), each int32 / int64 "
+                     f"ids x sum / mean, with padding, empty bags, ids below -1 and "
+                     f"out-of-range ids; bags of only out-of-range members (+0, take rows "
+                     f"flagged) and a first member of -0.0 (the sign kept); L=1 == "
+                     f"lookup_fused (max_abs_err {worst})")
 
         idx, _ = make_bags(cfg1, B_TIME, BAG_L, seed=13, all_empty_row=3)
         idx_t = torch.from_numpy(idx).to(dev)
@@ -3322,12 +3413,14 @@ def phase_report(cfg, model, dev, gb, lookups, windows):
                           f"{m.layout.feature_dim} wide, dense {m.layout.dense_dim}, int32 ids, "
                           f"{nbytes} B counted once", None, bound(nbytes), replaced))
         # the bag lookups: bags as loadgen --bag-l draws them (a prefix of
-        # 1 .. L members), beside the path the kernel replaced and the same
+        # 1 .. L members), beside the path the kernel replaced, the same
         # kernel with every id 0 (every slot a member reading one cached row)
+        # and on loadgen's prefixes of skewed ids (draw_bags)
+        skew = {}
         for name, B, L in [("fleetrec_model1", B, L) for B in (B_TIME, 1024) for L in BAG_LS
                            ] + [("fleetrec_model3", B_TIME, BAG_L_SMALL)]:
             lcfg, m = lookups[name]
-            ids = torch.from_numpy(make_bags(lcfg, B, L, seed=15 + L)[0]).to(dev)
+            ids = torch.from_numpy(draw_bags(lcfg, B, L, "loadgen", seed=15 + L)).to(dev)
             dense = _dense(m.layout.dense_dim, B, rng, dev)
             nbytes = lookup_bytes(m.lookup_operands(), ids, dense)
             members = int((ids >= 0).sum())
@@ -3338,6 +3431,8 @@ def phase_report(cfg, model, dev, gb, lookups, windows):
 
             label = f"lookup_fused_bags {name} B={B} L={L}"
             ids0[label] = functools.partial(m.lookup_pooled, torch.zeros_like(ids), dense)
+            skew[label] = functools.partial(m.lookup_pooled, torch.from_numpy(
+                draw_bags(lcfg, B, L, "skew", seed=15 + L)).to(dev), dense)
             cases.append((label, functools.partial(m.lookup_pooled, ids, dense),
                           functools.partial(lookup_fused_bags_plain, ids, dense,
                                             **m.lookup_operands()),
@@ -3354,6 +3449,11 @@ def phase_report(cfg, model, dev, gb, lookups, windows):
                 if x is None:
                     continue
                 nbytes = lookup_bytes(ops, x, d)
+                if kernel is lookup_fused_bags:  # its draws: every id 0, loadgen's skew
+                    label = f"{kernel.__name__} window {name}{tag} B={B_TIME}"
+                    ids0[label] = functools.partial(kernel, torch.zeros_like(x), d, **ops)
+                    skew[label] = functools.partial(kernel, torch.from_numpy(draw_bags(
+                        model.cfg, B_TIME, BAG_L, "skew", seed=15 + BAG_L)).to(dev), d, **ops)
                 cases.append((f"{kernel.__name__} window {name}{tag} B={B_TIME}",
                               functools.partial(kernel, x, d, **ops),
                               functools.partial(plain, x, d, **ops),
@@ -3376,6 +3476,7 @@ def phase_report(cfg, model, dev, gb, lookups, windows):
         library = {c[0]: None if c[4] is None else _graph_ms(c[4][1]) for c in cases}
         replaced_ms = {c[0]: _graph_ms(c[6]) for c in cases if c[6] is not None}
         ids0_ms = {label: _graph_ms(fn) for label, fn in ids0.items()}
+        skew_ms = {label: _graph_ms(fn) for label, fn in skew.items()}
         fwd_ms, fwd_graph_ms = {}, {}
         for key, fwd in fwds.items():
             for _ in range(5):
@@ -3401,11 +3502,14 @@ def phase_report(cfg, model, dev, gb, lookups, windows):
                 stats[label]["replaced_ms"] = replaced_ms[label]
                 yardstick = (f"no one PyTorch call computes it; the path it replaced "
                              f"{replaced_ms[label]:.4f} ms")
-                if label in ids0_ms:
-                    stats[label]["ms_ids0"] = ids0_ms[label]
-                    yardstick += f"; the kernel with every id 0 {ids0_ms[label]:.4f} ms"
             else:
                 yardstick = f"{lib[0]} {library[label]:.4f} ms"
+            if label in ids0_ms:
+                stats[label]["ms_ids0"] = ids0_ms[label]
+                yardstick += f"; the kernel with every id 0 {ids0_ms[label]:.4f} ms"
+            if label in skew_ms:
+                stats[label]["ms_skew"] = skew_ms[label]
+                yardstick += f", on skewed ids {skew_ms[label]:.4f} ms"
             log(f"time {label if ' B=' in label else f'{label} B={B_TIME}'}: "
                 f"kernel {kg:.4f} ms{rate}, plain {pg:.4f} ms, {yardstick} "
                 f"(CUDA events over graph replays); bound {bound_ms:.4f} ms ({bound_by}), kernel at "
@@ -3816,10 +3920,11 @@ def main() -> int:
             for tag, label in [(f"b{B}_l{L}", f"lookup_fused_bags fleetrec_model1 B={B} L={L}")
                                for B in (B_TIME, 1024) for L in BAG_LS]
             + [("model3", f"lookup_fused_bags fleetrec_model3 B={B_TIME} L={BAG_L_SMALL}")]
-            for k in ("ms", "plain_ms", "bound_ms", "replaced_ms", "ms_ids0")},
+            for k in ("ms", "plain_ms", "bound_ms", "replaced_ms", "ms_ids0", "ms_skew")},
          "launches_sharded": sharded["launches_pooled"]["lookup_fused_bags"],
          **{f"{k}_window_model1": stats[f"lookup_fused_bags window fleetrec_model1 L={BAG_L} "
-                                        f"B={B_TIME}"][k] for k in ("ms", "plain_ms", "bound_ms")}},
+                                        f"B={B_TIME}"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "ms_ids0", "ms_skew")}},
         # the lookup's backward (training): launches of model1's training run
         # (one a step); times at model1 B_TIME (plain eager: its masks have
         # data-dependent shapes), then dlrm; library_ms one index_add_ of the

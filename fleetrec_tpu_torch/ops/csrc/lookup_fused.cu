@@ -71,15 +71,35 @@
 // is an _rn intrinsic, so none is contracted into a fused multiply-add.  L = 1
 // with no negative id gives the single-id kernel's bits.
 //
-// What bounds it: the random row reads, L of them an element.  Pass 1 gives a
-// thread each (row, plan column, slot): its address in shared memory (null
-// when the slot adds nothing), the bag's count by a shared-memory add (mean
-// only), a take id out of range the row's flag.  Pass 2 walks the output
-// chunks as the single-id kernel does; a thread keeps its chunk's sums in
-// registers and loads kSlots slots' words before it adds them, in order.  L
-// is an argument, bounded only by shared memory: 8 bytes a (row, plan column,
-// slot) and 4 a (row, plan column) on top of the descriptors, so a tile holds
-// fewer rows as L grows (ops/lookup.py::launch_shape).
+// What bounds it: instruction issue and latency, not bytes.  Its first form
+// (a thread each (row, plan column, slot) writing an 8-byte row address, a
+// pass over every slot of every output chunk, padding included) ran at
+// 0.17-0.29 of its byte bound and took 0.73-0.82 of its random-id time with
+// every id 0 (PERF.md).  So the work a member costs is cut and its latency
+// overlapped.  A persistent block walks tiles of `rows` batch rows.  A tile's
+// ids are one contiguous run; one thread brings it into a ring of `stages`
+// slots in shared memory by a bulk async copy (cp.async.bulk, completion on an
+// mbarrier) of its 16-byte aligned body, and warp 0 loads the few ids at its
+// unaligned ends, so the next tiles' ids arrive while this one is pooled.
+// Pass 1 gives a thread each bag (row, plan column): it reads the bag's L ids
+// from the ring in slot order and writes one record, the number of members
+// that add, the mean's 1 / count (its own count of members: no shared-memory
+// atomics) and the 4-byte row number in the column's buffer of each member
+// that adds, in slot order (the buffer and the row width come from the
+// column).  Padding, out-of-range ids and take rows outside the window are
+// left out of the list.  Pass 2 walks the tile's output in order, in runs of
+// one row of one column: a thread reads its bag's record once, issues every
+// member's load of its run (up to kSlots in flight) before the first add, sums
+// from the first member in slot order, and stores 16-byte words.  int8 rows
+// whose 16 (8) output columns are one aligned run of one row move 16 (8)
+// bytes a member and store 64 (32) bytes; the runs are derived from the
+// descriptors while staging.  Lists and flags are double-buffered, so a tile
+// costs one block barrier, and the first tiles' ids are fetched before the
+// descriptors are staged.  On an H100 the kernel is bound by the SMs' rate of
+// scattered row loads (PERF.md): staging the members' loads in shared memory
+// by cp.async, and several runs' loads in flight a thread, were measured and
+// were no faster.  L is an argument, bounded by shared memory (ids
+// and records grow with it: ops/lookup.py::bags_plan).
 //
 // The row window (row_lo, rows_local) is the two forward kernels' form for one
 // model shard of the sharded forward (parallel/sharded.py, the port of
@@ -124,7 +144,6 @@ constexpr int kMaxBufs = 16;   // ops/lookup.py::MAX_BUFS
 constexpr int kThreads = 256;
 constexpr int kUnroll = 2;     // 16-byte chunks a thread loads before it stores
 constexpr int kUnrollOne = 4;  // elements, when the output moves element by element
-constexpr int kSlots = 4;      // bag slots a thread loads before it adds them
 // ops/lookup.py::SMEM_BYTES: a block's 227 KB less 1 KB for the static
 // s_buf / s_sc (the two limits are summed)
 constexpr int kSmemMax = 232448 - 1024;
@@ -146,6 +165,14 @@ __device__ __forceinline__ int64_t floor_mod(int64_t a, int64_t b) {
 
 template <int Bytes>
 struct Word;
+template <>
+struct Word<1> {
+  using T = unsigned char;
+};
+template <>
+struct Word<2> {
+  using T = unsigned short;
+};
 template <>
 struct Word<16> {
   using T = int4;
@@ -250,19 +277,30 @@ __host__ __device__ constexpr int smem_bytes(int F, int n_plan, int rows) {
   return 8 * F + (int)sizeof(Col) * n_plan + 8 * rows * n_plan + 4 * rows;
 }
 
-__host__ __device__ constexpr int smem_bytes_bags(int F, int n_plan, int rows, int L) {
-  // ops/lookup.py::smem_bytes with L: a row address a (row, plan column,
-  // slot), the bag's count (then its inverse) a (row, plan column)
-  return 8 * F + (int)sizeof(Col) * n_plan + 8 * rows * n_plan * L + 4 * rows * n_plan +
-         4 * rows;
+// A bag's record in shared memory (ops/lookup.py::bag_record_words): the
+// number of members that add, the mean's 1 / count, up to L row numbers; an
+// odd number of words, so that neighbouring threads write to other banks.
+__host__ __device__ constexpr int bag_record_words(int L) { return (L + 2) | 1; }
+
+// Bytes of one ring slot: a tile's ids and the 16-byte lines its ends share
+// with the neighbouring tiles.
+__host__ __device__ constexpr int64_t ring_slot_bytes(int rows, int T, int L, int id_bytes) {
+  return ((int64_t)rows * T * L * id_bytes + 15) / 16 * 16 + 32;
 }
 
-// Stages the buffers' pointers, the output columns' descriptors and the plan
-// columns in shared memory; the caller synchronizes before it reads s_col.
-__device__ __forceinline__ void stage(const Buffers& bufs, const int64_t* __restrict__ cols,
-                                      const int2* __restrict__ pos, int n_plan, int F,
-                                      int2* s_pos, Col* s_col, const void** s_buf,
-                                      const float** s_sc) {
+__host__ __device__ constexpr int64_t smem_bytes_bags(int n_pos, int n_plan, int rows, int T,
+                                                      int L, int id_bytes, int stages) {
+  // ops/lookup.py::bag_smem_bytes: a mbarrier a ring slot (16-byte
+  // aligned), the ring, n_pos staged output descriptors (8 B), the plan
+  // columns, two buffers of a record a (row, plan column) and of a flag a row
+  return (8 * (int64_t)stages + 15) / 16 * 16 + stages * ring_slot_bytes(rows, T, L, id_bytes) +
+         8 * (int64_t)n_pos + (int64_t)sizeof(Col) * n_plan +
+         8 * (int64_t)rows * n_plan * bag_record_words(L) + 8 * (int64_t)rows;
+}
+
+// Thread 0 stages the buffers' pointers and scales.
+__device__ __forceinline__ void stage_buffers(const Buffers& bufs, const void** s_buf,
+                                              const float** s_sc) {
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int i = 0; i < kMaxBufs; ++i) {
@@ -270,9 +308,11 @@ __device__ __forceinline__ void stage(const Buffers& bufs, const int64_t* __rest
       s_sc[i] = bufs.scale[i];
     }
   }
-#pragma unroll 4
-  for (int p = threadIdx.x; p < F; p += kThreads) s_pos[p] = __ldg(pos + p);
-  __syncthreads();
+}
+
+// Stages the plan columns (after a barrier that follows stage_buffers).
+__device__ __forceinline__ void stage_cols(const int64_t* __restrict__ cols, int n_plan,
+                                           Col* s_col, const float* const* s_sc) {
   for (int k = threadIdx.x; k < n_plan; k += kThreads) {
     const int64_t* c = cols + (int64_t)k * kColFields;
     const float* sc = s_sc[c[kBuf]];
@@ -290,6 +330,19 @@ __device__ __forceinline__ void stage(const Buffers& bufs, const int64_t* __rest
     col.pad = 0;
     s_col[k] = col;
   }
+}
+
+// Stages the buffers' pointers, the output columns' descriptors and the plan
+// columns in shared memory; the caller synchronizes before it reads s_col.
+__device__ __forceinline__ void stage(const Buffers& bufs, const int64_t* __restrict__ cols,
+                                      const int2* __restrict__ pos, int n_plan, int F,
+                                      int2* s_pos, Col* s_col, const void** s_buf,
+                                      const float** s_sc) {
+  stage_buffers(bufs, s_buf, s_sc);
+#pragma unroll 4
+  for (int p = threadIdx.x; p < F; p += kThreads) s_pos[p] = __ldg(pos + p);
+  __syncthreads();
+  stage_cols(cols, n_plan, s_col, s_sc);
 }
 
 // The address of the row plan column c reads for the id x in [0, lim) (int64
@@ -492,207 +545,401 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// N neighbouring elements of a row (N > 1: one aligned word), zeros for null
-template <typename Raw, int N>
-__device__ __forceinline__ void load_elems(const void* row, int o, Raw (&x)[N]) {
-  if constexpr (N == 1) {
-    x[0] = load1<Raw>(row, o);
-  } else {
-    const Vec<Raw, N> w = loadn<Raw, N>(row, o);
-#pragma unroll
-    for (int i = 0; i < N; ++i) x[i] = w.v[i];
+// ---- the bag kernel ---------------------------------------------------------
+
+// The staged output descriptors of the bag kernel (VEC): one a chunk of kV
+// output columns, its offset word holding, instead of the layout's VEC bits,
+// the kernel's own runs: kVecBit (the chunk is one aligned run of one source)
+// and, where a row moves 4 bytes a chunk (int8 storage), kRun2 / kRun4 (this
+// chunk and the next 1 / 3 are one run of 2 / 4 chunks of one row, aligned to
+// the run's bytes in a row whose width is a multiple of them).
+constexpr int kRun2 = 1 << 29;
+constexpr int kRun4 = (int)(1u << 31);
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+// arrives on `bar` and adds `bytes` to the transfer its phase waits for
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// A phase that never completes traps after ~2^26 polls instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (polls == (1u << 26)) __trap();
   }
 }
 
-// The pooled value of N neighbouring elements of one plan column of one batch
-// row: its L slots' rows (`slot`; null: the slot adds nothing) summed in slot
-// order in float, the first that adds starting the sum (+0 when none adds),
-// times the bag's inverse count when `inv` is given.  kSlots slots' loads are
-// in flight before the first is added.
-template <typename E, int N>
-__device__ __forceinline__ void pool(const void* const* slot, int L, int o, float scale,
-                                     const float* inv, float (&acc)[N]) {
+// Brings the ids of the block's tile (its k-th) into ring slot `dst`: thread 0
+// arms the slot's mbarrier and copies the run's 16-byte aligned body with one
+// bulk async copy; warp 0 loads the ids at its unaligned ends.  The slot's
+// byte j is the ids' byte floor16(start) + j.  Nothing past the batch is read.
+template <typename I>
+__device__ __forceinline__ void fetch_ids(const I* __restrict__ ids, int tile, int tiles,
+                                          int rows, int B, int64_t row_ids,
+                                          unsigned char* dst, uint32_t bar) {
+  if (tile >= tiles || threadIdx.x >= 32) return;
+  const int b0 = tile * rows;
+  const uintptr_t start = reinterpret_cast<uintptr_t>(ids + (int64_t)b0 * row_ids);
+  const uintptr_t end = start + (uintptr_t)min(rows, B - b0) * row_ids * sizeof(I);
+  const uintptr_t base = start & ~(uintptr_t)15, lo = (start + 15) & ~(uintptr_t)15,
+                  hi = end & ~(uintptr_t)15;
+  const bool body = hi > lo;
+  if (threadIdx.x == 0) {
+    // order this block's earlier reads of the slot before the copy's writes
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_arrive_tx(bar, body ? (uint32_t)(hi - lo) : 0u);
+    if (body)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst + (lo - base))),
+          "l"(lo), "r"((uint32_t)(hi - lo)), "r"(bar)
+          : "memory");
+  }
+  // the ends: [start, lo) and [hi, end), or all of a run within two lines
+  const int n_head = (int)((body ? lo : end) - start) / (int)sizeof(I);
+  const int n_tail = body ? (int)(end - hi) / (int)sizeof(I) : 0;
+  const int e = threadIdx.x;
+  if (e < n_head) {
+    const uintptr_t at = start + (uintptr_t)e * sizeof(I);
+    *reinterpret_cast<I*>(dst + (at - base)) = __ldg(reinterpret_cast<const I*>(at));
+  } else if (e < n_head + n_tail) {
+    const uintptr_t at = hi + (uintptr_t)(e - n_head) * sizeof(I);
+    *reinterpret_cast<I*>(dst + (at - base)) = __ldg(reinterpret_cast<const I*>(at));
+  }
+}
+
+// Whether chunks c .. c + m - 1 of the output (kV columns each) are one run of
+// one source: all one aligned chunk of the same column pair, consecutive
+// offsets (zeros: any), and, for a plan column, the run's start and its rows'
+// width multiples of the run.
+template <int kV, int kVecBit>
+__device__ __forceinline__ bool is_run(const int2* __restrict__ pos,
+                                       const int64_t* __restrict__ cols, int c, int m,
+                                       int chunks) {
+  if (c % m != 0 || c + m > chunks) return false;
+  const int2 q = __ldg(pos + c * kV);
+  const int col = (short)(q.x & 0xFFFF), add = q.x >> 16;
+  const int o = q.y & kOffMask;
+  for (int j = 0; j < m; ++j) {
+    const int2 e = __ldg(pos + (c + j) * kV);
+    if (!(e.y & kVecBit) || e.x != q.x) return false;
+    if (col != -1 && (e.y & kOffMask) != o + j * kV) return false;  // POS_ZERO: -1
+  }
+  if (col < 0) return true;
+  const int n = m * kV;
+  return o % n == 0 && __ldg(cols + (int64_t)col * kColFields + kDim) % n == 0 &&
+         (add < 0 || __ldg(cols + (int64_t)add * kColFields + kDim) % n == 0);
+}
+
+// The pooled float values of N neighbouring elements of one bag: its record
+// `rec` (count, 1 / count, row numbers), the elements at `base` (the buffer
+// plus the run's offset) of rows of `row_bytes`.  Every member's word is
+// loaded, kSlots at a time, before the first is added; the sum starts from
+// the first member and adds in slot order; +0 for no member; times 1 / count
+// for the mean.
+template <typename E, int N, int kSlots>
+__device__ __forceinline__ void pool_bag(const uint32_t* rec, const unsigned char* base,
+                                         uint32_t row_bytes, float scale, bool mean,
+                                         float (&acc)[N]) {
   using Raw = typename E::Raw;
-  bool some = false;
+  using W = typename Vec<Raw, N>::W;
+  const int n = (int)rec[0];
 #pragma unroll
   for (int i = 0; i < N; ++i) acc[i] = 0.f;
-  for (int l0 = 0; l0 < L; l0 += kSlots) {
-    const void* row[kSlots];
-    Raw x[kSlots][N];
+  for (int j0 = 0; j0 < n; j0 += kSlots) {
+    Vec<Raw, N> x[kSlots];
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j)
+      if (j0 + j < n)
+        x[j].w = __ldg(reinterpret_cast<const W*>(base + (uint64_t)rec[2 + j0 + j] * row_bytes));
 #pragma unroll
     for (int j = 0; j < kSlots; ++j) {
-      row[j] = l0 + j < L ? slot[l0 + j] : nullptr;
-      load_elems<Raw, N>(row[j], o, x[j]);
-    }
+      if (j0 + j < n) {
 #pragma unroll
-    for (int j = 0; j < kSlots; ++j) {
-      if (row[j] == nullptr) continue;
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        const float w = E::widen(x[j][i], scale);
-        acc[i] = some ? __fadd_rn(acc[i], w) : w;
+        for (int i = 0; i < N; ++i) {
+          const float w = E::widen(x[j].v[i], scale);
+          acc[i] = j0 + j ? __fadd_rn(acc[i], w) : w;
+        }
       }
-      some = true;
     }
   }
-  if (inv != nullptr) {
-    const float f = *inv;
+  if (mean) {
+    const float f = __uint_as_float(rec[1]);
 #pragma unroll
     for (int i = 0; i < N; ++i) acc[i] = __fmul_rn(acc[i], f);
   }
 }
 
-// N neighbouring output columns of one batch row that read plan column `col`
-// (>= 0) at offset o, the QR remainder column `add` (or -1) added: pooled, and
-// rounded once.  rp: the row's slot addresses [n_plan][L]; inv: its inverse
-// counts [n_plan], or null for sum pooling.
-template <typename E, int N>
-__device__ __forceinline__ void pooled_columns(const void* const* rp, const Col* s_col,
-                                               const float* inv, int L, int col, int add,
-                                               int o, typename E::Out (&v)[N]) {
-  float a[N];
-  pool<E, N>(rp + col * L, L, o, s_col[col].scale, inv ? inv + col : nullptr, a);
-  if (add >= 0) {
-    float b[N];
-    pool<E, N>(rp + add * L, L, o, s_col[add].scale, inv ? inv + add : nullptr, b);
-#pragma unroll
-    for (int i = 0; i < N; ++i) a[i] = __fadd_rn(a[i], b[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = E::round(a[i]);
-}
-
-// output column e of one batch row of bags: pooled, its dense element, or 0
-template <typename E>
-__device__ __forceinline__ typename E::Out element_bags(const void* const* rp,
-                                                        const Col* s_col, const float* inv,
-                                                        int L, int2 e,
-                                                        const float* dense_row) {
-  const int col = (short)(e.x & 0xFFFF), add = e.x >> 16;  // low half sign-extended
-  const int o = e.y & kOffMask;
+// N output columns of one batch row that are one run of the descriptor word
+// q: plan column col's bag pooled (its QR remainder column's added), the
+// dense row's, or zeros; rounded once to the output type.  recs: the row's
+// records, W words each.
+template <typename TS, int N, int kSlots>
+__device__ __forceinline__ void run_values(int2 q, const uint32_t* recs, int W, const Col* s_col,
+                                           const void* const* s_buf, bool mean,
+                                           const float* dense_row,
+                                           typename Elem<TS>::Out (&v)[N]) {
+  using E = Elem<TS>;
+  const int col = (short)(q.x & 0xFFFF), add = q.x >> 16;  // low half sign-extended
+  const int o = q.y & kOffMask;
   if (col >= 0) {
-    typename E::Out v[1];
-    pooled_columns<E, 1>(rp, s_col, inv, L, col, add, o, v);
-    return v[0];
+    float a[N];
+    const Col& c = s_col[col];
+    pool_bag<E, N, kSlots>(recs + col * W,
+                           static_cast<const unsigned char*>(s_buf[c.buf]) + o * sizeof(TS),
+                           (uint32_t)c.dim * sizeof(TS), c.scale, mean, a);
+    if (add >= 0) {
+      float b[N];
+      const Col& d = s_col[add];
+      pool_bag<E, N, kSlots>(recs + add * W,
+                             static_cast<const unsigned char*>(s_buf[d.buf]) + o * sizeof(TS),
+                             (uint32_t)d.dim * sizeof(TS), d.scale, mean, b);
+#pragma unroll
+      for (int i = 0; i < N; ++i) a[i] = __fadd_rn(a[i], b[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = E::round(a[i]);
+  } else if (col == kPosDense) {
+    if constexpr (N % 4 == 0) {
+      const float4* run = reinterpret_cast<const float4*>(dense_row + o);
+#pragma unroll
+      for (int h = 0; h < N / 4; ++h) {
+        const float4 d = __ldg(run + h);
+        v[4 * h] = E::dense(d.x);
+        v[4 * h + 1] = E::dense(d.y);
+        v[4 * h + 2] = E::dense(d.z);
+        v[4 * h + 3] = E::dense(d.w);
+      }
+    } else {
+      v[0] = E::dense(__ldg(dense_row + o));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = typename E::Out(0);
   }
-  if (col == kPosDense) return E::dense(__ldg(dense_row + o));
-  return typename E::Out(0);
 }
 
-// The bag kernel: ids [B, T, L], a negative id padding.  VEC as above.
-template <typename TS, typename I, bool VEC>
+// A run of N output columns stored as 16-byte words at dst (N a multiple of
+// the word's columns).
+template <typename TS, int N, int kSlots>
+__device__ __forceinline__ void store_run(int2 q, const uint32_t* recs, int W,
+                                          const Col* s_col, const void* const* s_buf,
+                                          bool mean, const float* dense_row,
+                                          typename Elem<TS>::Out* dst) {
+  using Out = typename Elem<TS>::Out;
+  constexpr int kV = 16 / sizeof(Out);
+  Out v[N];
+  run_values<TS, N, kSlots>(q, recs, W, s_col, s_buf, mean, dense_row, v);
+#pragma unroll
+  for (int h = 0; h < N / kV; ++h) {
+    Vec<Out, kV> w;
+#pragma unroll
+    for (int i = 0; i < kV; ++i) w.v[i] = v[h * kV + i];
+    reinterpret_cast<int4*>(dst)[h] = w.w;
+  }
+}
+
+// The bag kernel: ids [B, T, L], a negative id padding.  VEC as above;
+// kSlots: member loads in flight a thread.  Dynamic shared memory
+// smem_bytes_bags: the ring's mbarriers, the ring, the staged output
+// descriptors (a chunk each with VEC, else a column each), the plan columns,
+// two buffers of records and of flags.
+template <typename TS, typename I, bool VEC, int kSlots>
 __global__ void __launch_bounds__(kThreads)
     lookup_bags_kernel(Buffers bufs, const I* __restrict__ ids,
                        const float* __restrict__ dense, const int64_t* __restrict__ cols,
                        const int2* __restrict__ pos, typename Elem<TS>::Out* __restrict__ out,
                        bool* __restrict__ bad, int B, int T, int L, int n_plan, int F,
-                       int dense_dim, int rows, int mean, int64_t stripes,
+                       int dense_dim, int rows, int stages, int mean, int64_t stripes,
                        int64_t stripe_height, int64_t row_lo, int64_t rows_local) {
   using E = Elem<TS>;
   using Out = typename E::Out;
   constexpr int kV = 16 / sizeof(Out);  // output columns a 16-byte chunk
   constexpr int kVecBit = kV == 4 ? kVec4 : kVec8;
-  const int per_row = n_plan * L;  // slot addresses a batch row
+  // chunks a thread's unit: 16 bytes of a row (4 chunks of int8 rows)
+  constexpr int kG = VEC ? 16 / (kV * (int)sizeof(TS)) : 1;
+  const int chunks = F / kV;
+  const int n_pos = VEC ? chunks : F;
+  const int W = bag_record_words(L);
+  const int64_t row_ids = (int64_t)T * L;
+  const int64_t slot_bytes = ring_slot_bytes(rows, T, L, sizeof(I));
+  const int tile_recs = rows * n_plan * W;
   extern __shared__ __align__(16) unsigned char smem[];
-  int2* s_pos = reinterpret_cast<int2*>(smem);
-  Col* s_col = reinterpret_cast<Col*>(s_pos + F);
-  const void** s_row = reinterpret_cast<const void**>(s_col + n_plan);
-  int* s_cnt = reinterpret_cast<int*>(s_row + rows * per_row);  // then s_inv
-  float* s_inv = reinterpret_cast<float*>(s_cnt);
-  int* s_bad = s_cnt + rows * n_plan;
+  uint64_t* s_bar = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* s_ring = smem + (8 * stages + 15) / 16 * 16;
+  int2* s_pos = reinterpret_cast<int2*>(s_ring + stages * slot_bytes);
+  Col* s_col = reinterpret_cast<Col*>(s_pos + n_pos);
+  uint32_t* s_rec = reinterpret_cast<uint32_t*>(s_col + n_plan);  // two tiles' records
+  int* s_bad = reinterpret_cast<int*>(s_rec + 2 * tile_recs);     // two tiles' flags
   __shared__ const void* s_buf[kMaxBufs];
   __shared__ const float* s_sc[kMaxBufs];
 
-  stage(bufs, cols, pos, n_plan, F, s_pos, s_col, s_buf, s_sc);
-  const uint32_t S = (uint32_t)stripes;
+  // the first tiles' ids are on their way while the descriptors are staged
   const int tiles = (B + rows - 1) / rows;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(smem_addr(s_bar + s), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int k = 0; k < stages; ++k)
+    fetch_ids(ids, blockIdx.x + k * gridDim.x, tiles, rows, B, row_ids, s_ring + k * slot_bytes,
+              smem_addr(s_bar + k));
+  stage_buffers(bufs, s_buf, s_sc);
+  for (int c = threadIdx.x; c < n_pos; c += kThreads) {
+    int2 q = __ldg(pos + c * (VEC ? kV : 1));
+    if constexpr (VEC) {
+      q.y &= kOffMask | kVecBit;
+      if constexpr (kG >= 2)
+        if (is_run<kV, kVecBit>(pos, cols, c, 2, chunks)) q.y |= kRun2;
+      if constexpr (kG >= 4)
+        if (is_run<kV, kVecBit>(pos, cols, c, 4, chunks)) q.y |= kRun4;
+    }
+    s_pos[c] = q;
+  }
+  for (int i = threadIdx.x; i < 2 * rows; i += kThreads) s_bad[i] = 0;
+  __syncthreads();
+  stage_cols(cols, n_plan, s_col, s_sc);
+  __syncthreads();  // s_col, and the first tiles' unaligned ends
+
+  const uint32_t S = (uint32_t)stripes;
+  const int S_sh = (S & (S - 1)) ? -1 : __ffs(S) - 1;
+  // ids in 32 bits where they are int32 (the QR split of an int64 id needs 64)
+  using Id = typename std::conditional<sizeof(I) == 4, int32_t, int64_t>::type;
+  int i = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++i) {
     const int b0 = tile * rows;
     const int nr = min(rows, B - b0);
-    __syncthreads();  // s_col is staged; the last tile is done with s_row, s_inv, s_bad
-    for (int r = threadIdx.x; r < nr; r += kThreads) s_bad[r] = 0;
-    if (mean)
-      for (int i = threadIdx.x; i < nr * n_plan; i += kThreads) s_cnt[i] = 0;
-    __syncthreads();
+    const int slot = i % stages;
+    unsigned char* ring = s_ring + slot * slot_bytes;
+    const I* tile_ids = reinterpret_cast<const I*>(
+        ring + (reinterpret_cast<uintptr_t>(ids + (int64_t)b0 * row_ids) & 15));
+    uint32_t* recs = s_rec + (i & 1) * tile_recs;
+    int* flags = s_bad + (i & 1) * rows;
+    mbar_wait(smem_addr(s_bar + slot), (uint32_t)(i / stages) & 1);
 
-    // pass 1: a row address a (row, plan column, slot), null where the slot
-    // adds nothing; the bags' counts; flags of bad take ids
-    const I* tile_ids = ids + (int64_t)b0 * T * L;
-#pragma unroll 2
-    for (int u = threadIdx.x; u < nr * per_row; u += kThreads) {
-      const int r = u / per_row;
-      const int k = (u - r * per_row) / L;
-      const int l = u - r * per_row - k * L;
-      const Col& c = s_col[k];
-      int64_t id = (int64_t)tile_ids[((int64_t)r * T + c.src) * L + l];
-      const void* row = nullptr;
-      if (id >= 0) {  // a member of the bag: the QR split of an id >= 0 is >= 0
-        if (mean) atomicAdd(&s_cnt[r * n_plan + k], 1);
-        if (c.op == kOpDiv) id /= c.rem;
-        else if (c.op == kOpMod) id %= c.rem;
-        if (id < c.lim)
-          row = row_address<TS>(c, (uint32_t)id, s_buf, S, stripe_height, row_lo, rows_local);
-        else if (c.take) s_bad[r] = 1;
+    // pass 1: a record a bag (row, plan column); flags of bad take ids
+    for (int u = threadIdx.x; u < nr * n_plan; u += kThreads) {
+      const int r = u / n_plan;
+      const Col& c = s_col[u - r * n_plan];
+      const I* x = tile_ids + ((int64_t)r * T + c.src) * L;
+      uint32_t* rec = recs + u * W;
+      // row_address's row number, with shifts where the divisors are powers of 2
+      const uint32_t s = (uint32_t)c.s;
+      const int s_sh = (s & (s - 1)) ? -1 : __ffs(s) - 1;
+      int n = 0, members = 0;
+      bool flag = false;
+      for (int l0 = 0; l0 < L; l0 += 4) {
+        Id v[4];  // four slots' ids read before any is used
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = l0 + j < L ? (Id)x[l0 + j] : Id(-1);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          Id id = v[j];
+          if (id < 0) continue;  // padding; the QR split of an id >= 0 is >= 0
+          ++members;
+          if (c.op == kOpDiv) id /= c.rem;
+          else if (c.op == kOpMod) id %= c.rem;
+          if (id >= c.lim) {
+            flag |= c.take != 0;
+            continue;
+          }
+          const uint32_t xi = (uint32_t)id;
+          int64_t flat;
+          if (!c.take) {
+            flat = c.base + xi;
+          } else {
+            const uint32_t p = s_sh >= 0 ? xi >> s_sh : xi / s;
+            const uint32_t sub = xi - p * s;
+            const int64_t phys =
+                c.base +
+                (S > 1 ? (S_sh >= 0 ? (int64_t)(p & (S - 1)) * stripe_height + (p >> S_sh)
+                                    : (int64_t)(p % S) * stripe_height + p / S)
+                       : (int64_t)p) -
+                row_lo;
+            if ((uint64_t)phys >= (uint64_t)rows_local) continue;  // another shard's row
+            flat = phys * s + sub;
+          }
+          rec[2 + n++] = (uint32_t)flat;
+        }
       }
-      s_row[u] = row;
+      rec[0] = (uint32_t)n;
+      if (mean) rec[1] = __float_as_uint(members ? __fdiv_rn(1.f, (float)members) : 0.f);
+      if (flag) flags[r] = 1;
     }
-    __syncthreads();
-    if (bad != nullptr)
-      for (int r = threadIdx.x; r < nr; r += kThreads) bad[b0 + r] = s_bad[r] != 0;
-    if (mean) {  // each count becomes its inverse, in place
-      for (int i = threadIdx.x; i < nr * n_plan; i += kThreads) {
-        const int n = s_cnt[i];
-        s_inv[i] = n > 0 ? __fdiv_rn(1.f, (float)n) : 0.f;
-      }
-      __syncthreads();
+    __syncthreads();  // the records; every thread is done with this ring slot
+    fetch_ids(ids, tile + stages * gridDim.x, tiles, rows, B, row_ids, ring,
+              smem_addr(s_bar + slot));
+    for (int r = threadIdx.x; r < nr; r += kThreads) {
+      if (bad != nullptr) bad[b0 + r] = flags[r] != 0;
+      flags[r] = 0;  // for the tile after next
     }
 
-    // pass 2: the tile's output in order, each thread its chunk's L slots
+    // pass 2: the tile's output in order, a unit (16 bytes of a row) a thread
     Out* tile_out = out + (int64_t)b0 * F;
     const float* tile_dense = dense + (int64_t)b0 * dense_dim;
-    if constexpr (VEC) {  // chunks of kV columns
-      const int chunks = F / kV, total = nr * chunks;
+    if constexpr (VEC) {
+      const int units = (chunks + kG - 1) / kG, total = nr * units;
       for (int u = threadIdx.x; u < total; u += kThreads) {
-        const int r = u / chunks;
-        const int p0 = (u - r * chunks) * kV;
-        const int2 q = s_pos[p0];
-        const void* const* rp = s_row + r * per_row;
-        const float* inv = mean ? s_inv + r * n_plan : nullptr;
+        const int r = u / units;
+        const int c0 = (u - r * units) * kG;
+        const int nch = min(kG, chunks - c0);
+        const uint32_t* rrec = recs + r * n_plan * W;
         const float* dense_row = tile_dense + (int64_t)r * dense_dim;
-        Out* dst = tile_out + (int64_t)r * F + p0;
-        if (q.y & kVecBit) {  // one aligned run of one source
-          const int col = (short)(q.x & 0xFFFF), add = q.x >> 16;
-          const int o = q.y & kOffMask;
-          Vec<Out, kV> v;
-          if (col >= 0) {
-            pooled_columns<E, kV>(rp, s_col, inv, L, col, add, o, v.v);
-          } else if (col == kPosDense) {
-            const float4* run = reinterpret_cast<const float4*>(dense_row + o);
-#pragma unroll
-            for (int h = 0; h < kV / 4; ++h) {
-              const float4 d = __ldg(run + h);
-              v.v[4 * h] = E::dense(d.x);
-              v.v[4 * h + 1] = E::dense(d.y);
-              v.v[4 * h + 2] = E::dense(d.z);
-              v.v[4 * h + 3] = E::dense(d.w);
+        Out* dst = tile_out + (int64_t)r * F + c0 * kV;
+        for (int h = 0; h < nch;) {
+          const int2 q = s_pos[c0 + h];
+          if constexpr (kG >= 4) {
+            if (q.y & kRun4) {
+              store_run<TS, 4 * kV, kSlots>(q, rrec, W, s_col, s_buf, mean, dense_row,
+                                             dst + h * kV);
+              h += 4;
+              continue;
             }
-          } else {
-#pragma unroll
-            for (int i = 0; i < kV; ++i) v.v[i] = Out(0);
           }
-          *reinterpret_cast<int4*>(dst) = v.w;
-        } else {
-          for (int i = 0; i < kV; ++i)
-            dst[i] = element_bags<E>(rp, s_col, inv, L, s_pos[p0 + i], dense_row);
+          if constexpr (kG >= 2) {
+            if (q.y & kRun2) {
+              store_run<TS, 2 * kV, kSlots>(q, rrec, W, s_col, s_buf, mean, dense_row,
+                                             dst + h * kV);
+              h += 2;
+              continue;
+            }
+          }
+          if (q.y & kVecBit) {
+            store_run<TS, kV, kSlots>(q, rrec, W, s_col, s_buf, mean, dense_row, dst + h * kV);
+          } else {  // element by element, from the layout's own descriptors
+            for (int e = 0; e < kV; ++e) {
+              Out v[1];
+              run_values<TS, 1, kSlots>(__ldg(pos + (c0 + h) * kV + e), rrec, W, s_col, s_buf,
+                                        mean, dense_row, v);
+              dst[h * kV + e] = v[0];
+            }
+          }
+          ++h;
         }
       }
     } else {  // element by element
       const int total = nr * F;
       for (int u = threadIdx.x; u < total; u += kThreads) {
         const int r = u / F;
-        tile_out[u] = element_bags<E>(s_row + r * per_row, s_col,
-                                      mean ? s_inv + r * n_plan : nullptr, L,
-                                      s_pos[u - r * F], tile_dense + (int64_t)r * dense_dim);
+        Out v[1];
+        run_values<TS, 1, kSlots>(s_pos[u - r * F], recs + r * n_plan * W, W, s_col, s_buf,
+                                  mean, tile_dense + (int64_t)r * dense_dim, v);
+        tile_out[u] = v[0];
       }
     }
   }
@@ -912,7 +1159,7 @@ struct Args {
   int B, T, n_plan, F, dense_dim, rows, grid, vec;
   int64_t stripes, stripe_height;
   int64_t row_lo, rows_local;  // the take buffer's row window
-  int L, mean;  // the bag kernel's
+  int L, mean, stages, slots;  // the bag kernel's
 };
 
 template <typename TS, typename I, bool VEC>
@@ -928,18 +1175,31 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename TS, typename I, bool VEC>
+// the bag kernel's staged output descriptors: a chunk each, or a column each
+int bag_pos_count(int storage, int F, int vec) { return vec ? F / (storage == 1 ? 8 : 4) : F; }
+
+template <typename TS, typename I, bool VEC, int kSlots>
 cudaError_t launch_bags(const Args& a, cudaStream_t st) {
   static unsigned long long smem_set = 0;
-  cudaError_t err = allow_smem(lookup_bags_kernel<TS, I, VEC>, smem_set);
+  cudaError_t err = allow_smem(lookup_bags_kernel<TS, I, VEC, kSlots>, smem_set);
   if (err != cudaSuccess) return err;
-  lookup_bags_kernel<TS, I, VEC>
-      <<<a.grid, kThreads, smem_bytes_bags(a.F, a.n_plan, a.rows, a.L), st>>>(
-          a.bufs, static_cast<const I*>(a.ids), static_cast<const float*>(a.dense),
-          static_cast<const int64_t*>(a.cols), static_cast<const int2*>(a.pos),
-          static_cast<typename Elem<TS>::Out*>(a.out), static_cast<bool*>(a.bad), a.B, a.T,
-          a.L, a.n_plan, a.F, a.dense_dim, a.rows, a.mean, a.stripes, a.stripe_height,
-          a.row_lo, a.rows_local);
+  const int64_t smem =
+      smem_bytes_bags(VEC ? a.F / (16 / (int)sizeof(typename Elem<TS>::Out)) : a.F, a.n_plan,
+                      a.rows, a.T, a.L, sizeof(I), a.stages);
+  // a persistent grid: no more blocks than the card holds at once
+  int per_sm = 0, dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, lookup_bags_kernel<TS, I, VEC, kSlots>, kThreads, smem)) != cudaSuccess)
+    return err;
+  const int grid = max(1, min(a.grid, per_sm * sms));
+  lookup_bags_kernel<TS, I, VEC, kSlots><<<grid, kThreads, smem, st>>>(
+      a.bufs, static_cast<const I*>(a.ids), static_cast<const float*>(a.dense),
+      static_cast<const int64_t*>(a.cols), static_cast<const int2*>(a.pos),
+      static_cast<typename Elem<TS>::Out*>(a.out), static_cast<bool*>(a.bad), a.B, a.T, a.L,
+      a.n_plan, a.F, a.dense_dim, a.rows, a.stages, a.mean, a.stripes, a.stripe_height,
+      a.row_lo, a.rows_local);
   return cudaGetLastError();
 }
 
@@ -955,10 +1215,12 @@ cudaError_t launch_backward(const Args& a, const float* grad, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// a.L == 0: the single-id kernel; else the bag kernel
+// a.L == 0: the single-id kernel; else the bag kernel with a.slots (4 or 8)
+// member loads in flight a thread
 template <typename TS, typename I, bool VEC>
 cudaError_t launch_kind(const Args& a, cudaStream_t st) {
-  return a.L ? launch_bags<TS, I, VEC>(a, st) : launch<TS, I, VEC>(a, st);
+  if (!a.L) return launch<TS, I, VEC>(a, st);
+  return a.slots == 4 ? launch_bags<TS, I, VEC, 4>(a, st) : launch_bags<TS, I, VEC, 8>(a, st);
 }
 
 template <typename TS>
@@ -976,12 +1238,16 @@ int run(const void* const* bufs, const void* const* scales, int n_bufs, int stor
         const void* ids, int ids_64, const void* dense, const void* cols, const void* pos,
         void* out, void* bad, int64_t B, int T, int n_plan, int F, int dense_dim, int rows,
         int grid, int64_t stripes, int64_t stripe_height, int vec, int64_t row_lo,
-        int64_t rows_local, int L, int mean, void* stream) {
+        int64_t rows_local, int L, int mean, int stages, int slots, void* stream) {
   const int chunk = storage == 1 ? 8 : 4;
+  const int id_bytes = ids_64 ? 8 : 4;
   if (n_bufs < 0 || n_bufs > kMaxBufs || B < 1 || B > INT32_MAX || rows < 1 || grid < 1 ||
       L < 0 || row_lo < 0 || rows_local < 0 || (int64_t)rows * F > INT32_MAX / 2 ||
-      (int64_t)rows * n_plan * (L ? L : 1) > INT32_MAX / 2 ||
-      (L ? smem_bytes_bags(F, n_plan, rows, L) : smem_bytes(F, n_plan, rows)) > kSmemMax ||
+      (int64_t)rows * n_plan * (L ? bag_record_words(L) : 1) > INT32_MAX / 2 ||
+      (L ? smem_bytes_bags(bag_pos_count(storage, F, vec), n_plan, rows, T, L, id_bytes, stages)
+         : smem_bytes(F, n_plan, rows)) > kSmemMax ||
+      (L && (stages < 2 || stages > 8 || (slots != 4 && slots != 8) ||
+             reinterpret_cast<uintptr_t>(ids) % id_bytes != 0)) ||
       stripes < 1 || (dense == nullptr && dense_dim != 0) || (vec && F % chunk != 0))
     return (int)cudaErrorInvalidValue;
   Args a = {};
@@ -1009,6 +1275,8 @@ int run(const void* const* bufs, const void* const* scales, int n_bufs, int stor
   a.rows_local = rows_local;
   a.L = L;
   a.mean = mean;
+  a.stages = stages;
+  a.slots = slots;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (storage) {
     case 0:
@@ -1042,12 +1310,15 @@ extern "C" int fr_lookup_fused(const void* const* bufs, const void* const* scale
                                int64_t rows_local, void* stream) {
   return run(bufs, scales, n_bufs, storage, ids, ids_64, dense, cols, pos, out, bad, B, T,
              n_plan, F, dense_dim, rows, grid, stripes, stripe_height, vec, row_lo, rows_local,
-             0, 0, stream);
+             0, 0, 0, 0, stream);
 }
 
 // The bag kernel, one launch on `stream`: fr_lookup_fused's arguments with
-// ids [B, T, L] (L >= 1; a negative id is padding) and mean (0: sum pooling,
-// 1: mean pooling); rows / grid from ops/lookup.py::launch_shape with L.
+// ids [B, T, L] (L >= 1; a negative id is padding), mean (0: sum pooling, 1:
+// mean pooling), the ring's stages (2-8) and the member loads a thread keeps
+// in flight (slots: 4 or 8); rows / grid / stages / slots from
+// ops/lookup.py::bags_plan.  Every row number a member list holds must be
+// below 2^32 (the wrapper checks the buffers).
 extern "C" int fr_lookup_fused_bags(const void* const* bufs, const void* const* scales,
                                     int n_bufs, int storage, const void* ids, int ids_64,
                                     const void* dense, const void* cols, const void* pos,
@@ -1055,11 +1326,11 @@ extern "C" int fr_lookup_fused_bags(const void* const* bufs, const void* const* 
                                     int F, int dense_dim, int rows, int grid,
                                     int64_t stripes, int64_t stripe_height, int vec,
                                     int64_t row_lo, int64_t rows_local, int L, int mean,
-                                    void* stream) {
+                                    int stages, int slots, void* stream) {
   if (L < 1) return (int)cudaErrorInvalidValue;
   return run(bufs, scales, n_bufs, storage, ids, ids_64, dense, cols, pos, out, bad, B, T,
              n_plan, F, dense_dim, rows, grid, stripes, stripe_height, vec, row_lo, rows_local,
-             L, mean != 0, stream);
+             L, mean != 0, stages, slots, stream);
 }
 
 // The backward kernel, one launch on `stream`: grads, n_bufs float32 gradient

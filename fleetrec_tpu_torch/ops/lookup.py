@@ -71,6 +71,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import weakref
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -109,6 +110,21 @@ SMEM_BYTES = 232448 - 1024
 TILE_ELEMS = 4096
 TILES_PER_SM = 3
 BLOCKS_PER_SM = 4
+# The bag kernel's plan (bags_plan): a persistent grid of BAG_BLOCKS_PER_SM
+# blocks an SM walks tiles of up to BAG_MAX_ROWS batch rows, about
+# BAG_TILES_PER_BLOCK tiles a block; a ring of BAG_STAGES slots of ids;
+# BAG_SLOTS member loads in flight a bag (4 or 8).  On an H100
+# (utils/bag_sweep.py, PERF.md) this put every model1 shape within 3% of the
+# best of rows 1-16 x 2-4 blocks an SM, and model3 within 3%; more stages
+# and slots were no faster.
+BAG_BLOCKS_PER_SM = 4
+BAG_TILES_PER_BLOCK = 1
+BAG_MAX_ROWS = 16
+BAG_STAGES = 2
+BAG_SLOTS = 4
+# an SM's shared memory on sm_90 (228 KB), of which each resident block
+# takes 1 KB for itself
+SM_SMEM_BYTES = 233472
 
 
 def lookup_out_dtype(bufs: Sequence[torch.Tensor]) -> torch.dtype:
@@ -310,8 +326,9 @@ def _entry():
 def _entry_bags():
     fn = _build.kernels().fr_lookup_fused_bags
     fn.restype = ctypes.c_int
-    # fr_lookup_fused's arguments (with the window), then L, mean and the stream
-    fn.argtypes = [*_LOOKUP_ARGS, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    # fr_lookup_fused's arguments (with the window), then L, mean, stages,
+    # slots and the stream
+    fn.argtypes = [*_LOOKUP_ARGS, *[ctypes.c_int] * 4, ctypes.c_void_p]
     return fn
 
 
@@ -320,44 +337,124 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def smem_bytes(F: int, n_plan: int, rows: int, L: int = 0) -> int:
-    """Dynamic shared memory of one block (lookup_fused.cu's smem_bytes):
-    8 bytes an output column, 40 a plan column, a row pointer a (row, plan
-    column) and a flag a row; for bags of L slots (L >= 1: smem_bytes_bags)
-    a row pointer a (row, plan column, slot) and 4 bytes a (row, plan
-    column) for the bag's count."""
-    if L:
-        return 8 * F + 40 * n_plan + 8 * rows * n_plan * L + 4 * rows * n_plan + 4 * rows
+def smem_bytes(F: int, n_plan: int, rows: int) -> int:
+    """Dynamic shared memory of one block of the single-id kernel
+    (lookup_fused.cu's smem_bytes): 8 bytes an output column, 40 a plan
+    column, a row pointer a (row, plan column) and a flag a row."""
     return 8 * F + 40 * n_plan + 8 * rows * n_plan + 4 * rows
 
 
 def launch_shape(B: int, F: int, n_plan: int, sm_count: int, rows: Optional[int] = None,
-                 blocks_per_sm: int = BLOCKS_PER_SM, L: int = 0) -> Tuple[int, int]:
-    """(rows a tile, blocks): ``rows`` (by default see TILE_ELEMS) halved
-    until a tile's shared memory fits a block, and at most
-    ``blocks_per_sm`` blocks an SM.  ``L``: the bag kernel's slots (0: the
-    single-id kernel)."""
+                 blocks_per_sm: int = BLOCKS_PER_SM) -> Tuple[int, int]:
+    """The single-id kernel's (rows a tile, blocks): ``rows`` (by default
+    see TILE_ELEMS) halved until a tile's shared memory fits a block, and
+    at most ``blocks_per_sm`` blocks an SM."""
     if rows is None:
         rows = max(1, min(16, TILE_ELEMS // max(F, 1), B // (TILES_PER_SM * sm_count)))
-    while rows > 1 and smem_bytes(F, n_plan, rows, L) > SMEM_BYTES:
+    while rows > 1 and smem_bytes(F, n_plan, rows) > SMEM_BYTES:
         rows //= 2
-    if smem_bytes(F, n_plan, rows, L) > SMEM_BYTES:
-        raise ValueError(f"feature_dim {F} with {n_plan} index columns"
-                         f"{f' of {L} slots' if L else ''} does not fit one block's "
-                         f"shared memory")
+    if smem_bytes(F, n_plan, rows) > SMEM_BYTES:
+        raise ValueError(f"feature_dim {F} with {n_plan} index columns does not fit one "
+                         f"block's shared memory")
     return rows, max(1, min(-(-B // rows), blocks_per_sm * sm_count))
+
+
+def bag_record_words(L: int) -> int:
+    """4-byte words of one bag's record (lookup_fused.cu): its count of
+    members that add, the mean's 1 / count and up to L row numbers, made
+    odd so that neighbouring threads write to other banks."""
+    return (L + 2) | 1
+
+
+def bag_smem_bytes(n_pos: int, n_plan: int, T: int, L: int, rows: int, stages: int,
+                   id_bytes: int) -> int:
+    """Dynamic shared memory of one block of the bag kernel (lookup_fused.cu's
+    smem_bytes_bags): an mbarrier a ring slot (rounded up to 16 bytes),
+    ``stages`` slots of a tile's ids (its bytes rounded up to 16, and the two
+    16-byte lines its ends may share), 8 bytes a staged output descriptor
+    (``n_pos``: a 16-byte chunk each where the output moves in chunks, else
+    a column each), 40 a plan column, and two tiles' records (a bag each) and
+    flags (a row each)."""
+    slot = -(-rows * T * L * id_bytes // 16) * 16 + 32
+    return (-(-8 * stages // 16) * 16 + stages * slot + 8 * n_pos + 40 * n_plan
+            + 8 * rows * n_plan * bag_record_words(L) + 8 * rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class BagPlan:
+    """The bag kernel's launch (``bags_plan``): ``grid`` persistent blocks of
+    256 threads walk tiles of ``rows`` batch rows; a ring of ``stages``
+    slots of ids; ``slots`` member loads in flight a thread; ``smem`` bytes
+    of dynamic shared memory a block."""
+
+    rows: int
+    grid: int
+    stages: int
+    slots: int
+    smem: int
+
+
+def bags_plan(B: int, T: int, L: int, F: int, n_plan: int, sm_count: int, id_bytes: int = 4,
+              pos_cols: int = 1, rows: Optional[int] = None,
+              blocks_per_sm: int = BAG_BLOCKS_PER_SM, stages: int = BAG_STAGES,
+              slots: int = BAG_SLOTS) -> BagPlan:
+    """The bag kernel's launch for B batch rows of T tables of L slots (ids
+    of ``id_bytes``), F output columns staged ``pos_cols`` to a descriptor
+    (the 4 float32 or 8 bfloat16 columns of a 16-byte chunk where the
+    output moves in chunks, else 1) and ``n_plan`` plan columns, on a card
+    of ``sm_count`` SMs: at most ``blocks_per_sm`` blocks an SM and one a
+    tile.  ``rows`` by default: enough for BAG_TILES_PER_BLOCK tiles a block
+    (at most BAG_MAX_ROWS), halved until ``blocks_per_sm`` blocks fit an
+    SM's shared memory.  Raises when one row does not fit a block."""
+    if F % pos_cols or stages < 2 or slots not in (4, 8) or min(B, T, L, blocks_per_sm) < 1:
+        raise ValueError(f"no bag plan for B={B} T={T} L={L} F={F} pos_cols={pos_cols} "
+                         f"stages={stages} slots={slots} blocks_per_sm={blocks_per_sm}")
+
+    def smem(r):
+        return bag_smem_bytes(F // pos_cols, n_plan, T, L, r, stages, id_bytes)
+
+    if rows is None:
+        rows = max(1, min(BAG_MAX_ROWS,
+                          -(-B // (BAG_TILES_PER_BLOCK * blocks_per_sm * sm_count))))
+        fit = min(SMEM_BYTES, SM_SMEM_BYTES // blocks_per_sm - 1024)
+        while rows > 1 and smem(rows) > fit:
+            rows //= 2
+    if smem(rows) > SMEM_BYTES:
+        raise ValueError(f"{rows} rows of {T} bags of {L} slots with feature_dim {F} and "
+                         f"{n_plan} index columns do not fit one block's shared memory")
+    grid = max(1, min(-(-B // rows), blocks_per_sm * sm_count))
+    return BagPlan(rows, grid, stages, slots, smem(rows))
+
+
+# per descriptor tensor: (a weak reference to it, its plan columns' (buffer,
+# width)), read to the host once
+_COLUMN_WIDTHS: dict = {}
+
+
+def bag_buffer_rows(bufs: Sequence[torch.Tensor], cols: torch.Tensor) -> int:
+    """The most rows any buffer holds in the width of a plan column that
+    reads it: the bag kernel keeps a member's row as 4 bytes, so this must
+    stay below 2^32.  ``cols`` is read to the host once (a synchronize) and
+    remembered while it lives: descriptors are built once and never edited
+    (``lookup_tensors``)."""
+    hit = _COLUMN_WIDTHS.get(id(cols))
+    if hit is None or hit[0]() is not cols:
+        hit = (weakref.ref(cols), cols[:, [_F["buf"], _F["dim"]]].tolist())
+        _COLUMN_WIDTHS[id(cols)] = hit
+    return max((bufs[b].numel() // d for b, d in hit[1] if d > 0 and b < len(bufs)), default=0)
 
 
 def _launch(ids: torch.Tensor, dense: Optional[torch.Tensor],
             bufs: Sequence[torch.Tensor], scales: Optional[Sequence[torch.Tensor]],
             cols: torch.Tensor, pos: torch.Tensor, stripes: int, stripe_height: int,
-            dense_dim: int, with_bad: bool, tile: Optional[Tuple[int, int]],
-            mean: Optional[bool], window: Optional[Tuple[int, int]]
+            dense_dim: int, with_bad: bool, shape, mean: Optional[bool],
+            window: Optional[Tuple[int, int]]
             ) -> Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
-    """What ``lookup_fused`` (ids [B, T], ``mean`` None) and
-    ``lookup_fused_bags`` (ids [B, T, L]) share: the checks of their
-    operands, then, for CUDA tensors, one launch of the kernel.  Returns
-    None for CPU tensors: the caller runs its plain version."""
+    """What ``lookup_fused`` (ids [B, T], ``mean`` None; ``shape`` its
+    ``tile``) and ``lookup_fused_bags`` (ids [B, T, L]; ``shape`` its
+    ``plan``) share: the checks of their operands, then, for CUDA tensors,
+    one launch of the kernel.  Returns None for CPU tensors: the caller
+    runs its plain version."""
     bags = mean is not None
     if ids.dim() != 2 + bags or ids.dtype not in _IDX_DTYPES or (bags and ids.shape[2] < 1):
         raise TypeError(f"ids must be [B, T{', L >= 1' if bags else ''}] int32 or int64, got "
@@ -375,6 +472,9 @@ def _launch(ids: torch.Tensor, dense: Optional[torch.Tensor],
         raise ValueError("the lookup's tensors lie on more than one device")
     _check_dense(ids, dense, dense_dim)
     _check_window(window)
+    if bags and bag_buffer_rows(bufs, cols) >= 1 << 32:
+        raise ValueError("a buffer holds 2^32 rows or more: the bag kernel's member lists "
+                         "keep 4-byte row numbers")
     if ids.device.type == "cpu":
         return None
     if ids.device.type != "cuda":
@@ -395,12 +495,18 @@ def _launch(ids: torch.Tensor, dense: Optional[torch.Tensor],
     bad = torch.empty(B, dtype=torch.bool, device=dev) if with_bad else None
     if B == 0:
         return out, bad
-    rows, grid = launch_shape(B, F, n_plan, _sm_count(dev.index or 0), *(tile or ()), L=L)
     # 16-byte words of output (4 float32 or 8 bfloat16 columns) when every
     # row of the output starts one and every buffer is aligned for them
     chunk = 16 // out.element_size()
     vec = F % chunk == 0 and all(t.data_ptr() % 16 == 0 for t in [out, *bufs, *(
         [] if dense is None else [dense])])
+    if bags:
+        plan = bags_plan(B, T, L, F, n_plan, _sm_count(dev.index or 0),
+                         id_bytes=ids.element_size(), pos_cols=chunk if vec else 1,
+                         **(shape or {}))
+        rows, grid = plan.rows, plan.grid
+    else:
+        rows, grid = launch_shape(B, F, n_plan, _sm_count(dev.index or 0), *(shape or ()))
     vp = ctypes.c_void_p * max(len(bufs), 1)
     ptrs = vp(*[b.data_ptr() for b in bufs])
     sptrs = None if scales is None else vp(*[s.data_ptr() for s in scales])
@@ -415,7 +521,7 @@ def _launch(ids: torch.Tensor, dense: Optional[torch.Tensor],
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if bags:
-            rc = _entry_bags()(*args, L, int(mean), stream)
+            rc = _entry_bags()(*args, L, int(mean), plan.stages, plan.slots, stream)
         else:
             rc = _entry()(*args, stream)
     _build.check(rc, "lookup_fused_bags" if bags else "lookup_fused")
@@ -458,7 +564,7 @@ def lookup_fused_bags(ids: torch.Tensor, dense: Optional[torch.Tensor],
                       scales: Optional[Sequence[torch.Tensor]],
                       cols: torch.Tensor, pos: torch.Tensor, stripes: int = 1,
                       stripe_height: int = 0, dense_dim: int = 0, mean: bool = False,
-                      with_bad: bool = True, tile: Optional[Tuple[int, int]] = None,
+                      with_bad: bool = True, plan: Optional[dict] = None,
                       window: Optional[Tuple[int, int]] = None
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Pooled bags: ids [B, T, L] int32 or int64 (config order, L >= 1, a
@@ -467,11 +573,15 @@ def lookup_fused_bags(ids: torch.Tensor, dense: Optional[torch.Tensor],
     mean, of the rows its bag's ids read; bad [B] bool, a non-negative
     take id out of range, or None when not ``with_bad``), by the module
     docstring's rule.  On a CUDA tensor it launches the bag kernel of
-    ``lookup_fused.cu`` or raises; on a CPU tensor it runs
-    ``lookup_fused_bags_plain``.  ``window``: as for ``lookup_fused``; the
-    mean still divides by the whole bag's count."""
+    ``lookup_fused.cu`` in ``bags_plan``'s launch or raises (also when a
+    buffer holds 2^32 rows or more, ``bag_buffer_rows``); on a CPU tensor
+    it runs ``lookup_fused_bags_plain``.  ``plan``: keyword arguments of
+    ``bags_plan`` (rows, blocks_per_sm, stages, slots) in place of its
+    defaults, for timing sweeps (``utils/bag_sweep.py``).  ``window``: as
+    for ``lookup_fused``; the mean still divides by the whole bag's
+    count."""
     res = _launch(ids, dense, bufs, scales, cols, pos, stripes, stripe_height,
-                  dense_dim, with_bad, tile, bool(mean), window)
+                  dense_dim, with_bad, plan, bool(mean), window)
     if res is None:
         return lookup_fused_bags_plain(ids, dense, bufs, scales, cols, pos, stripes,
                                        stripe_height, dense_dim, bool(mean), with_bad, window)

@@ -422,25 +422,29 @@ def test_lookup_fused_bags_checks_its_inputs():
 
 
 def test_bag_launch_shape_and_shared_memory():
-    """smem_bytes / launch_shape with L: 8 bytes a (row, plan column, slot)
-    and 4 a (row, plan column); rows halve until a tile fits, and a shape
-    whose single row does not fit raises."""
-    assert tlk.smem_bytes(352, 47, 16) == 8 * 352 + 40 * 47 + 8 * 16 * 47 + 4 * 16
-    assert tlk.smem_bytes(352, 47, 16, L=8) == (8 * 352 + 40 * 47 + 8 * 16 * 47 * 8
-                                                + 4 * 16 * 47 + 4 * 16)
-    assert tlk.smem_bytes(352, 47, 16, L=8) == 55896
-    # model1 at B = 4096 / 1024: the single-id kernel's rows still fit
-    assert tlk.launch_shape(4096, 352, 47, 132, L=8) == (10, 410)
-    assert tlk.launch_shape(1024, 352, 47, 132, L=8) == (2, 512)
-    # model3 (377 index columns, 3968 wide): one row a tile at any L that fits
-    assert tlk.launch_shape(4096, 3968, 377, 132, L=4) == (1, 528)
-    assert tlk.smem_bytes(3968, 377, 1, L=4) == 60400
-    # a sweep's 16 rows halve as L grows
-    assert tlk.launch_shape(4096, 352, 47, 132, 16, 4, L=8) == (16, 256)
-    assert tlk.launch_shape(4096, 352, 47, 132, 16, 4, L=64) == (8, 512)
-    assert tlk.launch_shape(4096, 3968, 377, 132, 4, 4, L=32) == (1, 528)
-    with pytest.raises(ValueError, match="slots"):
-        tlk.launch_shape(4096, 3968, 377, 132, L=64)
+    """bag_smem_bytes / bags_plan: a block holds the ring of a tile's ids
+    (16-byte rounded, two edge lines a slot), 8 bytes a staged output
+    descriptor (a 16-byte chunk each), 40 a plan column and two tiles'
+    records (bag_record_words each) and flags; rows give a block about one
+    tile and halve until the blocks an SM fit, and a shape whose single row
+    does not fit raises."""
+    assert [tlk.bag_record_words(L) for L in (1, 3, 4, 8)] == [3, 5, 7, 11]
+    assert tlk.bag_smem_bytes(88, 47, 47, 8, 16, 2, 4) == (
+        16 + 2 * (16 * 47 * 8 * 4 + 32) + 8 * 88 + 40 * 47 + 8 * 16 * 47 * 11 + 8 * 16)
+    assert tlk.bag_smem_bytes(88, 47, 47, 8, 16, 2, 4) == 117096
+    # model1 (88 chunks of 4 float32 columns) at B = 4096 / 1024 and L = 8
+    assert tlk.bags_plan(4096, 47, 8, 352, 47, 132, pos_cols=4) == tlk.BagPlan(
+        4, 528, 2, 4, 31272)
+    assert tlk.bags_plan(1024, 47, 8, 352, 47, 132, pos_cols=4).rows == 2
+    # model3 (376 bags a row, 992 chunks): one row a tile at L = 4
+    assert tlk.bags_plan(4096, 376, 4, 3968, 376, 132, pos_cols=4) == tlk.BagPlan(
+        1, 528, 2, 4, 56152)
+    # explicit rows are kept; the grid follows them
+    assert tlk.bags_plan(4096, 47, 8, 352, 47, 132, rows=16, blocks_per_sm=4,
+                         pos_cols=4).grid == 256
+    assert tlk.bags_plan(4096, 47, 64, 352, 47, 132, pos_cols=4).rows == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        tlk.bags_plan(4096, 376, 64, 3968, 376, 132, pos_cols=4)
 
 
 def test_forward_pooled_runs_one_fused_bag_lookup(monkeypatch):

@@ -5,8 +5,8 @@ a card:
 
     python3 chip_mesh.py
 
-Builds the kernels from the sources in this checkout, then runs three
-worlds of four spawned ranks, each rank bound to its own card
+Builds the kernels from the sources in this checkout, then runs worlds of
+four spawned ranks, each rank bound to its own card
 (``init_distributed`` with the ``nccl`` backend; it never falls back to
 gloo):
 
@@ -42,9 +42,22 @@ gloo):
    forward's time by part with the exchange's bytes, time and rate; then
    ``ici_bench`` at 64 MiB a rank over the row (all_gather, psum,
    ppermute);
-5. (data=2, model=2): ``parallel/dryrun.py::dryrun_multichip`` on every
+5. sharded checkpoints (``io.save_sharded`` / ``io.load_sharded``;
+   ``chip_smoke.checkpoint_mesh_rank``), a world of four holding a (2, 2)
+   and a (1, 4) mesh: model1 at full rows, uniform tables and weights,
+   saved from one device here and restored onto (2, 2), trained one SGD
+   step (``ShardedFleetRec.train_step``), saved, and restored onto (2, 2)
+   (arrays and scores bit-equal to the trained mesh's) and onto (1, 4)
+   (every array, gathered over each mesh's model group, byte-equal to the
+   (2, 2) mesh's; the whole batch's scores within rtol 1e-6 of the (2, 2)
+   rows'); then model1's pm1 windows generated on the cards
+   (``pack_pm1_sharded`` with the (2, 2) mesh, ``from_packed``) saved and
+   restored onto (2, 2), scores bit-equal to the pm1 oracle; each save's
+   and load's seconds and GB/s with its bytes on disk (the first save and
+   the first load twice: the first carries a process's first use of DCP);
+6. (data=2, model=2): ``parallel/dryrun.py::dryrun_multichip`` on every
    rank;
-6. ``cli plan --config criteo_terabyte --recommend 4`` for bfloat16 and
+7. ``cli plan --config criteo_terabyte --recommend 4`` for bfloat16 and
    int8 tables (host only).
 
 Exits nonzero, printing no result, with fewer than four CUDA devices.
@@ -141,6 +154,87 @@ def criteo_step(tmp):
         "ici_bench": [r["ici"] for r in res]}
 
 
+def checkpoint_step(tmp):
+    """Step 5: ``chip_smoke.checkpoint_mesh_rank`` on a world of CARDS
+    ranks over NCCL, from a one-device checkpoint of uniform model1 written
+    here; its checks and times logged; returns its results."""
+    t0 = time.time()
+    cfg = C.fleetrec_model1(batch_size=B_TIME)
+    paths = {k: os.path.join(tmp, f"ckpt_{k}") for k in ("one", "trained", "packed")}
+    model = init_model(cfg, table_scheme="uniform", mlp_scheme="uniform", device="cpu")
+    save_s = []
+    for _ in range(2):  # the first carries this process's first use of DCP
+        shutil.rmtree(paths["one"], ignore_errors=True)
+        t = time.perf_counter()
+        fio.save_sharded(paths["one"], model)
+        save_s.append(time.perf_counter() - t)
+    del model
+    rng = np.random.default_rng(55)
+    idx = cs._rand_ids(cfg, 2 * B_TIME, rng)
+    inputs = os.path.join(tmp, "ckpt_inputs.npz")
+    np.savez(inputs, **{"ck/idx": idx,
+                        "ck/labels": rng.integers(0, 2, 2 * B_TIME).astype(np.float32)})
+    golden = pm1_scores(cfg, idx, None).astype(np.float32)
+    setup_s = time.time() - t0
+    res, _ = cs.run_world(CARDS, cs.checkpoint_mesh_rank, (paths, inputs), tmp, "ckpt_2x2",
+                          backend="nccl")
+
+    def rows(key):
+        for d in range(2):
+            if not np.array_equal(res[2 * d][key], res[2 * d + 1][key]):
+                raise AssertionError(f"step 5: the ranks of data row {d} disagree on {key}")
+        return np.concatenate([res[0][key], res[2][key]])
+
+    trained = rows("trained_22")
+    if not np.array_equal(rows("again_22"), trained):
+        raise AssertionError("step 5: the (2, 2) restore's scores differ from the trained mesh's")
+    for r in res[1:]:
+        if not np.array_equal(r["scores_14"], res[0]["scores_14"]):
+            raise AssertionError(f"step 5: (1, 4) rank {r['rank']} disagrees with rank 0")
+    np.testing.assert_allclose(res[0]["scores_14"], trained, rtol=1e-6, atol=0,
+                               err_msg="step 5: (1, 4) against the trained (2, 2) mesh")
+    exact14 = bool(np.array_equal(res[0]["scores_14"], trained))
+    if not np.array_equal(rows("packed_22"), golden):
+        raise AssertionError("step 5: the restored from_packed windows' scores differ from the "
+                             "pm1 oracle")
+    for r in res:
+        if (r["launches_step"] != cs._launches(lookup=1, backward=1)
+                or r["launches_forward"] != cs._launches(lookup=1, mlp=1)
+                or r["launches_packed"] != cs._launches(lookup=1, mlp=1)):
+            raise AssertionError(f"step 5: rank {r['rank']} launched {r['launches_step']} "
+                                 f"(step), {r['launches_forward']} / {r['launches_packed']} "
+                                 f"(forwards)")
+    if len({r["loss"] for r in res}) != 1:
+        raise AssertionError(f"step 5: the ranks' losses differ: {[r['loss'] for r in res]}")
+    card = cs.card_line()
+    nbytes = {k: cs.disk_bytes(p) for k, p in paths.items()}
+    times = {"save one device (host tensors)": ("one", save_s[0]),
+             "save one device (host tensors), again": ("one", save_s[1])}
+    for key, what, path in (("load_one_22_s", "load one device -> (2, 2)", "one"),
+                            ("load_one_22_again_s", "load one device -> (2, 2), again", "one"),
+                            ("save_22_s", "save (2, 2), trained", "trained"),
+                            ("load_22_22_s", "load (2, 2) -> (2, 2)", "trained"),
+                            ("load_22_14_s", "load (2, 2) -> (1, 4)", "trained"),
+                            ("save_packed_s", "save (2, 2) from_packed windows", "packed"),
+                            ("load_packed_s", "load (2, 2) -> (2, 2) windows", "packed")):
+        times[what] = (path, max(r[key] for r in res))
+    for what, (path, sec) in times.items():
+        log(f"(5) time checkpoint model1 {what} on {CARDS} x {card}: {nbytes[path]} B on disk, "
+            f"{sec:.3f} s ({nbytes[path] / sec / 1e9:.3f} GB/s; the slowest rank, host clock "
+            f"between barriers and synchronizes; loads page-cache warm)")
+    log(f"(5) sharded checkpoints over NCCL, (2, 2) and (1, 4) in one world of {CARDS} "
+        f"({time.time() - t0:.1f}s, set-up {setup_s:.1f}s): uniform model1 at full rows from a "
+        f"one-device checkpoint onto (2, 2), one SGD step (loss {res[0]['loss']!r}, launches "
+        f"{res[0]['launches_step']}), saved and restored onto (2, 2) with its {res[0]['arrays']} "
+        f"arrays and scores bit-equal, and onto (1, 4) with every array gathered byte-equal and "
+        f"the scores of {2 * B_TIME} rows within rtol 1e-6 of the (2, 2) rows' "
+        f"({'bit-equal' if exact14 else 'not bit-equal'}); pm1 windows generated on the cards "
+        f"(from_packed) saved and restored onto (2, 2), scores bit-equal to the oracle; "
+        f"launches of a restored forward {res[0]['launches_forward']}")
+    return {"bytes_on_disk": nbytes, "seconds": {k: v[1] for k, v in times.items()},
+            "loss": res[0]["loss"], "scores_14_bit_equal": exact14, "card": card}
+
+
 def main() -> int:
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if n < CARDS:
@@ -229,11 +323,13 @@ def main() -> int:
 
         results["criteo_full_1x4"] = criteo_step(tmp)
 
+        results["checkpoint_2x2_1x4"] = checkpoint_step(tmp)
+
         t6 = time.time()
         res, _ = cs.run_world(CARDS, cs.dryrun_rank, (2, 2), tmp, "dryrun_2x2", backend="nccl")
         if len({r["loss"] for r in res}) != 1:
             raise AssertionError(f"the dry run's ranks disagree on the loss: {res}")
-        log(f"(5) dryrun_multichip on a (data=2, model=2) NCCL world: every rank passed "
+        log(f"(6) dryrun_multichip on a (data=2, model=2) NCCL world: every rank passed "
             f"({time.time() - t6:.1f}s); loss {res[0]['loss']}, score shapes "
             f"{ {k: v for k, v in res[0].items() if k.startswith('scores')} }")
         results["dryrun_2x2"] = res
@@ -245,7 +341,7 @@ def main() -> int:
                  "criteo_terabyte", "--recommend", str(CARDS), "--dtype", dtype],
                 capture_output=True, text=True, timeout=120, check=True)
             plans[dtype] = json.loads(run.stdout)
-            log(f"(6) cli plan --config criteo_terabyte --recommend {CARDS} --dtype {dtype}: "
+            log(f"(7) cli plan --config criteo_terabyte --recommend {CARDS} --dtype {dtype}: "
                 f"{json.dumps(plans[dtype])}")
         results["plan_recommend_4"] = plans
     finally:

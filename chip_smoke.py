@@ -205,11 +205,25 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
    past 4 GiB of offset (``edge_targets``); the peak host RSS at most
    16 GiB; the lookup's time at random ids, every id 0 and take ids
    inside a 1 GiB footprint, beside its bound and (random ids) its plain
-   version, and the forward's device time by part (lookup, tower, poison).
+   version, and the forward's device time by part (lookup, tower, poison);
+15. sharded checkpoints (``io.save_sharded`` / ``io.load_sharded`` on
+   ``torch.distributed.checkpoint``; it runs after phase 13, before phase 14
+   takes the card to itself): phase 4's model1 (full rows, pm1 / ones) saved
+   from the card and restored onto it, every array bit-equal and the
+   forwards at B = 4096 and 1024 bit-equal to the float64 oracle and to the
+   scores before the save, 1 ``lookup_fused`` and 1 ``fused_mlp`` launch a
+   restored forward; its int8 form (``quantize_tables``) the same, tables
+   and scales; a (data=1, model=2) world of two ranks on this card over
+   gloo restoring the one-device checkpoint onto the mesh (twice: the first
+   load carries the ranks' first use of DCP) with both ranks' scores
+   bit-equal, then saving from the mesh, that checkpoint restored onto one
+   device bit-equal; each save's and load's seconds, GB/s and bytes on disk
+   beside the card's name and power limit (loads read what was just
+   written: page-cache warm).
 
-In phases 6-12 and 14 the kernels' launch counters are zeroed just before each
-path runs and read just after (in phase 12 inside each rank); each kernel of
-the path must have launched.
+In phases 6-12, 14 and 15 the kernels' launch counters are zeroed just before
+each path runs and read just after (in phases 12 and 15 inside each rank);
+each kernel of the path must have launched.
 A counter counts wrapper calls that launched a kernel: eager calls, and
 the calls recorded while a CUDA graph is captured.  Replays of a graph
 add nothing, so ``gather_rows``' and ``gather_rows_grouped``'s counts from
@@ -2626,6 +2640,283 @@ def log_forward_splits(r0, where, note):
             f"{OVERLAP_REPS} in turns)")
 
 
+# ---- phase 15: sharded checkpoints (io.save_sharded / io.load_sharded) --------
+
+# the batches a restored model1 is scored at
+CKPT_BATCHES = (B_TIME, B_SERVE)
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def disk_bytes(path) -> int:
+    """The bytes of every file under the directory ``path``."""
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def synced(fn):
+    """``fn()`` between two device synchronizes; returns its result and its
+    seconds on the host clock."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def same_checkpoint_tensors(a, b) -> bool:
+    """Whether two targets hold the same checkpoint arrays
+    (``io.checkpoint_tensors``), bit for bit."""
+    ta, tb = fio.checkpoint_tensors(a), fio.checkpoint_tensors(b)
+    return ta.keys() == tb.keys() and all(
+        ta[k].shape == tb[k].shape and torch.equal(bits(ta[k]), bits(tb[k])) for k in ta)
+
+
+def checkpoint_rank(rank, paths, inputs_path):
+    """A rank of phase 15's (data=1, model=2) world on this card: model1
+    restored from the one-device checkpoint onto the mesh (``load_sharded``
+    with the mesh; twice, each timed), scored at CKPT_BATCHES with every
+    launch count at 0 just before, then saved from the mesh.  Returns the
+    scores, the launches and the loads' and the save's seconds (each
+    between barriers)."""
+    import torch.distributed as dist
+
+    from fleetrec_tpu_torch.parallel import global_mesh
+
+    mesh = global_mesh(1, 2, device="cuda")
+    data = dict(np.load(inputs_path))
+    cfg = C.fleetrec_model1(batch_size=B_TIME)
+    dist.barrier()
+    sh, load_s = synced(lambda: fio.load_sharded(paths["one"], cfg, mesh=mesh))
+    # the same load again: the first carries the process's first use of DCP,
+    # DTensor and the groups
+    dist.barrier()
+    sh, again_s = synced(lambda: fio.load_sharded(paths["one"], cfg, mesh=mesh))
+    ids = {B: torch.from_numpy(data[f"ck/{B}"]).to(mesh.device) for B in CKPT_BATCHES}
+    with torch.inference_mode():
+        scores, launches = _counted(lambda: {B: sh.forward(ids[B]).cpu().numpy()
+                                             for B in CKPT_BATCHES})
+    dist.barrier()
+    _, save_s = synced(lambda: fio.save_sharded(paths["mesh"], sh))
+    return {"scores": scores, "launches": launches, "load_s": load_s, "again_s": again_s,
+            "save_s": save_s, "shard_bytes": sum(t.numel() * t.element_size()
+                               for t in fio.checkpoint_tensors(sh).values())}
+
+
+def phase_checkpoint(dev, model):
+    """Phase 15: phase 4's pm1 model1 (full rows) through sharded
+    checkpoints; see the module docstring.  Returns the launch counts of the
+    restored one-device forwards."""
+    t0 = time.time()
+    cfg = model.cfg
+    rng = np.random.default_rng(15)
+    idx = {B: _rand_ids(cfg, B, rng) for B in CKPT_BATCHES}
+    golden = {B: pm1_scores(cfg, idx[B], None).astype(np.float32) for B in CKPT_BATCHES}
+    ids = {B: torch.from_numpy(idx[B]).to(dev) for B in CKPT_BATCHES}
+
+    def scores(m):
+        with torch.inference_mode():
+            return {B: m(ids[B]).cpu().numpy() for B in CKPT_BATCHES}
+
+    def check(got, what, want=None):
+        for B in CKPT_BATCHES:
+            if not np.array_equal(got[B], golden[B]):
+                raise AssertionError(f"phase 15 {what}: B={B} scores differ from the oracle")
+            if want is not None and not np.array_equal(got[B], want[B]):
+                raise AssertionError(f"phase 15 {what}: B={B} scores differ from the saved "
+                                     f"model's")
+
+    before = scores(model)
+    check(before, "model1 before the save")
+    notes, rows = [], {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        paths = {k: os.path.join(tmp, k) for k in ("one", "mesh", "int8")}
+        _, save_s = synced(lambda: fio.save_sharded(paths["one"], model))
+        restored, load_s = synced(lambda: fio.load_sharded(paths["one"], cfg))
+        if restored.device != dev or not same_checkpoint_tensors(restored, model):
+            raise AssertionError("phase 15: the restored model1 is not the saved one on the card")
+        got, launches = _counted(lambda: scores(restored))
+        if launches != _launches(lookup=len(CKPT_BATCHES), mlp=len(CKPT_BATCHES)):
+            raise AssertionError(f"phase 15: the restored forwards launched {launches}")
+        check(got, "one device -> one device", before)
+        del restored
+        rows["model1 float32, one device -> one device"] = (disk_bytes(paths["one"]), save_s,
+                                                           load_s)
+
+        q = fio.quantize_tables(model)
+        q_before = scores(q)
+        check(q_before, "model1 int8 before the save")
+        _, qsave_s = synced(lambda: fio.save_sharded(paths["int8"], q))
+        q_restored, qload_s = synced(lambda: fio.load_sharded(paths["int8"], q.cfg))
+        if not same_checkpoint_tensors(q_restored, q):
+            raise AssertionError("phase 15: the restored int8 model1 (tables and scales) is not "
+                                 "the saved one")
+        check(scores(q_restored), "int8, one device -> one device", q_before)
+        n_scales = len(q.packed.onehot_scales) + (q.packed.take_scales is not None)
+        del q, q_restored
+        torch.cuda.empty_cache()
+        rows["model1 int8, one device -> one device"] = (disk_bytes(paths["int8"]), qsave_s,
+                                                        qload_s)
+
+        inputs = os.path.join(tmp, "inputs.npz")
+        np.savez(inputs, **{f"ck/{B}": idx[B] for B in CKPT_BATCHES})
+        t1 = time.time()
+        res, _ = run_world(2, checkpoint_rank, (paths, inputs), tmp, "ckpt_1x2")
+        for r, out in enumerate(res):
+            check(out["scores"], f"one device -> (1, 2), rank {r}", before)
+            if out["launches"] != _launches(lookup=len(CKPT_BATCHES), mlp=len(CKPT_BATCHES)):
+                raise AssertionError(f"phase 15: rank {r}'s restored sharded forwards launched "
+                                     f"{out['launches']}")
+        world_s = time.time() - t1
+        mesh_restored, mload_s = synced(lambda: fio.load_sharded(paths["mesh"], cfg))
+        if not same_checkpoint_tensors(mesh_restored, model):
+            raise AssertionError("phase 15: the (1, 2) save restored onto one device is not "
+                                 "model1")
+        check(scores(mesh_restored), "(1, 2) -> one device", before)
+        del mesh_restored
+        torch.cuda.empty_cache()
+        for what, key in (("", "load_s"), (", again", "again_s")):
+            rows[f"model1 float32, one device -> (1, 2) gloo{what}"] = (
+                rows["model1 float32, one device -> one device"][0], None,
+                max(r[key] for r in res))
+        rows["model1 float32, (1, 2) gloo -> one device"] = (
+            disk_bytes(paths["mesh"]), max(r["save_s"] for r in res), mload_s)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    card = card_line()
+    for what, (nbytes, save, load) in rows.items():
+        save_txt = (f"save {save:.3f} s ({nbytes / save / 1e9:.3f} GB/s)" if save is not None
+                    else "save: the row above")
+        log(f"time phase 15 checkpoint {what} on {card}: {nbytes} B on disk, {save_txt}, "
+            f"load {load:.3f} s ({nbytes / load / 1e9:.3f} GB/s; page-cache warm: read "
+            f"just after it was written); host clock between synchronizes")
+    log(f"phase 15 sharded checkpoints: model1 at full rows (pm1 / ones) saved with "
+        f"io.save_sharded and restored with io.load_sharded: one device -> one device, every "
+        f"array bit-equal and the forwards at B={CKPT_BATCHES} bit-equal to the float64 oracle "
+        f"and to the scores before the save, launches of the restored forwards {launches}; the "
+        f"int8 form (quantize_tables, {n_scales} scale arrays) the same; a (1, 2) gloo world on "
+        f"this card ({world_s:.1f}s): one device -> (1, 2) and (1, 2) -> one device, scores "
+        f"bit-equal on both ranks and one device, launches a rank "
+        f"{res[0]['launches']}, {res[0]['shard_bytes']} B of shard on rank 0 "
+        f"({time.time() - t0:.1f}s)")
+    return {"launches": launches, "rows": rows, "card": card}
+
+
+def gathered_tensors(sh, group):
+    """The global arrays of a mesh, on every rank of one of its data rows:
+    each split array's valid rows, padded to ``ceil(rows / M)`` (the same
+    size on every rank), all_gathered over the row's model ``group`` and cut
+    to its global rows; each replicated array this rank's."""
+    import torch.distributed as dist
+
+    out = {}
+    for name, t in fio.checkpoint_tensors(sh).items():
+        rows = fio.split_rows(name, sh.plan)
+        if rows is None:
+            out[name] = t
+            continue
+        full = t.new_zeros((-(-rows // sh.mesh.model),) + tuple(t.shape[1:]))
+        full[:t.shape[0]] = t
+        parts = [torch.empty_like(full) for _ in range(sh.mesh.model)]
+        dist.all_gather(parts, full, group=group)
+        out[name] = torch.cat(parts)[:rows]
+    return out
+
+
+def same_tensors(a, b) -> bool:
+    """Whether two {name: tensor} hold the same names and bits."""
+    return a.keys() == b.keys() and all(
+        a[k].shape == b[k].shape and torch.equal(bits(a[k]), bits(b[k])) for k in a)
+
+
+def checkpoint_mesh_rank(rank, paths, inputs_path):
+    """A rank of chip_mesh.py's step 5, a world of 4 ranks (one card a rank,
+    NCCL) holding a (2, 2) and a (1, 4) mesh: model1 at full rows from the
+    one-device checkpoint of uniform tables and weights (``paths["one"]``)
+    restored onto (2, 2) (twice, each timed); one ``train_step`` (SGD) on the global batch (its
+    data row's half on each row), every launch count at 0 just before; the
+    trained mesh's scores; saved (``paths["trained"]``) and restored onto
+    (2, 2), its arrays and scores bit-equal to the trained mesh's, and onto
+    (1, 4), its arrays gathered over each mesh's model group byte-equal to
+    the (2, 2) mesh's gathered, scored on the whole batch.  Then model1's pm1
+    windows generated on the cards (``pack_pm1_sharded`` with the (2, 2)
+    mesh, ``ShardedFleetRec.from_packed``) saved (``paths["packed"]``) and
+    restored onto (2, 2), scored and checked against the windows' arrays.
+    Returns the scores, launches, and each load's and save's seconds
+    (between barriers)."""
+    import torch.distributed as dist
+
+    from fleetrec_tpu_torch.parallel import ShardedFleetRec, global_mesh, make_mesh
+
+    m22 = global_mesh(2, 2, device="cuda")
+    m14 = make_mesh(1, 4, device="cuda")
+    dev = m22.device
+    data = dict(np.load(inputs_path))
+    cfg = C.fleetrec_model1(batch_size=B_TIME)
+    half = data["ck/idx"].shape[0] // 2
+    row = slice(m22.d * half, (m22.d + 1) * half)
+    ids, labels = (torch.from_numpy(data[k][row]).to(dev) for k in ("ck/idx", "ck/labels"))
+    ids_all = torch.from_numpy(data["ck/idx"]).to(dev)
+    out = {"rank": rank, "card": str(dev)}
+
+    def timed(key, fn):
+        dist.barrier()
+        res, out[key] = synced(fn)
+        return res
+
+    sh = timed("load_one_22_s", lambda: fio.load_sharded(paths["one"], cfg, mesh=m22))
+    # the same load again: the first carries the process's first use of DCP,
+    # DTensor and the groups
+    del sh
+    sh = timed("load_one_22_again_s", lambda: fio.load_sharded(paths["one"], cfg, mesh=m22))
+    out["loss"], out["launches_step"] = _counted(
+        lambda: sh.train_step(ids, None, labels, SHARD_LR).item())
+    with torch.inference_mode():
+        out["trained_22"], out["launches_forward"] = _counted(lambda: sh.forward(ids).cpu().numpy())
+    timed("save_22_s", lambda: fio.save_sharded(paths["trained"], sh))
+    again = timed("load_22_22_s", lambda: fio.load_sharded(paths["trained"], cfg, mesh=m22))
+    if not same_checkpoint_tensors(again, sh):
+        raise AssertionError(f"rank {rank}: the (2, 2) restore of the trained mesh differs")
+    with torch.inference_mode():
+        out["again_22"] = again.forward(ids).cpu().numpy()
+    del again
+    want = gathered_tensors(sh, m22.group)
+    del sh
+    torch.cuda.empty_cache()
+    sh14 = timed("load_22_14_s", lambda: fio.load_sharded(paths["trained"], cfg, mesh=m14))
+    if not same_tensors(gathered_tensors(sh14, m14.group), want):
+        raise AssertionError(f"rank {rank}: the (1, 4) restore, gathered, differs from the "
+                             f"trained (2, 2) mesh's arrays")
+    out["arrays"] = len(want)
+    with torch.inference_mode():
+        out["scores_14"] = sh14.forward(ids_all).cpu().numpy()
+    out["shard_bytes_14"] = sum(t.numel() * t.element_size()
+                                for t in fio.checkpoint_tensors(sh14).values())
+    del sh14, want
+    torch.cuda.empty_cache()
+
+    plan = ModelPlan.create(cfg)
+    packed = pack_pm1_sharded(cfg, plan.layout, m22)
+    gen = ShardedFleetRec.from_packed(plan, packed, m22, init_mlp_params(cfg.mlp, "ones",
+                                                                          device=dev))
+    del packed
+    timed("save_packed_s", lambda: fio.save_sharded(paths["packed"], gen))
+    restored = timed("load_packed_s", lambda: fio.load_sharded(paths["packed"], cfg, mesh=m22))
+    if not same_checkpoint_tensors(restored, gen):
+        raise AssertionError(f"rank {rank}: the restored from_packed windows differ")
+    del gen
+    with torch.inference_mode():
+        out["packed_22"], out["launches_packed"] = _counted(
+            lambda: restored.forward(ids).cpu().numpy())
+    return out
+
+
 # phase 14: criteo_terabyte at full cardinality, int8 tables, float32 tower
 CRITEO_BATCHES = (B_TIME, B_SERVE)
 # the peak resident host memory the build may take (a host build of the
@@ -3317,11 +3608,7 @@ def phase_report(cfg, model, dev, gb, lookups, windows):
     torch.profiler has attached to the device it adds host cost to every
     later launch, so the profiled pass runs last.  Returns each label's
     numbers for the kernels' record."""
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    log(f"card: {card}")
+    log(f"card: {card_line()}")
     rng = np.random.default_rng(4)
     idx = torch.from_numpy(_rand_ids(cfg, B_TIME, rng)).to(dev)
     with torch.inference_mode():
@@ -3827,6 +4114,7 @@ def main() -> int:
         dev, model, tabs, ws, lookups["fleetrec_model3"][1], lookups["dlrm_terabyte"][1])
     window_bwd = time_window_backward(timed_wb, dev)
     del timed_wb
+    ckpt = phase_checkpoint(dev, model)
     stats = phase_report(cfg, model, dev, gb, lookups, windows)
     profile_training(runs, trained)
     # phase 14 needs the card to itself: 52.96 GB of tables
@@ -3865,6 +4153,7 @@ def main() -> int:
          "launches_dlrm_serve": dlrm_launches["fused_mlp"], "max_abs_err_dlrm": err_dlrm,
          "launches_criteo_full": crit["launches"]["fused_mlp"],
          "launches_criteo_full_serve": crit["serve_launches"]["fused_mlp"],
+         "launches_checkpoint": ckpt["launches"]["fused_mlp"],
          # each tower against fused_mlp_plain in phase 3, every B, ReLU off and on
          **{f"max_abs_err_{tower}{sfx}": err_towers[tower, dtype]
             for tower in ("dlrm_bottom", "dlrm_top")
@@ -3893,6 +4182,8 @@ def main() -> int:
          # rank 0 of the (1, 2) world; times on shard 0 of 2, bound at the
          # shard's bytes
          "launches_sharded": sharded["launches_forward"]["lookup_fused"],
+         # phase 15: the forwards of model1 restored from its sharded checkpoint
+         "launches_checkpoint": ckpt["launches"]["lookup_fused"],
          "max_abs_err_window": err_w,
          **{f"{k}_window_{tag}": stats[f"lookup_fused window fleetrec_{tag} B={B_TIME}"][k]
             for tag in ("model1", "model3") for k in ("ms", "plain_ms", "bound_ms")},

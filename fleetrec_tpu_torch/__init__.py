@@ -16,7 +16,9 @@ tables on the card, a rank's window at a time, so criteo_terabyte at its
 full cardinality is built with no table on the host.  ``models/train.py``
 trains a model in place on one device (BCE,
 Adagrad; the lookup's backward is a hand-written kernel too).  ``io.py`` reads
-and writes the JAX package's npz checkpoints, and the CLI's ``bench``,
+and writes the JAX package's npz checkpoints, and sharded checkpoints on
+``torch.distributed.checkpoint`` that restore onto any mesh or one device
+(``save_sharded`` / ``load_sharded``), and the CLI's ``bench``,
 ``gatherbench`` (with the grouped gather kernel,
 ``ops/csrc/gather_grouped.cu``), ``autotune``, ``servebench``,
 ``netbench`` and ``export`` measure the port on the card.  The package

@@ -79,7 +79,7 @@ import torch.distributed as dist
 from ..models.embedding import TORCH_DTYPES, PackedTables, class_tables, lookup_tensors
 from ..models.fleetrec import (FleetRecModel, ModelPlan, check_inputs, check_pooled_config,
                                interaction_head)
-from ..models.interaction import cross_network
+from ..models.interaction import cross_network, pair_columns
 from ..models.mlp import mlp_apply, mlp_train
 from ..models.train import SGD, bce_with_logits
 from ..ops.lookup import LookupFunction, lookup_fused, lookup_fused_bags, require_float_storage
@@ -116,20 +116,17 @@ def packed_operands(plan: ModelPlan, packed: PackedTables, m: int, M: int, devic
     ``packed``'s take buffer already holds just those rows
     (``pack_pm1_sharded`` with a mesh) and is used as it is, not copied,
     when it lies on ``device``."""
-    lay = plan.layout
     quant = packed.onehot_scales is not None
     bufs, scales = [], ([] if quant else None)
-    for i, c in enumerate(lay.onehot_classes):
+    for i, c in enumerate(plan.layout.onehot_classes):
         lo, _ = class_tables(c.num_tables, m, M)
         n_loc = -(-c.num_tables // M)
         bufs.append(_slice_rows(packed.onehot_buffers[i], lo, n_loc, 0, device))
         if quant:
             scales.append(_slice_rows(packed.onehot_scales[i], lo, n_loc, 1.0, device))
-    window = None
     take = packed.take_buffer
     if take is not None:
-        rows_local = -(-lay.take_phys_total // M)
-        window = (m * rows_local, rows_local)
+        rows_local = -(-plan.layout.take_phys_total // M)
         if window_only:
             if take.shape[0] != rows_local:
                 raise ValueError(f"the take window of shard {m} of {M} has {rows_local} rows, "
@@ -139,6 +136,41 @@ def packed_operands(plan: ModelPlan, packed: PackedTables, m: int, M: int, devic
             bufs.append(_slice_rows(take, m * rows_local, rows_local, 0, device))
         if quant:
             scales.append(packed.take_scales.to(device, copy=True))
+    return _operands(plan, bufs, scales, m, M, device)
+
+
+def empty_operands(plan: ModelPlan, m: int, M: int, device) -> dict:
+    """``packed_operands``' dict of model shard m of M with every buffer
+    allocated on ``device`` and holding only padding (tables and rows 0,
+    int8 scales 1.0): what ``io.load_sharded`` fills in place, the valid
+    rows of each buffer from the checkpoint."""
+    lay = plan.layout
+    tdtype = TORCH_DTYPES[plan.cfg.table_dtype]
+    quant = plan.cfg.table_dtype == "int8"
+    bufs, scales = [], ([] if quant else None)
+    for c in lay.onehot_classes:
+        n_loc = -(-c.num_tables // M)
+        shape = (n_loc, c.r1, c.r2 * c.dim) if c.r2 else (n_loc, c.rows_pad, c.dim)
+        bufs.append(torch.zeros(shape, dtype=tdtype, device=device))
+        if quant:
+            scales.append(torch.ones(n_loc, dtype=torch.float32, device=device))
+    if lay.take_phys_total:
+        bufs.append(torch.zeros((-(-lay.take_phys_total // M), lay.take_lanes), dtype=tdtype,
+                                device=device))
+        if quant:
+            scales.append(torch.ones(lay.n_take, dtype=torch.float32, device=device))
+    return _operands(plan, bufs, scales, m, M, device)
+
+
+def _operands(plan: ModelPlan, bufs, scales, m: int, M: int, device) -> dict:
+    """The operands dict of shard m of M over its buffers and scales
+    (classes, then the take window): the take window, the shard's
+    descriptors, the dense tail on shard 0 alone."""
+    lay = plan.layout
+    window = None
+    if lay.take_phys_total:
+        rows_local = -(-lay.take_phys_total // M)
+        window = (m * rows_local, rows_local)
     desc = lookup_tensors(lay, plan.index_perm, plan.qr_positions, device, shard=(m, M))
     return dict(bufs=bufs, scales=scales, cols=desc["cols"], pos=desc["pos"],
                 stripes=lay.take_stripes, stripe_height=lay.stripe_height,
@@ -200,11 +232,22 @@ class ShardedFleetRec:
         if cfg.interaction != "none" or cfg.bottom_mlp is not None:
             raise ValueError(f"from_packed builds the tower-only model; {cfg.name} has the "
                              f"{cfg.interaction!r} interaction head")
+        dev = mesh.device
+        return cls.from_operands(
+            plan, mesh, packed_operands(plan, packed, mesh.m, mesh.model, dev, window_only=True),
+            [w.to(dev, copy=True) for w in mlp])
+
+    @classmethod
+    def from_operands(cls, plan: ModelPlan, mesh: Mesh, operands: dict,
+                      mlp: Sequence[torch.Tensor], bottom: Sequence[torch.Tensor] = (),
+                      cross: Sequence[Sequence[torch.Tensor]] = ()) -> "ShardedFleetRec":
+        """This rank's shard over ``operands`` (``packed_operands`` or
+        ``empty_operands`` of its model shard) and the weights, every tensor
+        already on the mesh's device and used as it is, not copied."""
         self = cls.__new__(cls)
         self._place(plan, mesh)
-        self.operands = packed_operands(plan, packed, mesh.m, mesh.model, mesh.device,
-                                        window_only=True)
-        self._copy_weights(mlp, (), (), None)
+        self.operands = operands
+        self._set_weights(mlp, bottom, cross)
         return self
 
     @property
@@ -219,17 +262,22 @@ class ShardedFleetRec:
     def shard_params(self, model: FleetRecModel) -> None:
         """Keep this rank's slice of ``model``'s tables (``shard_operands``)
         and a copy of every weight on the mesh's device."""
-        self.operands = shard_operands(model, self.mesh.m, self.mesh.model, self.mesh.device)
-        self._copy_weights(model.mlp_weights, model.bottom_weights, model.cross_weights,
-                           model.pair_cols if self.cfg.interaction == "dot" else None)
-
-    def _copy_weights(self, mlp, bottom, cross, pair_cols) -> None:
-        """Copies of the replicated weights on the mesh's device."""
         dev = self.mesh.device
-        self.mlp = [w.to(dev, copy=True) for w in mlp]
-        self.bottom = [w.to(dev, copy=True) for w in bottom]
-        self.cross = [[w.to(dev, copy=True) for w in layer] for layer in cross]
-        self.pair_cols = None if pair_cols is None else pair_cols.to(dev, copy=True)
+        self.operands = shard_operands(model, self.mesh.m, self.mesh.model, dev)
+        self._set_weights([w.to(dev, copy=True) for w in model.mlp_weights],
+                          [w.to(dev, copy=True) for w in model.bottom_weights],
+                          [[w.to(dev, copy=True) for w in layer]
+                           for layer in model.cross_weights])
+
+    def _set_weights(self, mlp, bottom, cross) -> None:
+        """Keep the replicated weights (on the mesh's device) and, for the
+        DLRM head, the triangle's flat columns (``pair_columns``)."""
+        cfg = self.cfg
+        self.mlp, self.bottom = list(mlp), list(bottom)
+        self.cross = [list(layer) for layer in cross]
+        self.pair_cols = (pair_columns(cfg.num_tables + (cfg.bottom_mlp is not None),
+                                       self.mesh.device)
+                          if cfg.interaction == "dot" else None)
 
     # ---- the three parts of a forward -----------------------------------
     def _lookup_dense(self, dense: Optional[torch.Tensor]) -> Optional[torch.Tensor]:

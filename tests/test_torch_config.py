@@ -134,14 +134,15 @@ def _port_files():
 
 def test_port_imports_neither_jax_nor_fleetrec_tpu():
     """AST scan of every module of the port (the training module among
-    them), chip_smoke.py and chip_mesh.py: no jax, optax or fleetrec_tpu
-    import."""
+    them), chip_smoke.py and chip_mesh.py: no jax, optax, orbax or
+    fleetrec_tpu import (the sharded checkpoints use
+    torch.distributed.checkpoint)."""
     bad = []
     files = _port_files()
     assert len(files) > 15 and REPO / "fleetrec_tpu_torch/models/train.py" in files
     assert {REPO / f"fleetrec_tpu_torch/parallel/{m}.py"
             for m in ("__init__", "mesh", "multihost", "sharded", "planner", "dryrun")} <= set(files)
-    assert {REPO / "fleetrec_tpu_torch/models/biginit.py",
+    assert {REPO / "fleetrec_tpu_torch/io.py", REPO / "fleetrec_tpu_torch/models/biginit.py",
             REPO / "fleetrec_tpu_torch/benchmarks/collectives.py"} <= set(files)
     assert (REPO / "chip_mesh.py").is_file()
     for path in files:
@@ -154,7 +155,7 @@ def test_port_imports_neither_jax_nor_fleetrec_tpu():
             else:
                 continue
             for n in names:
-                if n.split(".")[0] in ("jax", "jaxlib", "optax", "fleetrec_tpu"):
+                if n.split(".")[0] in ("jax", "jaxlib", "optax", "orbax", "fleetrec_tpu"):
                     bad.append(f"{path.relative_to(REPO)}:{node.lineno} {n}")
     assert not bad, bad
 

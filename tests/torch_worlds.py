@@ -172,6 +172,99 @@ def run_generated(rank, D, M, names, inputs_path):
     return out
 
 
+def checkpoint_arrays(target):
+    """{name: uint8 [rows, row bytes]} of the arrays a sharded checkpoint
+    holds of ``target`` (``io.checkpoint_tensors``: a FleetRecModel's, or
+    the valid rows of a rank's ShardedFleetRec), as bytes, so that arrays
+    compare bit for bit."""
+    import torch
+
+    from fleetrec_tpu_torch import io as tio
+
+    out = {}
+    for name, t in tio.checkpoint_tensors(target).items():
+        t = t.detach().cpu().contiguous()
+        row_bytes = int(np.prod(t.shape[1:], dtype=np.int64)) * t.element_size()
+        out[name] = t.reshape(-1).view(torch.uint8).numpy().reshape(t.shape[0], row_bytes)
+    return out
+
+
+def shard_padding_ok(sh):
+    """Whether the padding of a rank's shard is as ``packed_operands``
+    makes it: tables and take rows past the real ones 0, their int8 scales
+    1.0."""
+    from fleetrec_tpu_torch.models.embedding import class_tables
+
+    lay, m, M = sh.layout, sh.mesh.m, sh.mesh.model
+    ops = sh.operands
+    counts = [c.num_tables for c in lay.onehot_classes]
+    if lay.take_phys_total:
+        counts.append(lay.take_phys_total)
+    for i, n in enumerate(counts):
+        lo, hi = class_tables(n, m, M)
+        if ops["bufs"][i][hi - lo:].any():
+            return False
+        if ops["scales"] is not None and i < len(lay.onehot_classes):
+            if not (ops["scales"][i][hi - lo:] == 1.0).all():
+                return False
+    return True
+
+
+def run_checkpoints(rank, cases, tmp, inputs_path):
+    """The sharded checkpoints' cases (tests/test_torch_checkpoint.py) on
+    this rank of a world of 4, which holds two meshes, (2, 2) and (1, 4).
+    For each case: the one-device checkpoint ``<tmp>/<name>.one`` the parent
+    wrote, restored onto (2, 2) and forwarded (a "train" case then takes one
+    SGD step, ``ShardedFleetRec.train_step``, on the global batch, and
+    forwards again); saved from (2, 2) to ``<name>.2x2``, restored onto
+    (2, 2) again and onto (1, 4), each forwarded (the (1, 4) mesh's one data
+    row takes the whole batch); saved from (1, 4) to ``<name>.1x4``, which
+    the parent restores onto one device.  Returns, by case, the scores, the
+    shards' valid arrays (``checkpoint_arrays``) and whether each restored
+    shard's padding is as ``packed_operands`` makes it."""
+    import torch
+
+    from fleetrec_tpu_torch import config as TC
+    from fleetrec_tpu_torch import io as tio
+    from fleetrec_tpu_torch.parallel import global_mesh, make_mesh
+
+    m22 = global_mesh(2, 2, device="cpu")
+    m14 = make_mesh(1, 4, device="cpu")
+    data = dict(np.load(inputs_path))
+    out = {}
+    for c in cases:
+        name = c["name"]
+        cfg = case_config(TC, c["cfg"], c.get("dtype"))
+        if "table_dtype" in c:
+            cfg = dataclasses.replace(cfg, table_dtype=c["table_dtype"])
+        glob = [data.get(f"{name}/{k}") for k in ("idx", "dense", "labels")]
+        row = [None if a is None else torch.from_numpy(rows_of(a, m22.d, 2)) for a in glob]
+        whole = [None if a is None else torch.from_numpy(a) for a in glob]
+        path = os.path.join(tmp, name)
+        res = {}
+        sh = tio.load_sharded(f"{path}.one", cfg, mesh=m22)
+        res["pads_one_22"] = shard_padding_ok(sh)
+        with torch.inference_mode():
+            res["scores_one_22"] = sh.forward(*row[:2]).numpy()
+        if c["kind"] == "train":
+            res["loss"] = float(sh.train_step(*row, c["lr"]))
+            with torch.inference_mode():
+                res["scores_trained_22"] = sh.forward(*row[:2]).numpy()
+        res["arrays_22"] = checkpoint_arrays(sh)
+        tio.save_sharded(f"{path}.2x2", sh)
+        again = tio.load_sharded(f"{path}.2x2", cfg, mesh=m22)
+        sh14 = tio.load_sharded(f"{path}.2x2", cfg, mesh=m14)
+        res["pads_22_22"], res["pads_22_14"] = shard_padding_ok(again), shard_padding_ok(sh14)
+        with torch.inference_mode():
+            res["scores_22_22"] = again.forward(*row[:2]).numpy()
+            res["scores_22_14"] = sh14.forward(*whole[:2]).numpy()
+        res["arrays_22_22"] = checkpoint_arrays(again)
+        res["arrays_22_14"] = checkpoint_arrays(sh14)
+        tio.save_sharded(f"{path}.1x4", sh14)
+        out[name] = res
+    return out
+
+
 def run_planner_cases(rank, D, M, inputs_path):
     """The planner tests' sharded forwards on this rank: micro_test (512
     rows) with its dim-32 table split into 2 column parts, and with a

@@ -41,7 +41,11 @@ gloo):
    on ids at the edges of every rank's window (zeros outside its own); the
    forward's time by part with the exchange's bytes, time and rate; then
    ``ici_bench`` at 64 MiB a rank over the row (all_gather, psum,
-   ppermute);
+   ppermute); then the same world in criteo's own default dtypes, bf16
+   tables (26.5 GB a rank's window; 106 GB in all, more than one card) and
+   the bf16 tower: the hard gate (the same windows under a float32 tower)
+   bit-equal to the oracle, the bf16 tower within rtol 2e-2 / atol 2e-2 x
+   max|oracle|, the addressing check and the forward's time by part;
 5. sharded checkpoints (``io.save_sharded`` / ``io.load_sharded``;
    ``chip_smoke.checkpoint_mesh_rank``), a world of four holding a (2, 2)
    and a (1, 4) mesh: model1 at full rows, uniform tables and weights,
@@ -110,19 +114,30 @@ def train_results(res):
             for key in res[0] if key.startswith("train_")}
 
 
-def criteo_step(tmp):
-    """Step 4: ``chip_smoke.criteo_mesh_rank`` on a (1, CARDS) NCCL world,
-    its checks and timings logged; returns its results."""
+def criteo_step(tmp, table_dtype="int8"):
+    """Step 4: ``chip_smoke.criteo_mesh_rank`` of ``table_dtype`` on a (1,
+    CARDS) NCCL world (int8 with ``ici_bench``), its checks and timings
+    logged; returns its results."""
     t5 = time.time()
-    res, _ = cs.run_world(CARDS, cs.criteo_mesh_rank, (1, CARDS, 15), tmp, "criteo_1x4",
-                          backend="nccl")
+    card = cs.card_line()
+    int8 = table_dtype == "int8"
+    res, _ = cs.run_world(CARDS, cs.criteo_mesh_rank,
+                          (1, CARDS, 15, 64 if int8 else None, table_dtype), tmp,
+                          f"criteo_1x4_{table_dtype}", backend="nccl")
+    cfg = cs.criteo_full_config(B_TIME, table_dtype)
+    towers = (f"{cfg.table_dtype} tables, {cfg.dtype} tower"
+              + ("" if int8 else ", and the hard gate: the same windows under a float32 tower"))
     for r in res:
-        log(f"(4) rank {r['rank']} ({r['card']}): its take window of criteo full cardinality "
-            f"built on its card in {r['build_s']:.2f} s, {r['take_bytes']} B = plan(cfg, "
-            f"{CARDS}).take_bytes_per_chip; memory_allocated {r['allocated']} B; ru_maxrss "
-            f"{r['rss']} B (this process's peak at the spawn included); forwards at "
-            f"B={cs.CRITEO_BATCHES} bit-equal to the pm1 "
-            f"oracle, NaN on the bad rows; launches {r['launches']}; over its patterned "
+        log(f"(4) {table_dtype} rank {r['rank']} ({r['card']}): its take window of criteo full "
+            f"cardinality built on its card in {r['build_s']:.2f} s, {r['take_bytes']} B = "
+            f"plan(cfg, {CARDS}).take_bytes_per_chip; memory_allocated {r['allocated']} B; "
+            f"ru_maxrss {r['rss']} B (this process's peak at the spawn included); forwards at "
+            f"B={cs.FULL_BATCHES} ({towers}) "
+            + ("bit-equal to the pm1 oracle" if int8 else
+               f"the gate bit-equal to the pm1 oracle, the bf16 tower within rtol "
+               f"{cs.BF16_RTOL} / atol {cs.BF16_ATOL_OF_MAX} x max|oracle| (max abs err "
+               f"{r['max_abs_err_bf16']!r})")
+            + f", NaN on the bad rows; launches {r['launches']}; over its patterned "
             f"window {r['window']} lookup_fused bit-equal to lookup_fused_plain and "
             f"{r['targets']} edge targets to their rows' pattern ({r['targets_inside']} "
             f"inside its window, zeros outside)")
@@ -131,19 +146,19 @@ def criteo_step(tmp):
                              f"{res[0]['targets']} targets, not each one once")
     sp = res[0]["split"]
     log(f"(4) a (data=1, model=4) world over NCCL on criteo_terabyte at full cardinality "
-        f"(int8), every rank from its own generated window ({time.time() - t5:.1f}s); rank 0 "
-        f"B={B_TIME}, median of {cs.SPLIT_ITERS} (each part closed by a synchronize): window "
-        f"lookup {sp['lookup']:.4f} ms, exchange {sp['exchange']:.4f} ms wall for "
-        f"{sp['exchange_bytes']} B {sp['exchange_shape']} "
+        f"({towers}) on {CARDS} x {card}, every rank from its own generated window "
+        f"({time.time() - t5:.1f}s); rank 0 B={B_TIME}, median of {cs.SPLIT_ITERS} (each part "
+        f"closed by a synchronize): window lookup {sp['lookup']:.4f} ms, exchange "
+        f"{sp['exchange']:.4f} ms wall for {sp['exchange_bytes']} B {sp['exchange_shape']} "
         f"({sp['exchange_bytes'] / sp['exchange'] / 1e6:.3f} GB/s), tower and poison "
         f"{sp['tower']:.4f} ms; whole forward {sp['forward']:.4f} ms wall")
-    for r in res:
+    for r in res if int8 else ():
         ici = r["ici"]
         log(f"(4) ici_bench rank {r['rank']} ({r['card']}), {ici['per_device_mbytes']} MiB a "
             f"rank over (1, {ici['model_axis']}): " + ", ".join(
                 f"{op} {ici[op]['ms']} ms {ici[op]['GB_s']} GB/s"
                 for op in ("all_gather", "psum", "ppermute")))
-    return {
+    out = {
         "take_bytes_per_rank": [r["take_bytes"] for r in res],
         "targets_inside": [r["targets_inside"] for r in res],
         "build_s": [r["build_s"] for r in res], "rss": [r["rss"] for r in res],
@@ -151,7 +166,12 @@ def criteo_step(tmp):
         "exchange_ms": sp["exchange"], "exchange_bytes": sp["exchange_bytes"],
         "exchange_gb_per_s": sp["exchange_bytes"] / sp["exchange"] / 1e6,
         "lookup_ms": sp["lookup"], "tower_ms": sp["tower"], "forward_ms": sp["forward"],
-        "ici_bench": [r["ici"] for r in res]}
+        "card": card}
+    if int8:
+        out["ici_bench"] = [r["ici"] for r in res]
+    else:
+        out["max_abs_err_bf16"] = max(r["max_abs_err_bf16"] for r in res)
+    return out
 
 
 def checkpoint_step(tmp):
@@ -322,6 +342,7 @@ def main() -> int:
         results["serve_2x2_nccl"] = [r["summary"] for r in served]
 
         results["criteo_full_1x4"] = criteo_step(tmp)
+        results["criteo_full_1x4_bf16"] = criteo_step(tmp, "bfloat16")
 
         results["checkpoint_2x2_1x4"] = checkpoint_step(tmp)
 

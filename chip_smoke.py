@@ -183,7 +183,8 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
    the fused-MLP kernels' share of model1's device time and dlrm's device
    time split into the lookup, the bottom tower, the interaction's torch
    ops, the top tower and the poison;
-14. criteo_terabyte at full cardinality (``criteo_full_rank``): every
+14. criteo_terabyte at full cardinality (``full_rows_rank`` of
+   ``CRITEO_FULL``): every
    earlier model dropped and the allocator's cache emptied, then a process
    of its own on the card (so the card holds nothing else and the peak
    host memory read is this phase's): 26 tables of int8 pm1 rows
@@ -219,9 +220,33 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
    bit-equal, then saving from the mesh, that checkpoint restored onto one
    device bit-equal; each save's and load's seconds, GB/s and bytes on disk
    beside the card's name and power limit (loads read what was just
-   written: page-cache warm).
+   written: page-cache warm);
+16. the paper's geometries and tiny_dlrm at full rows and full widths
+   (``FULL_ROWS``, after phase 14), each in a process of its own as phase
+   14 (``full_rows_rank``): fleetrec_model2 (98 tables, 880 wide, float32,
+   15.05 GB of take rows), fleetrec_model3 (377 = 376 tables + 64 dense,
+   3968 wide, int8 tables with the float32 tower, 15.68 GB), model2 in
+   bfloat16 (bf16 tables and a bf16 tower, 7.52 GB) and tiny_dlrm (8 x 1M
+   rows x 16); pm1 tables generated on the card, bytes against the
+   planner, forwards at B = 4096 and 1024 bit-equal to the pm1 oracle with
+   NaN on exactly the bad rows (model2 bf16: the hard gate, the same
+   tables under a float32 tower, bit-equal, and the bf16 tower within rtol
+   2e-2 / atol 2e-2 * max|oracle|, its error printed), 1 ``lookup_fused``
+   and 1 ``fused_mlp`` call a forward and no plain call; 4 batches of 1024
+   served over loopback, model3 on the paper's three-sender wire (64 dense
+   floats on sender 0, two senders of 188 tables), replies bit-equal to the
+   oracle (bf16: the gate's; the bf16 tower's equal to its direct
+   forwards); the addressing check of phase 14 over float32, int8 and bf16
+   take rows; the lookup against its plain version and its bound, each
+   forward's time (graph and eager) and device split; the first of
+   ``CKPT_CANDIDATES`` (model3, else model2 in bf16) whose arrays fit
+   twice in the temporary directory saved with ``io.save_sharded`` (~15.8
+   GB, pieces past 4 GiB of offset) and restored on the card, every array
+   bit-equal (its take rows holding the index pattern), the restored
+   forward bit-equal to the saved model's and, the take rows written back
+   as pm1, to the oracle; save and load seconds and GB/s.
 
-In phases 6-12, 14 and 15 the kernels' launch counters are zeroed just before
+In phases 6-12 and 14-16 the kernels' launch counters are zeroed just before
 each path runs and read just after (in phases 12 and 15 inside each rank);
 each kernel of the path must have launched.
 A counter counts wrapper calls that launched a kernel: eager calls, and
@@ -258,8 +283,8 @@ from fleetrec_tpu_torch import config as C
 from fleetrec_tpu_torch import io as fio
 from fleetrec_tpu_torch import reference as ref
 from fleetrec_tpu_torch.models import init_model, pack_pm1_sharded
-from fleetrec_tpu_torch.models.biginit import take_segments
-from fleetrec_tpu_torch.models.embedding import lookup_concat, tier_gathers
+from fleetrec_tpu_torch.models.biginit import fill_pm1_take, take_segments
+from fleetrec_tpu_torch.models.embedding import TORCH_DTYPES, lookup_concat, tier_gathers
 from fleetrec_tpu_torch.models.fleetrec import FleetRecModel, ModelPlan, trainable_tensors
 from fleetrec_tpu_torch.models.pooled import (plan_bags, pooled_bad_rows,
                                               pooled_lookup_concat)
@@ -277,7 +302,7 @@ from fleetrec_tpu_torch.ops.lookup import (LOOKUP_COL_FIELDS, lookup_fused,
 from fleetrec_tpu_torch.ops.mlp_fused import (PRODUCT, TILES, fused_mlp,
                                              fused_mlp_plain, mlp_plan)
 from fleetrec_tpu_torch.parallel import planner
-from fleetrec_tpu_torch.serving import (IngestServer, Loadgen, ServeSpec,
+from fleetrec_tpu_torch.serving import (IndexWireFormat, IngestServer, Loadgen, ServeSpec,
                                         ServingEngine, serve)
 
 B_TIME = 4096
@@ -847,22 +872,43 @@ def phase_lookup(dev, model1, dlrm):
     return worst, models
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_port(n: int = 1) -> int:
+    """A port p with p .. p + n - 1 free on the loopback."""
+    while True:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            p = s.getsockname()[1]
+        if p + n > 65536:
+            continue
+        try:
+            with contextlib.ExitStack() as stack:
+                for q in range(p + 1, p + n):
+                    stack.enter_context(socket.socket()).bind(("127.0.0.1", q))
+            return p
+        except OSError:
+            continue
 
 
-def serve_loopback(cfg, model, batches, **spec_kw):
+def serve_loopback(cfg, model, batches, senders=1, **spec_kw):
     """serve() in a thread with replies on, ``batches`` [(ids, dense or
-    None)] sent over loopback on one wire; returns the replied scores
-    [n, B], the launch counts of the run (every count set to 0 just before
-    serve() starts) and serve()'s summary.  ``spec_kw``: further ServeSpec
-    fields (``bag_L``, ``fuse``)."""
+    None)] sent over loopback on ``senders`` wires (ports ``port + s``; with
+    several, ``IndexWireFormat.payloads``: the dense on sender 0, the
+    tables split over the others, each sender's stream from a thread of its
+    own); returns the scores replied to sender 0 [n, B], the launch counts
+    of the run (every count set to 0 just before serve() starts) and
+    serve()'s summary.  ``spec_kw``: further ServeSpec fields (``bag_L``,
+    ``fuse``)."""
     B = batches[0][0].shape[0]
-    port = _free_port()
+    port = _free_port(senders)
     spec = ServeSpec(batch=B, batches=len(batches), port=port, slots=4, reply=True,
-                     **spec_kw)
+                     senders=senders, **spec_kw)
+    if senders > 1:
+        wire = IndexWireFormat.plan(cfg, B, senders)
+        streams = [b"".join(parts) for parts in
+                   zip(*(wire.payloads(idx, dense) for idx, dense in batches))]
+    else:
+        streams = [b"".join(idx.tobytes() + (b"" if dense is None else dense.tobytes())
+                            for idx, dense in batches)]
     out = {}
 
     def run():
@@ -872,25 +918,33 @@ def serve_loopback(cfg, model, batches, **spec_kw):
         k.launches = 0
     th = threading.Thread(target=run, daemon=True)
     th.start()
-    sock = None
-    for _ in range(200):
-        try:
-            sock = socket.create_connection(("127.0.0.1", port), timeout=30)
-            break
-        except OSError:
-            time.sleep(0.05)
-    if sock is None:
-        raise AssertionError("serve() never bound its port")
-    want = len(batches) * B * 4
-    buf = b""
-    with sock:
-        for idx, dense in batches:
-            sock.sendall(idx.tobytes() + (b"" if dense is None else dense.tobytes()))
+    socks = []
+    try:
+        for s in range(senders):
+            for _ in range(200):
+                try:
+                    socks.append(socket.create_connection(("127.0.0.1", port + s), timeout=30))
+                    break
+                except OSError:
+                    time.sleep(0.05)
+            else:
+                raise AssertionError(f"serve() never bound port {port + s}")
+        sends = [threading.Thread(target=sock.sendall, args=(stream,), daemon=True)
+                 for sock, stream in zip(socks, streams)]
+        for t in sends:
+            t.start()
+        want = len(batches) * B * 4
+        buf = b""
         while len(buf) < want:
-            chunk = sock.recv(want - len(buf))
+            chunk = socks[0].recv(want - len(buf))
             if not chunk:
                 break
             buf += chunk
+        for t in sends:
+            t.join(60)
+    finally:
+        for sock in socks:
+            sock.close()
     th.join(120)
     if th.is_alive() or "summary" not in out:
         raise AssertionError("serve() did not finish")
@@ -1532,12 +1586,16 @@ STEP_TOL = {"rtol": 1e-5, "atol": 1e-6}
 
 @contextlib.contextmanager
 def plain_calls():
-    """Counts the calls of ``lookup_fused_plain`` and
-    ``lookup_fused_backward_plain`` made through the kernels' wrappers
-    (which call them only for CPU tensors) inside the block."""
-    names = ("lookup_fused_plain", "lookup_fused_backward_plain")
-    counts = dict.fromkeys(names, 0)
-    saved = {n: getattr(lookup_mod, n) for n in names}
+    """Counts the calls of ``lookup_fused_plain``,
+    ``lookup_fused_bags_plain``, ``lookup_fused_backward_plain`` and
+    ``fused_mlp_plain`` made through the kernels' wrappers (which call them
+    only for CPU tensors) inside the block."""
+    from fleetrec_tpu_torch.ops import mlp_fused as mlp_fused_mod
+
+    where = {"lookup_fused_plain": lookup_mod, "lookup_fused_bags_plain": lookup_mod,
+             "lookup_fused_backward_plain": lookup_mod, "fused_mlp_plain": mlp_fused_mod}
+    counts = dict.fromkeys(where, 0)
+    saved = {n: getattr(mod, n) for n, mod in where.items()}
 
     def counted(name):
         def call(*a, **kw):
@@ -1545,13 +1603,13 @@ def plain_calls():
             return saved[name](*a, **kw)
         return call
 
-    for n in names:
-        setattr(lookup_mod, n, counted(n))
+    for n, mod in where.items():
+        setattr(mod, n, counted(n))
     try:
         yield counts
     finally:
-        for n in names:
-            setattr(lookup_mod, n, saved[n])
+        for n, mod in where.items():
+            setattr(mod, n, saved[n])
 
 
 def train_batch(cfg, B, seed, dev):
@@ -2917,13 +2975,53 @@ def checkpoint_mesh_rank(rank, paths, inputs_path):
     return out
 
 
-# phase 14: criteo_terabyte at full cardinality, int8 tables, float32 tower
-CRITEO_BATCHES = (B_TIME, B_SERVE)
-# the peak resident host memory the build may take (a host build of the
-# 52.96 GB take buffer could not stay under it)
-CRITEO_RSS_LIMIT = 16 << 30
-# the timed lookup's third case: every take id inside a footprint this size
+# phases 14 and 16: configurations at full rows, each built on the card in a
+# process of its own; the peak resident host memory its build may take (a
+# host build of criteo's 52.96 GB take buffer could not stay under it)
+FULL_RSS_LIMIT = 16 << 30
+# the timed lookup's third criteo draw: every take id inside a footprint this size
 CRITEO_WINDOW_BYTES = 1 << 30
+# the batch sizes of a config at full rows: both scored, the first timed and
+# addressed, the second served
+FULL_BATCHES = (B_TIME, B_SERVE)
+# the bf16 tower against the float64 oracle: rtol 2e-2, atol 2e-2 * max|oracle|
+# (PERF.md section 2, tests/test_parity.py:107)
+BF16_RTOL = BF16_ATOL_OF_MAX = 2e-2
+
+
+@dataclasses.dataclass(frozen=True)
+class FullRun:
+    """One configuration at full rows in a process of its own
+    (``full_rows_rank``): ``name`` and its config function's keyword
+    arguments ``kw`` ((key, value) pairs), the senders of its served wire,
+    the lookup's timed id draws (``random``, ``ids0``, ``window_1gib``),
+    and whether the process checkpoints it."""
+
+    tag: str
+    name: str
+    kw: tuple = ()
+    senders: int = 1
+    draws: tuple = ("random",)
+    checkpoint: bool = False
+
+    def config(self, B):
+        return C.get_config(self.name, batch_size=B, **dict(self.kw))
+
+
+# phase 14: criteo_terabyte at full cardinality, int8 tables, float32 tower
+CRITEO_FULL = FullRun("criteo_int8", "criteo_terabyte",
+                      (("dtype", "float32"), ("table_dtype", "int8")),
+                      draws=("random", "ids0", "window_1gib"))
+# phase 16: the paper's geometries and tiny_dlrm at full rows, in this order;
+# model3 in its default int8 storage with the float32 tower, served over the
+# paper's three-sender wire; model2 in bfloat16 (tables and tower)
+FULL_ROWS = (FullRun("model2_fp32", "fleetrec_model2"),
+             FullRun("model3_int8", "fleetrec_model3", senders=3),
+             FullRun("model2_bf16", "fleetrec_model2", (("dtype", "bfloat16"),)),
+             FullRun("tiny_dlrm", "tiny_dlrm"))
+# the run phase 16 checkpoints: the first whose arrays fit twice in the free
+# space of the temporary directory
+CKPT_CANDIDATES = ("model3_int8", "model2_bf16")
 
 
 def peak_rss() -> int:
@@ -2938,11 +3036,15 @@ def peak_rss() -> int:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
-def criteo_full_config(B):
+def criteo_full_config(B, table_dtype="int8"):
     """criteo_terabyte at its real cardinalities (26 tables, 1,655,169,127
-    rows, one of 1e9) with int8 tables and the float32 tower: 9 take tables
-    in 16 stripes, 7 factored and 10 one-hot."""
-    return C.criteo_terabyte(batch_size=B, dtype="float32", table_dtype="int8")
+    rows, one of 1e9; 9 take tables in 16 stripes, 7 factored and 10
+    one-hot): int8 tables with the float32 tower (phase 14, chip_mesh.py
+    step 4), or ``table_dtype="bfloat16"``, the config's default: bf16
+    tables and a bf16 tower (step 4's second run, on 4 cards)."""
+    if table_dtype == "int8":
+        return C.criteo_terabyte(batch_size=B, dtype="float32", table_dtype="int8")
+    return C.criteo_terabyte(batch_size=B, dtype=table_dtype)
 
 
 def take_columns(cfg):
@@ -2986,9 +3088,10 @@ def row_pattern(P: torch.Tensor, lanes: int) -> torch.Tensor:
 
 
 def fill_row_pattern(buf: torch.Tensor, lo: int, chunk_rows: int = 1 << 22) -> None:
-    """Overwrite int8 take rows ``buf`` (buffer rows ``[lo, lo +
-    len(buf))``, a whole buffer or a shard's window) with ``row_pattern``,
-    ``chunk_rows`` rows a step."""
+    """Overwrite take rows ``buf`` (buffer rows ``[lo, lo + len(buf))``, a
+    whole buffer or a shard's window) with ``row_pattern``, ``chunk_rows``
+    rows a step: int8 as it is, in a float buffer the same integers
+    (-128..127, exact in float32 and bfloat16)."""
     for c0 in range(0, buf.shape[0], chunk_rows):
         c1 = min(c0 + chunk_rows, buf.shape[0])
         P = torch.arange(lo + c0, lo + c1, device=buf.device)
@@ -3040,10 +3143,10 @@ def check_addressing(cfg, lay, ops, ids, dense, targets, window=(0, None)):
     buffer, or the window of rows ``[window[0], window[0] + window[1])``)
     against ``lookup_fused_plain`` on the same operands, bit for bit, and
     each target's feature block against the pattern of its buffer row
-    (zero outside the window), read at its sub-row's lanes and scaled by
-    its table's int8 scale.  Raises on a mismatch; returns the number of
-    targets inside the window and the features' max abs error against the
-    plain version (0)."""
+    (zero outside the window), read at its sub-row's lanes and, in int8,
+    scaled by its table's scale.  Raises on a mismatch; returns the number
+    of targets inside the window and the features' max abs error against
+    the plain version (0)."""
     dev = ids.device
     with torch.inference_mode():
         got, bad = lookup_fused(ids, dense, **ops)
@@ -3051,18 +3154,19 @@ def check_addressing(cfg, lay, ops, ids, dense, targets, window=(0, None)):
     if not (torch.equal(bits(got), bits(want)) and torch.equal(bad, want_bad)):
         raise AssertionError(f"lookup_fused differs from lookup_fused_plain over the patterned "
                              f"take rows ({int((bits(got) != bits(want)).sum())} elements)")
-    err = (got - want).abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
     lo, n = window
-    scale = ops["scales"][-1].cpu()
+    scale = None if ops["scales"] is None else ops["scales"][-1].cpu()
     take_of = {tid: i for i, tid in enumerate(t for g in lay.take_groups for t in g.table_ids)}
-    got = got.cpu()
+    got = got.float().cpu()
     inside = 0
     for i, (j, r, P, sub) in enumerate(targets):
         t = cfg.tables[j]
         pat = row_pattern(torch.tensor([P]), lay.take_lanes)[0, sub * t.dim:(sub + 1) * t.dim]
         live = P >= lo and (n is None or P < lo + n)
         inside += live
-        want = pat.float() * scale[take_of[t.table_id]] if live else torch.zeros(t.dim)
+        want = pat.float() if scale is None else pat.float() * scale[take_of[t.table_id]]
+        want = want if live else torch.zeros(t.dim)
         if not torch.equal(got[i, t.out_offset:t.out_offset + t.dim], want):
             raise AssertionError(f"target {i}: table {j} id {r} (buffer row {P}, sub-row {sub}) "
                                  f"read {got[i, t.out_offset:t.out_offset + 4].tolist()}..., "
@@ -3070,39 +3174,122 @@ def check_addressing(cfg, lay, ops, ids, dense, targets, window=(0, None)):
     return inside, err
 
 
-def criteo_full_rank(rank, seed, device="cuda:0"):
-    """Phase 14 in a process of its own on ``device`` (``run_world`` with
-    no process group), so that the card holds nothing of the earlier phases
-    and the peak host memory read is this build's: criteo_terabyte at full
-    cardinality (``criteo_full_config``) generated on the card by
-    ``pack_pm1_sharded`` (pm1 tables), all-ones weights.  Raises on a
-    failed check; returns the results and the log lines."""
+def on_device(dev, *arrays):
+    """The numpy ``arrays`` as tensors on ``dev`` (None stays None)."""
+    return [None if a is None else torch.from_numpy(a).to(dev) for a in arrays]
+
+
+def pm1_dense(cfg, B, rng):
+    """Dense features [B, dense_dim] of -1 / 1 (exact in every storage
+    dtype), or None for a config without them."""
+    return (rng.choice([-1.0, 1.0], (B, cfg.dense_dim)).astype(np.float32)
+            if cfg.dense_dim else None)
+
+
+def fp32_tower(model):
+    """The hard gate's model: ``model``'s tables as they are (its table
+    dtype kept, the same buffers) under a float32 tower of all-ones
+    weights: with float32 activations the pm1 forward is exact integer
+    arithmetic in every storage dtype.  ``model`` is a FleetRecModel or a
+    rank's ShardedFleetRec, whose twin shares its operands."""
+    cfg = dataclasses.replace(model.cfg, dtype="float32")
+    plan = ModelPlan.create(cfg)
+    if isinstance(model, FleetRecModel):
+        return FleetRecModel(plan, model.packed,
+                             init_mlp_params(cfg.mlp, "ones", device=model.device))
+    from fleetrec_tpu_torch.parallel import ShardedFleetRec
+
+    return ShardedFleetRec.from_operands(plan, model.mesh, model.operands,
+                                         init_mlp_params(cfg.mlp, "ones", device=model.mesh.device))
+
+
+def pm1_towers(model, batches, dev, what=""):
+    """The pm1 forwards of ``batches`` ([(ids, dense)] on the host, each
+    with a bad take id) through ``model`` and, for a tower not in float32,
+    through its hard gate ``fp32_tower(model)``: NaN on exactly the bad
+    rows, a float32 tower's scores bit-equal to the pm1 oracle, a bf16
+    tower's within the bf16 tolerance; 1 ``lookup_fused`` and 1
+    ``fused_mlp`` launch a forward and no plain call.  Returns ({tower
+    dtype: model}, {tower dtype: scores}, ``model``'s launches, the largest
+    bf16 error (0.0 without a bf16 tower)).  Raises on a failed check."""
+    cfg = model.cfg
+    towers = {cfg.dtype: model}
+    if cfg.dtype != "float32":
+        towers["float32"] = fp32_tower(model)
+    if not all(bad_rows_np(cfg, idx).any() for idx, _ in batches):
+        raise AssertionError(f"{what}a batch has no row with a bad take id")
+    golden = [pm1_scores(cfg, idx, dense) for idx, dense in batches]
+    scores, err_bf16 = {}, 0.0
+    for tower, m in towers.items():
+        with plain_calls() as plain, torch.inference_mode():
+            scores[tower], launches = _counted(
+                lambda: [m.forward(*on_device(dev, *b)).cpu().numpy() for b in batches])
+        if launches != _launches(len(batches), len(batches)) or any(plain.values()):
+            raise AssertionError(f"{what}{tower} tower: launches of {len(batches)} forwards "
+                                 f"{launches}, plain calls {plain}")
+        if m is model:
+            model_launches = launches
+        for (idx, _dense), want, got in zip(batches, golden, scores[tower]):
+            err = check_pm1(cfg, idx, got, want, tower == "float32",
+                            f"{what}{tower} tower B={len(idx)}")
+            if tower != "float32":
+                err_bf16 = max(err_bf16, err)
+    return towers, scores, model_launches, err_bf16
+
+
+def full_rows_rank(rank, run, seed, device="cuda:0"):
+    """One configuration at full rows (``run``, a FullRun) in a process of
+    its own on ``device`` (``run_world`` with no process group), so that the
+    card holds nothing of the earlier phases and the peak host memory read
+    is this build's (phase 14: criteo_terabyte; phase 16: model2, model3,
+    model2 in bf16, tiny_dlrm).  pm1 tables generated on the card by
+    ``pack_pm1_sharded``, no table on the host, all-ones weights in the
+    config's dtype; the take and class bytes held to ``plan(cfg, 1)`` and
+    ``memory_allocated`` to its ``per_chip_bytes``; forwards at both batch
+    sizes on ``ids_with_bad`` ids (and ±1 dense) bit-equal to the pm1 oracle
+    with NaN on exactly the bad rows, 1 ``lookup_fused`` and 1 ``fused_mlp``
+    call each and no plain call (a bf16 tower: within the bf16 tolerance,
+    and the hard gate, the float32 tower over the same tables, bit-equal);
+    N_SERVE batches served over ``run.senders`` wires, replies bit-equal to
+    the oracle (bf16: the gate's replies; the bf16 tower's equal to its
+    direct forwards and within the tolerance); the take rows overwritten
+    with ``row_pattern`` and ``check_addressing`` on the edge targets of
+    every (stripe, table) segment; the timings of ``time_full_rows``; with
+    ``run.checkpoint`` the model saved with ``io.save_sharded`` and restored
+    on the card (``checkpoint_full_rows``).  Raises on a failed check;
+    returns the results and the log lines."""
     dev = torch.device(device)
-    lines, out = [], {}
+    lines, out = [], {"tag": run.tag, "card": card_line() if dev.type == "cuda" else "cpu"}
 
     def note(msg):
         lines.append(msg)
         print(msg, flush=True)
 
-    cfg = criteo_full_config(B_TIME)
+    B_big, B_srv = FULL_BATCHES
+    cfg = run.config(B_big)
     plan = ModelPlan.create(cfg)
     lay = plan.layout
-    pl = planner.plan(cfg, 1, batch_size=B_TIME)
+    pl = planner.plan(cfg, 1, batch_size=B_big)
     free, total = torch.cuda.mem_get_info(dev)
     out["allocated_before"] = torch.cuda.memory_allocated(dev)
-    note(f"before the build: memory_allocated {out['allocated_before']} B; the card has {free} "
-         f"of {total} B free; the plan: take {pl.take_bytes_total} B, classes "
-         f"{pl.onehot_bytes} B, per card {pl.per_chip_bytes} B of {pl.hbm_budget_bytes}")
+    note(f"{cfg.name} ({cfg.table_dtype} tables, {cfg.dtype} tower, {cfg.num_tables} tables, "
+         f"{sum(t.rows for t in cfg.tables)} rows, {lay.feature_dim} wide, MLP "
+         f"{'-'.join(map(str, cfg.mlp.widths))}) before the build: memory_allocated "
+         f"{out['allocated_before']} B; the card has {free} of {total} B free; the plan: take "
+         f"{pl.take_bytes_total} B, classes {pl.onehot_bytes} B, per card {pl.per_chip_bytes} B "
+         f"of {pl.hbm_budget_bytes}")
     out["rss_before_build"] = peak_rss()  # the CUDA context made, no table yet
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     packed = pack_pm1_sharded(cfg, lay, device=dev)
     torch.cuda.synchronize()
     out["build_s"] = time.perf_counter() - t0
-    model = FleetRecModel(plan, packed, init_mlp_params(cfg.mlp, "ones", device=dev))
+    dtype = TORCH_DTYPES[cfg.dtype]
+    model = FleetRecModel(plan, packed, init_mlp_params(cfg.mlp, "ones", dtype=dtype, device=dev))
     del packed
     out["allocated"] = torch.cuda.memory_allocated(dev)
-    out["take_bytes"] = model.take.nbytes
+    take = model.take
+    out["take_bytes"] = take.nbytes
     out["class_bytes"] = sum(b.nbytes for b in model.packed.onehot_buffers)
     out["rss_after_build"] = peak_rss()
     if out["take_bytes"] != pl.take_bytes_total:
@@ -3115,91 +3302,201 @@ def criteo_full_rank(rank, seed, device="cuda:0"):
         raise AssertionError(f"memory_allocated {out['allocated']} B after the build, over the "
                              f"planner's {pl.per_chip_bytes}")
     n_class = [c.num_tables for c in lay.onehot_classes]
-    note(f"built in {out['build_s']:.2f} s on the card: take buffer {tuple(model.take.shape)} "
-         f"int8 = {out['take_bytes']} B = plan(cfg, 1).take_bytes_total; {len(n_class)} class "
-         f"buffers ({sum(c.r2 > 0 for c in lay.onehot_classes)} factored; "
-         f"{sum(n_class)} tables) = {out['class_bytes']} B = onehot_bytes; "
-         f"{lay.n_take} take tables in {lay.take_stripes} stripes; memory_allocated "
-         f"{out['allocated']} B <= per_chip_bytes {pl.per_chip_bytes}; peak host RSS "
-         f"{out['rss_before_build']} B before the build (the CUDA context made), "
-         f"{out['rss_after_build']} B after it")
+    note(f"built in {out['build_s']:.2f} s on the card: take buffer "
+         f"{tuple(take.shape)} {cfg.table_dtype} = {out['take_bytes']} B = plan(cfg, "
+         f"1).take_bytes_total ({take.numel()} elements); {len(n_class)} class buffers "
+         f"({sum(c.r2 > 0 for c in lay.onehot_classes)} factored; {sum(n_class)} tables) = "
+         f"{out['class_bytes']} B = onehot_bytes; {lay.n_take} take tables in "
+         f"{lay.take_stripes} stripes; memory_allocated {out['allocated']} B <= per_chip_bytes "
+         f"{pl.per_chip_bytes}; peak host RSS {out['rss_before_build']} B before the build (the "
+         f"CUDA context made), {out['rss_after_build']} B after it")
 
+    exact = cfg.dtype == "float32"
     rng = np.random.default_rng(seed)
-    batches = []
-    for B in CRITEO_BATCHES:
-        idx = ids_with_bad(cfg, B, rng)
-        dense = rng.choice([-1.0, 1.0], (B, cfg.dense_dim)).astype(np.float32)
-        batches.append((idx, dense))
-    for k in KERNELS:
-        k.launches = 0
-    with torch.inference_mode():
-        scores = [model(torch.from_numpy(i).to(dev), torch.from_numpy(d).to(dev)).cpu().numpy()
-                  for i, d in batches]
-    out["launches"] = {k.__name__: k.launches for k in KERNELS}
-    if out["launches"] != _launches(len(batches), len(batches)):
-        raise AssertionError(f"launches of {len(batches)} forwards: {out['launches']}")
-    for (idx, dense), got in zip(batches, scores):
-        nan = bad_rows_np(cfg, idx)
-        golden = pm1_scores(cfg, idx, dense).astype(np.float32)
-        if not nan.any() or not np.array_equal(np.isnan(got), nan):
-            raise AssertionError(f"B={len(idx)}: NaN rows {np.flatnonzero(np.isnan(got))}, want "
-                                 f"{np.flatnonzero(nan)}")
-        if not np.array_equal(got[~nan], golden[~nan]):
-            raise AssertionError(f"B={len(idx)}: scores differ from the pm1 oracle (max abs err "
-                                 f"{np.abs(got[~nan] - golden[~nan]).max()})")
-    note(f"forwards at B={CRITEO_BATCHES} (uniform ids over every table, the 1e9-row one "
-         f"included, bad take ids on rows {np.flatnonzero(bad_rows_np(cfg, batches[0][0]))}): "
-         f"scores bit-equal to the pm1 oracle with TF32 off, NaN on exactly the bad rows; "
-         f"launches {out['launches']}")
+    batches = [(ids_with_bad(cfg, B, rng), pm1_dense(cfg, B, rng)) for B in FULL_BATCHES]
+    towers, out["scores"], out["launches"], out["max_abs_err_bf16"] = pm1_towers(
+        model, batches, dev)
+    bad = np.flatnonzero(bad_rows_np(cfg, batches[0][0]))
+    note(f"forwards at B={FULL_BATCHES} (uniform ids over every table, bad take ids on rows "
+         f"{bad}): " + ("scores bit-equal to the pm1 oracle" if exact else
+                        f"the hard gate (the {cfg.table_dtype} tables under a float32 tower) "
+                        f"bit-equal to the pm1 oracle, the {cfg.dtype} tower within rtol "
+                        f"{BF16_RTOL} / atol {BF16_ATOL_OF_MAX} x max|oracle| of it (max abs "
+                        f"err {out['max_abs_err_bf16']!r})")
+         + f", TF32 off, NaN on exactly the bad rows; launches {out['launches']} a tower, no "
+           f"plain call")
 
-    cfg_s = criteo_full_config(B_SERVE)
-    served = [(_rand_ids(cfg_s, B_SERVE, rng),
-               rng.choice([-1.0, 1.0], (B_SERVE, cfg_s.dense_dim)).astype(np.float32))
+    cfg_s = run.config(B_srv)
+    served = [(_rand_ids(cfg_s, B_srv, rng), pm1_dense(cfg_s, B_srv, rng))
               for _ in range(N_SERVE)]
-    replies, out["serve_launches"], summary = serve_loopback(cfg_s, model, served)
-    for k, (idx, dense) in enumerate(served):
-        if not np.array_equal(replies[k], pm1_scores(cfg_s, idx, dense).astype(np.float32)):
-            raise AssertionError(f"served batch {k} differs from the pm1 oracle")
-    if out["serve_launches"] != _launches(N_SERVE, N_SERVE):
-        raise AssertionError(f"launches of the served run: {out['serve_launches']}")
-    note(f"ServingEngine.from_model served {N_SERVE} batches x {B_SERVE} over loopback, replies "
-         f"bit-equal to the pm1 oracle; launches {out['serve_launches']}; latency_ms_p50 "
-         f"{summary.get('latency_ms_p50')} (host clock)")
+    golden_s = [pm1_scores(cfg_s, idx, dense) for idx, dense in served]
+    out["serve"] = {}
+    for tower, m in towers.items():
+        replies, launches, summary = serve_loopback(cfg_s, m, served, senders=run.senders)
+        if launches != _launches(N_SERVE, N_SERVE):
+            raise AssertionError(f"{tower} tower: launches of the served run {launches}")
+        with torch.inference_mode():
+            for k, ((idx, dense), want) in enumerate(zip(served, golden_s)):
+                what = f"{tower} tower: served batch {k}"
+                check_pm1(cfg_s, idx, replies[k], want, tower == "float32", what)
+                if tower != "float32":
+                    direct = m(*on_device(dev, idx, dense)).cpu().numpy()
+                    if not np.array_equal(replies[k], direct):
+                        raise AssertionError(f"{what} differs from its direct forward")
+        out["serve"][tower] = {"launches": launches,
+                               **{k: summary.get(k) for k in ("latency_ms_p50", "latency_ms_p99")}}
+        if m is model:
+            out["serve_launches"] = launches
+        note(f"ServingEngine.from_model ({tower} tower) served {N_SERVE} batches x {B_srv} over "
+             f"loopback on {run.senders} sender(s) (bytes a sender "
+             f"{[p['bytes'] for p in summary['per_sender']]}), "
+             + ("replies bit-equal to the pm1 oracle" if tower == "float32" else
+                "replies bit-equal to its direct forwards and within the bf16 tolerance of the "
+                "oracle")
+             + f"; launches {launches}; latency_ms p50 {summary.get('latency_ms_p50')} p99 "
+               f"{summary.get('latency_ms_p99')} (host clock)")
 
     # pm1 rows are alike (row r holds r's parity), so the lookup's
     # addressing is held on rows that spell their own index
     t0 = time.perf_counter()
-    fill_row_pattern(model.take, 0)
+    fill_row_pattern(take, 0)
     torch.cuda.synchronize()
     targets = edge_targets(cfg, lay, [(0, lay.take_phys_total)])
-    idx_t = torch.from_numpy(pattern_ids(cfg, targets, B_TIME, rng)).to(dev)
-    dense_t = torch.from_numpy(batches[0][1]).to(dev)
+    idx_t, dense_t = on_device(dev, pattern_ids(cfg, targets, B_big, rng), batches[0][1])
     ops = model.lookup_operands()
     _inside, out["max_abs_err"] = check_addressing(cfg, lay, ops, idx_t, dense_t, targets)
+    row_bytes = lay.take_lanes * take.element_size()
     last = max(P for _j, _r, P, _s in targets)
-    past = sum(P * lay.take_lanes >= 1 << 32 for _j, _r, P, _s in targets)
+    past = sum(P * row_bytes >= 1 << 32 for _j, _r, P, _s in targets)
     big = max(range(cfg.num_tables), key=lambda j: cfg.tables[j].rows)
-    if last < (lay.take_stripes - 1) * lay.stripe_height or not past:
-        raise AssertionError(f"the targets stop at buffer row {last}, short of the last stripe")
+    if last < (lay.take_stripes - 1) * lay.stripe_height or (
+            take.nbytes - row_bytes >= 1 << 32 and not past):
+        raise AssertionError(f"the targets stop at buffer row {last}, short of the last stripe "
+                             f"or of 4 GiB")
     if not any(j == big and r == cfg.tables[big].rows - 1 for j, r, _P, _s in targets):
-        raise AssertionError("no target reads the 1e9-row table's last id")
+        raise AssertionError(f"no target reads the largest table's last id")
+    out["targets"], out["targets_past_4gib"] = len(targets), past
     note(f"take rows overwritten with their index pattern in "
          f"{time.perf_counter() - t0:.2f} s; lookup_fused bit-equal to lookup_fused_plain at "
-         f"B={B_TIME} (features and flags) and every one of {len(targets)} targets (the first "
+         f"B={B_big} (features and flags) and every one of {len(targets)} targets (the first "
          f"and last rows of each of the {len(take_segments(lay, cfg))} (stripe, table) "
          f"segments, at the first and last sub-row) equal to its row's pattern; targets reach "
-         f"buffer row {last} of {lay.take_phys_total} (byte offset {last * lay.take_lanes}), "
+         f"buffer row {last} of {lay.take_phys_total} (byte offset {last * row_bytes}), "
          f"{past} of them past 4 GiB, table {big}'s last id {cfg.tables[big].rows - 1} among "
          f"them; peak allocated {torch.cuda.max_memory_allocated(dev)} B")
 
-    # CUDA-event timings first: the profiler, once attached, slows every launch
-    cases = {"random": _rand_ids(cfg, B_TIME, rng),
-             "ids0": np.zeros((B_TIME, cfg.num_tables), np.int32),
-             "window_1gib": window_ids(cfg, B_TIME, rng)}
+    time_full_rows(run, cfg, model, dense_t, rng, out, note)
+    out["rss"] = peak_rss()
+    if out["rss"] > FULL_RSS_LIMIT:
+        raise AssertionError(f"peak host RSS {out['rss']} B, over {FULL_RSS_LIMIT}")
+    note(f"peak host RSS of the process {out['rss']} B <= {FULL_RSS_LIMIT} (getrusage; the "
+         f"process forked from the forkserver started before phase 1)")
+    if run.checkpoint:
+        out["checkpoint"] = checkpoint_full_rows(cfg, model, idx_t, batches[0], out["card"],
+                                                 note)
+    out["lines"] = lines
+    return out
+
+
+def check_pm1(cfg, idx, got, want, exact, what) -> float:
+    """Scores ``got`` of ids ``idx`` against their float64 pm1 oracle
+    ``want``: NaN on exactly the rows with a bad take id, the others
+    bit-equal to it in float32 (``exact``) or within rtol BF16_RTOL and
+    atol BF16_ATOL_OF_MAX * max|oracle|.  Returns the max abs error."""
+    nan = bad_rows_np(cfg, idx)
+    if not np.array_equal(np.isnan(got), nan):
+        raise AssertionError(f"{what}: NaN rows {np.flatnonzero(np.isnan(got))}, want "
+                             f"{np.flatnonzero(nan)}")
+    got, want = got[~nan].astype(np.float64), want[~nan]
+    err = float(np.abs(got - want).max()) if len(got) else 0.0
+    if exact:
+        if not np.array_equal(got, want.astype(np.float32)):
+            raise AssertionError(f"{what}: scores differ from the pm1 oracle (max abs err {err})")
+    elif not np.allclose(got, want, rtol=BF16_RTOL,
+                         atol=BF16_ATOL_OF_MAX * float(np.abs(want).max())):
+        raise AssertionError(f"{what}: scores past the bf16 tolerance of the pm1 oracle (max "
+                             f"abs err {err})")
+    return err
+
+
+def checkpoint_bytes(cfg) -> int:
+    """The arrays a checkpoint of ``cfg`` holds, in bytes, from the planner:
+    take and class buffers and the tower's weights (the scales aside)."""
+    pl = planner.plan(cfg, 1, batch_size=B_TIME)
+    w = cfg.mlp.widths
+    return (pl.take_bytes_total + pl.onehot_bytes
+            + sum(a * b for a, b in zip(w[:-1], w[1:])) * TORCH_DTYPES[cfg.dtype].itemsize)
+
+
+def checkpoint_full_rows(cfg, model, idx_t, batch, card, note):
+    """``model`` (its take rows holding ``row_pattern``: every row differs,
+    so a block stored or read at another offset shows) saved with
+    ``io.save_sharded`` into a new directory of the temporary directory,
+    restored onto its device with ``load_sharded``: every array bit-equal,
+    the restored forward on ``idx_t`` bit-equal to the saved model's, and,
+    with the take rows written back as pm1, the restored forward on
+    ``batch`` bit-equal to the pm1 oracle (a bf16 tower: its hard gate).
+    Raises first when the free space is under twice the arrays' bytes.
+    Returns the bytes on disk and the save's and load's seconds."""
+    dev = model.device
+    need = sum(t.nbytes for t in fio.checkpoint_tensors(model).values())
+    free = shutil.disk_usage(tempfile.gettempdir()).free
+    if free < 2 * need:
+        raise AssertionError(f"{tempfile.gettempdir()} has {free} B free, the checkpoint needs "
+                             f"twice its {need} B")
+    path = tempfile.mkdtemp(prefix=f"chip_smoke_{cfg.name}_")
+    try:
+        _, save_s = synced(lambda: fio.save_sharded(path, model))
+        nbytes = disk_bytes(path)
+        restored, load_s = synced(lambda: fio.load_sharded(path, cfg, device=dev))
+        if restored.device != dev or not same_checkpoint_tensors(restored, model):
+            raise AssertionError("the restored model is not the saved one")
+        dense_t = on_device(dev, batch[1])[0]
+        with torch.inference_mode():
+            if not torch.equal(bits(restored(idx_t, dense_t)), bits(model(idx_t, dense_t))):
+                raise AssertionError("the restored forward differs from the saved model's")
+        restored.take.zero_()
+        fill_pm1_take(restored.take, restored.layout, cfg)
+        gate = restored if cfg.dtype == "float32" else fp32_tower(restored)
+        idx, dense = batch
+        with torch.inference_mode():
+            got = gate(*on_device(dev, idx, dense)).cpu().numpy()
+        check_pm1(cfg, idx, got, pm1_scores(cfg, idx, dense), True, "the restored model")
+        del restored, gate
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    note(f"time checkpoint {cfg.name} {cfg.table_dtype} at full rows, one device -> one "
+         f"device, on {card}: {nbytes} B on disk ({need} B of arrays, the take rows one piece "
+         f"in 256 MiB row blocks, its offsets {'past' if nbytes > 1 << 32 else 'below'} 4 GiB), "
+         f"save {save_s:.3f} s "
+         f"({nbytes / save_s / 1e9:.3f} GB/s), load {load_s:.3f} s ({nbytes / load_s / 1e9:.3f} "
+         f"GB/s; page-cache warm: read just after it was written); host clock between "
+         f"synchronizes; every array bit-equal (take rows holding their index pattern), the "
+         f"restored forward bit-equal to the saved model's and, its take rows written back as "
+         f"pm1, to the pm1 oracle; {free} B were free")
+    return {"bytes_on_disk": nbytes, "array_bytes": need, "save_s": save_s, "load_s": load_s,
+            "free_bytes": free}
+
+
+def time_full_rows(run, cfg, model, dense_t, rng, out, note):
+    """The timings of ``full_rows_rank`` (CUDA events first: the profiler,
+    once attached, slows every launch): ``lookup_fused`` at B = the first
+    batch on each of ``run.draws`` (random ids: against its plain version
+    over graph replays, ``_pair_graph``) beside its byte bound; the forward
+    at both batch sizes replayed from a CUDA graph and eager back to back;
+    then each forward's device time by part (profiler: lookup, tower,
+    poison and the rest)."""
+    dev = model.device
+    B_big = FULL_BATCHES[0]
+    ops = model.lookup_operands()
+    card = out["card"]
     out["lookup"] = {}
+    draws = {"random": lambda: _rand_ids(cfg, B_big, rng),
+             "ids0": lambda: np.zeros((B_big, cfg.num_tables), np.int32),
+             "window_1gib": lambda: window_ids(cfg, B_big, rng)}
     with torch.inference_mode():
-        for name, ids in cases.items():
-            ids_c = torch.from_numpy(ids).to(dev)
+        for name in run.draws:
+            ids_c = torch.from_numpy(draws[name]()).to(dev)
             kernel = functools.partial(lookup_fused, ids_c, dense_t, **ops)
             nbytes = lookup_bytes(ops, ids_c, dense_t)
             b_ms, b_by = bound(nbytes)
@@ -3210,48 +3507,46 @@ def criteo_full_rank(rank, seed, device="cuda:0"):
             else:
                 r["ms"] = _graph_ms(kernel)
             out["lookup"][name] = r
-            note(f"time lookup_fused criteo full cardinality B={B_TIME} {name}: "
+            note(f"time lookup_fused {run.tag} at full rows B={B_big} {name} on {card}: "
                  f"{r['ms']:.4f} ms" + (f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r
                                         else "")
                  + f"; bound {b_ms:.4f} ms ({b_by}: {nbytes} B counted once), at "
                    f"{b_ms / r['ms']:.3f} (CUDA events over graph replays of 20 calls)")
         out["forward"] = {}
-        for B in CRITEO_BATCHES:
+        fwds = {}
+        for B in FULL_BATCHES:
             ids_b = torch.from_numpy(_rand_ids(cfg, B, rng)).to(dev)
-            dense_b = dense_t[:B]
-            fwd = functools.partial(model, ids_b, dense_b)
-            r = {"graph_ms": _graph_ms(fwd), "eager_ms": _ms(fwd)}
+            dense_b = None if dense_t is None else dense_t[:B]
+            fwds[B] = functools.partial(model, ids_b, dense_b)
+            out["forward"][B] = {"graph_ms": _graph_ms(fwds[B]), "eager_ms": _ms(fwds[B])}
+        for B, fwd in fwds.items():
+            r = out["forward"][B]
             split = _tower_split(fwd)
             if split is not None:
                 r["split"], r["profiled_forwards"] = split
-            out["forward"][B] = r
             parts = ("not measured" if split is None else ", ".join(
                 f"{p} {ms:.4f} ms ({k} launches)" for p, (ms, k) in split[0].items()))
-            note(f"time criteo full forward B={B}: graph replay {r['graph_ms']:.4f} ms, eager "
-                 f"{r['eager_ms']:.4f} ms; device time by part (profiler): {parts}")
-    out["rss"] = peak_rss()
-    if out["rss"] > CRITEO_RSS_LIMIT:
-        raise AssertionError(f"peak host RSS {out['rss']} B, over {CRITEO_RSS_LIMIT}")
-    note(f"peak host RSS of the phase's process {out['rss']} B <= {CRITEO_RSS_LIMIT} "
-         f"(getrusage; the process forked from the forkserver started before phase 1)")
-    out["lines"] = lines
-    return out
+            note(f"time {run.tag} forward at full rows B={B} on {card}: graph replay "
+                 f"{r['graph_ms']:.4f} ms, eager {r['eager_ms']:.4f} ms; device time by part "
+                 f"(profiler): {parts}")
 
 
-def criteo_mesh_rank(rank, D, M, seed, mbytes=64):
+def criteo_mesh_rank(rank, D, M, seed, mbytes=64, table_dtype="int8"):
     """A rank of ``chip_mesh.py``'s criteo world, a one-row (1, M) mesh:
-    its take window of full-cardinality criteo (``criteo_full_config``)
-    generated on its card (``pack_pm1_sharded`` with the mesh), its shard
-    from it (``ShardedFleetRec.from_packed``: no whole model anywhere), the
-    take bytes held to ``plan(cfg, M).take_bytes_per_chip``; sharded
-    forwards at B = 4096 and 1024 bit-equal to the pm1 oracle with NaN on
-    the bad rows, one ``lookup_fused`` and one ``fused_mlp`` launch each;
-    then the window's rows overwritten with ``row_pattern`` and
+    its take window of full-cardinality criteo (``criteo_full_config`` of
+    ``table_dtype``) generated on its card (``pack_pm1_sharded`` with the
+    mesh), its shard from it (``ShardedFleetRec.from_packed``: no whole
+    model anywhere), the take bytes held to ``plan(cfg,
+    M).take_bytes_per_chip``; sharded forwards at B = 4096 and 1024 with NaN
+    on the bad rows, one ``lookup_fused`` and one ``fused_mlp`` launch each,
+    bit-equal to the pm1 oracle (bfloat16: the bf16 tower within the bf16
+    tolerance, and the hard gate, the same window under a float32 tower,
+    bit-equal); then the window's rows overwritten with ``row_pattern`` and
     ``lookup_fused`` over it held to ``lookup_fused_plain`` and to the
     pattern on ids at the edges of every rank's window
     (``check_addressing``); the forward's time by part with the exchange's
-    bytes; then ``ici_bench``
-    at ``mbytes`` MiB over the row.  Raises on a failed check."""
+    bytes; then ``ici_bench`` at ``mbytes`` MiB over the row (None: not
+    run).  Raises on a failed check."""
     from fleetrec_tpu_torch.benchmarks import ici_bench
     from fleetrec_tpu_torch.parallel import ShardedFleetRec, global_mesh
 
@@ -3259,7 +3554,7 @@ def criteo_mesh_rank(rank, D, M, seed, mbytes=64):
         raise ValueError("the criteo world is one data row")
     mesh = global_mesh(D, M, device="cuda")
     dev = mesh.device
-    cfg = criteo_full_config(B_TIME)
+    cfg = criteo_full_config(B_TIME, table_dtype)
     plan = ModelPlan.create(cfg)
     pl = planner.plan(cfg, M, batch_size=B_TIME)
     out = {"card": torch.cuda.get_device_name(dev), "rank": rank}
@@ -3268,8 +3563,8 @@ def criteo_mesh_rank(rank, D, M, seed, mbytes=64):
     packed = pack_pm1_sharded(cfg, plan.layout, mesh)
     torch.cuda.synchronize(dev)
     out["build_s"] = time.perf_counter() - t0
-    sh = ShardedFleetRec.from_packed(plan, packed, mesh,
-                                     init_mlp_params(cfg.mlp, "ones", device=dev))
+    sh = ShardedFleetRec.from_packed(plan, packed, mesh, init_mlp_params(
+        cfg.mlp, "ones", dtype=TORCH_DTYPES[cfg.dtype], device=dev))
     del packed
     out["take_bytes"] = sh.operands["bufs"][-1].nbytes
     out["allocated"] = torch.cuda.memory_allocated(dev)
@@ -3281,25 +3576,9 @@ def criteo_mesh_rank(rank, D, M, seed, mbytes=64):
         raise AssertionError(f"rank {rank}: memory_allocated {out['allocated']} B over the "
                              f"planner's {pl.per_chip_bytes}")
     rng = np.random.default_rng(seed)  # the same ids on every rank of the row
-    batches = [(ids_with_bad(cfg, B, rng),
-                rng.choice([-1.0, 1.0], (B, cfg.dense_dim)).astype(np.float32))
-               for B in CRITEO_BATCHES]
-    for k in KERNELS:
-        k.launches = 0
-    with torch.inference_mode():
-        scores = [sh.forward(torch.from_numpy(i).to(dev), torch.from_numpy(d).to(dev))
-                  .cpu().numpy() for i, d in batches]
-    out["launches"] = {k.__name__: k.launches for k in KERNELS}
-    if out["launches"] != _launches(len(batches), len(batches)):
-        raise AssertionError(f"rank {rank}: launches {out['launches']}")
-    for (idx, dense), got in zip(batches, scores):
-        nan = bad_rows_np(cfg, idx)
-        golden = pm1_scores(cfg, idx, dense).astype(np.float32)
-        if not nan.any() or not np.array_equal(np.isnan(got), nan):
-            raise AssertionError(f"rank {rank} B={len(idx)}: NaN rows "
-                                 f"{np.flatnonzero(np.isnan(got))}, want {np.flatnonzero(nan)}")
-        if not np.array_equal(got[~nan], golden[~nan]):
-            raise AssertionError(f"rank {rank} B={len(idx)}: scores differ from the pm1 oracle")
+    batches = [(ids_with_bad(cfg, B, rng), pm1_dense(cfg, B, rng)) for B in FULL_BATCHES]
+    towers, _scores, out["launches"], out["max_abs_err_bf16"] = pm1_towers(
+        sh, batches, dev, f"rank {rank}: ")
     # the window's addressing, on rows that spell their own index: every
     # rank targets the edges of all M windows, and reads zeros outside its own
     lo, n = sh.operands["window"]
@@ -3317,9 +3596,10 @@ def criteo_mesh_rank(rank, D, M, seed, mbytes=64):
     ids = torch.from_numpy(_rand_ids(cfg, B_TIME, rng)).to(dev)
     with torch.inference_mode():
         out["split"] = _split_forward(sh, ids, dense)
-    del sh
+    del sh, towers
     torch.cuda.empty_cache()
-    out["ici"] = ici_bench(mesh, mbytes=mbytes)
+    if mbytes is not None:
+        out["ici"] = ici_bench(mesh, mbytes=mbytes)
     return out
 
 
@@ -3333,17 +3613,42 @@ def dryrun_rank(rank, D, M):
             **{k: list(v.shape) for k, v in res.items() if k.startswith("scores")}}
 
 
-def phase_criteo_full(tmp):
-    """Phase 14 (``criteo_full_rank``) in a spawned process of its own;
-    its log lines are printed here.  Returns its results."""
+def phase_full(run, phase, tmp):
+    """``full_rows_rank(run)``, seeded with the phase's number, in a process
+    forked from the forkserver ``main`` starts first; its log lines are
+    printed here.  Returns its results."""
     t0 = time.time()
-    (res,), _ = run_world(1, criteo_full_rank, (14,), tmp, "criteo_full", backend=None,
+    (res,), _ = run_world(1, full_rows_rank, (run, phase), tmp, f"full_{run.tag}", backend=None,
                           method="forkserver")
     for line in res.pop("lines"):
-        log(f"phase 14 {line}")
-    log(f"phase 14 criteo_terabyte at full cardinality (int8 tables, 1,655,169,127 rows) on one "
-        f"card, built there with no table on the host: passed ({time.time() - t0:.1f}s)")
+        log(f"phase {phase} {run.tag} {line}")
+    log(f"phase {phase} {run.tag}: {run.name} at full rows on one card, built there with no "
+        f"table on the host: passed ({time.time() - t0:.1f}s)")
     return res
+
+
+def phase_full_rows(tmp):
+    """Phase 16: every run of FULL_ROWS in a process of its own
+    (``phase_full``), the first of CKPT_CANDIDATES whose checkpoint fits
+    twice in the temporary directory's free space checkpointed (none:
+    raises with the numbers).  Returns {tag: results}."""
+    t0 = time.time()
+    runs = {run.tag: run for run in FULL_ROWS}
+    free = shutil.disk_usage(tempfile.gettempdir()).free
+    need = {tag: checkpoint_bytes(runs[tag].config(B_TIME)) for tag in CKPT_CANDIDATES}
+    pick = next((tag for tag in CKPT_CANDIDATES if free >= 2 * need[tag]), None)
+    if pick is None or need[pick] <= 1 << 32:
+        raise AssertionError(f"phase 16: {tempfile.gettempdir()} has {free} B free; a checkpoint "
+                             f"past 4 GiB needs twice its arrays' bytes: {need}")
+    log(f"phase 16: {tempfile.gettempdir()} has {free} B free; checkpointing {pick} "
+        f"({need[pick]} B of arrays; the candidates {need})")
+    out = {}
+    for tag, run in runs.items():
+        out[tag] = phase_full(dataclasses.replace(run, checkpoint=tag == pick), 16, tmp)
+    log(f"phase 16 the paper's model2 (float32 and bfloat16) and model3 (int8, served on three "
+        f"senders) and tiny_dlrm at full rows, one process each: passed "
+        f"({time.time() - t0:.1f}s)")
+    return out
 
 
 def _ms(fn, iters: int = 20) -> float:
@@ -4117,18 +4422,20 @@ def main() -> int:
     ckpt = phase_checkpoint(dev, model)
     stats = phase_report(cfg, model, dev, gb, lookups, windows)
     profile_training(runs, trained)
-    # phase 14 needs the card to itself: 52.96 GB of tables
+    # phases 14 and 16 need the card to themselves: 52.96 GB of tables, then
+    # each of phase 16's configs in turn
     del model, model_u, tabs, ws, lookups, runs, windows, gb
     import gc
 
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"phase 14: this process holds {torch.cuda.memory_allocated(dev)} B allocated, "
+    log(f"phases 14 and 16: this process holds {torch.cuda.memory_allocated(dev)} B allocated, "
         f"{torch.cuda.memory_reserved(dev)} B reserved on the card after dropping every model; "
         f"its peak host RSS so far {peak_rss()} B")
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_criteo_")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_full_")
     try:
-        crit = phase_criteo_full(tmp)
+        crit = phase_full(CRITEO_FULL, 14, tmp)
+        full = phase_full_rows(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     crit_lk = crit["lookup"]
@@ -4154,6 +4461,11 @@ def main() -> int:
          "launches_criteo_full": crit["launches"]["fused_mlp"],
          "launches_criteo_full_serve": crit["serve_launches"]["fused_mlp"],
          "launches_checkpoint": ckpt["launches"]["fused_mlp"],
+         # phase 16: each config's two forwards (B_TIME, B_SERVE) and its served run
+         "launches_full_rows": {tag: r["launches"]["fused_mlp"] for tag, r in full.items()},
+         "launches_full_rows_serve": {tag: r["serve_launches"]["fused_mlp"]
+                                      for tag, r in full.items()},
+         "max_abs_err_bf16_model2_full": full["model2_bf16"]["max_abs_err_bf16"],
          # each tower against fused_mlp_plain in phase 3, every B, ReLU off and on
          **{f"max_abs_err_{tower}{sfx}": err_towers[tower, dtype]
             for tower in ("dlrm_bottom", "dlrm_top")
@@ -4197,7 +4509,14 @@ def main() -> int:
          "ms_criteo_full": crit_lk["random"]["ms"], "plain_ms_criteo_full": crit_lk["random"][
              "plain_ms"], "bound_ms_criteo_full": crit_lk["random"]["bound_ms"],
          "ms_ids0_criteo_full": crit_lk["ids0"]["ms"],
-         "ms_window_1gib_criteo_full": crit_lk["window_1gib"]["ms"]},
+         "ms_window_1gib_criteo_full": crit_lk["window_1gib"]["ms"],
+         # phase 16: the paper's geometries and tiny_dlrm at full rows, B_TIME
+         "launches_full_rows": {tag: r["launches"]["lookup_fused"] for tag, r in full.items()},
+         "launches_full_rows_serve": {tag: r["serve_launches"]["lookup_fused"]
+                                      for tag, r in full.items()},
+         "max_abs_err_full_rows": max(r["max_abs_err"] for r in full.values()),
+         **{f"{k}_{tag}_full": r["lookup"]["random"][k] for tag, r in full.items()
+            for k in ("ms", "plain_ms", "bound_ms")}},
         # the bag form of the fused lookup: launches of the served pooled run
         # (bag_L = BAG_L, one a batch); the top-level times are model1's at
         # B_TIME and BAG_L; no one PyTorch call computes it (embedding_bag

@@ -4,7 +4,8 @@ Every library is built the same way: each source compiles to an object
 in its own compiler process, all started together, and one link joins
 them.  The CUDA kernels (``ops/csrc/*.cu``) are compiled by ``nvcc`` into
 one shared library with a plain C interface; the native ingest tier
-(``native/*.cpp``) by ``g++``.  Each library
+(``native/*.cpp``) by ``g++``, as a library and as the ingest stress test's
+executable (``serving/stress.py``).  Each library
 lands in ``fleetrec_tpu_torch/_build/`` (ignored by git) under a name keyed
 by a hash of its sources and its command line, so an edited source builds
 anew and an unchanged one is loaded as it is.  The compiler's output is
@@ -38,12 +39,14 @@ class BuildError(RuntimeError):
 
 
 def build_shared(name: str, sources: Sequence[str], cmd: Sequence[str],
-                 link: Sequence[str]) -> str:
-    """Build ``sources`` into ``BUILD_DIR/<name>-<hash>.so``; return its path.
+                 link: Sequence[str], suffix: str = ".so") -> str:
+    """Build ``sources`` into ``BUILD_DIR/<name>-<hash><suffix>``; return its
+    path.
 
     Each source compiles to an object with ``cmd -c`` (``cmd`` is the
     compiler and its flags), all in parallel; ``link`` (the linker and its
-    flags, without ``-o`` and the objects) joins the objects.
+    flags, without ``-o`` and the objects) joins the objects: a shared
+    library when it says ``-shared``, else an executable (``suffix=""``).
 
     Concurrent builds (test workers) each write private temporary files
     and rename the library into place, so a reader never sees a partial
@@ -52,7 +55,7 @@ def build_shared(name: str, sources: Sequence[str], cmd: Sequence[str],
     for src in sources:
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
-    out = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+    out = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}{suffix}")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)

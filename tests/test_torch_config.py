@@ -143,7 +143,8 @@ def test_port_imports_neither_jax_nor_fleetrec_tpu():
     assert {REPO / f"fleetrec_tpu_torch/parallel/{m}.py"
             for m in ("__init__", "mesh", "multihost", "sharded", "planner", "dryrun")} <= set(files)
     assert {REPO / "fleetrec_tpu_torch/io.py", REPO / "fleetrec_tpu_torch/models/biginit.py",
-            REPO / "fleetrec_tpu_torch/benchmarks/collectives.py"} <= set(files)
+            REPO / "fleetrec_tpu_torch/benchmarks/collectives.py",
+            REPO / "fleetrec_tpu_torch/serving/stress.py"} <= set(files)
     assert (REPO / "chip_mesh.py").is_file()
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -166,7 +167,8 @@ COPIES = [("fleetrec_tpu_torch/configs/fleetrec_model1.json", "fleetrec_tpu/conf
           ("fleetrec_tpu_torch/configs/fleetrec_model3_fpga.json",
            "fleetrec_tpu/configs/fleetrec_model3_fpga.json"),
           ("fleetrec_tpu_torch/native/ingest.cpp", "fleetrec_tpu/native/ingest.cpp"),
-          ("fleetrec_tpu_torch/native/scatter.cpp", "fleetrec_tpu/native/scatter.cpp")]
+          ("fleetrec_tpu_torch/native/scatter.cpp", "fleetrec_tpu/native/scatter.cpp"),
+          ("fleetrec_tpu_torch/native/stress_test.cpp", "fleetrec_tpu/native/stress_test.cpp")]
 
 
 @pytest.mark.parametrize("copy,original", COPIES)

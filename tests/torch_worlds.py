@@ -439,3 +439,39 @@ def _train(sh, case, ids, dense, labels, out, log):
     with torch.inference_mode():
         out["scores_after"] = sh.forward(ids, dense).numpy()
     return out
+
+
+def run_criteo_mesh(rank, D, M, table_dtype, rows, batches):
+    """``chip_smoke.criteo_mesh_rank`` (chip_mesh.py's step 4) on this CPU
+    rank, on criteo with every table capped at ``rows`` and the batch sizes
+    ``batches`` (the first also the addressing batch): the card calls
+    stubbed, ``global_mesh`` on the CPU, the kernel wrappers counted (the
+    CPU runs their plain versions), the forward's timing (the card's)
+    skipped, no ici_bench.  Returns its results."""
+    import torch
+
+    import chip_smoke as cs
+    from fleetrec_tpu_torch import config as TC
+    from fleetrec_tpu_torch import parallel
+    from fleetrec_tpu_torch.models import mlp as mlp_mod
+    from fleetrec_tpu_torch.ops.lookup import lookup_fused_plain
+    from fleetrec_tpu_torch.ops.mlp_fused import fused_mlp_plain
+    from fleetrec_tpu_torch.parallel import sharded
+
+    def counted(kernel, plain):
+        def call(*a, **kw):
+            kernel.launches += 1
+            return plain(*a, **kw)
+        return call
+
+    real_mesh, real_criteo = parallel.global_mesh, TC.criteo_terabyte
+    torch.cuda.synchronize = lambda *a, **k: None
+    torch.cuda.get_device_name = lambda *a: "cpu"
+    torch.cuda.memory_allocated = lambda *a: 0
+    parallel.global_mesh = lambda D, M, device="cuda": real_mesh(D, M, device="cpu")
+    TC.criteo_terabyte = lambda **kw: cap(real_criteo(**kw), rows)
+    sharded.lookup_fused = counted(cs.lookup_fused, lookup_fused_plain)
+    mlp_mod.fused_mlp = counted(cs.fused_mlp, fused_mlp_plain)
+    cs._split_forward = lambda *a, **k: {}
+    cs.FULL_BATCHES, cs.B_TIME = batches, batches[0]
+    return cs.criteo_mesh_rank(rank, D, M, 15, None, table_dtype)

@@ -1,0 +1,8 @@
+"""qps: queries whose scores reached sender 0 inside the window, over the
+window's seconds (back-to-back cells)."""
+
+from portbench.readers import answered_queries
+
+
+def read(out):
+    return answered_queries(out) / out.seconds

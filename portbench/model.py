@@ -1,0 +1,113 @@
+"""The system under test, built from a configuration file: the port's
+``ModelConfig`` from the file's sizes, its packed tables made on the device
+by the port's ``pack_pm1_sharded`` and then overwritten with the harness's
+seeded values (``tables.py``) through the layout the port exposes
+(``biginit.take_segments``, the class buffers, the int8 scales), and the
+tower's weights from the seed.  Nothing here is read back by the reference.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import tables as tb
+
+
+def port_config(name: str, model: dict, serve: dict):
+    """The port's ModelConfig of a configuration file's ``model``,
+    ``storage`` and ``serve`` blocks (config-order tables, table id =
+    column)."""
+    from fleetrec_tpu_torch.config import MLPSpec, ModelConfig, TableSpec
+
+    w = model["mlp"]
+    cfg = ModelConfig(
+        name=name,
+        tables=tuple(TableSpec(table_id=i, rows=t["rows"], dim=t["dim"],
+                               out_offset=t["out_offset"])
+                     for i, t in enumerate(model["tables"])),
+        mlp=MLPSpec(input_dim=w[0], hidden=tuple(w[1:-1]), out_dim=w[-1],
+                    activation=model.get("activation")),
+        dense_dim=model["dense_dim"],
+        batch_size=serve["batch"],
+        dtype=model["dtype"],
+        table_dtype=model["table_dtype"],
+        **model["storage"],
+    )
+    cfg.validate()
+    if cfg.qr_rem or cfg.interaction != "none" or cfg.feature_dim != model["feature_dim"]:
+        raise ValueError(f"{name}: the harness serves tower-only configs without QR tables")
+    return cfg
+
+
+def fill_classes(packed, layout, key: int, storage: str, rows_of: dict) -> None:
+    """Every class table's rows (and, for int8, its scale) in place."""
+    for i, c in enumerate(layout.onehot_classes):
+        buf = packed.onehot_buffers[i].view(c.num_tables, c.rows_pad, c.dim)
+        for j, tid in enumerate(c.table_ids):
+            r = torch.arange(rows_of[tid], device=buf.device)
+            buf[j, :rows_of[tid]] = tb.values(key, torch.tensor(tid, device=buf.device), r,
+                                              c.dim, storage)
+            if packed.onehot_scales is not None:
+                packed.onehot_scales[i][j] = tb.table_scale(key, tid)
+
+
+def fill_take(buf: torch.Tensor, layout, cfg, key: int, storage: str,
+              chunk_rows: int = 1 << 19) -> None:
+    """The take buffer in place: for each (table, stripe) segment of
+    ``take_segments``, buffer row P holds physical row pr = (P - start) *
+    S + k, whose sub-row j is logical row pr * s + j (zero past the
+    table's last row)."""
+    from fleetrec_tpu_torch.models.biginit import take_segments
+
+    S, n, dev = layout.take_stripes, buf.shape[0], buf.device
+    group_of = {tid: g for g in layout.take_groups for tid in g.table_ids}
+    rows_of = {t.table_id: t.rows for t in cfg.tables}
+    zero = torch.zeros((), dtype=buf.dtype, device=dev)
+    for tid, start, span, k in take_segments(layout, cfg):
+        s, d = group_of[tid].rows_per_phys, group_of[tid].dim
+        t = torch.tensor(tid, device=dev)
+        end = min(start + span, n)
+        for c0 in range(start, end, chunk_rows):
+            c1 = min(c0 + chunk_rows, end)
+            pr = torch.arange(c0 - start, c1 - start, device=dev) * S + k
+            r = pr[:, None] * s + torch.arange(s, device=dev)
+            v = torch.where((r < rows_of[tid])[..., None], tb.values(key, t, r, d, storage), zero)
+            buf[c0:c1, :s * d].unflatten(1, (s, d)).copy_(v)
+
+
+def take_scales(packed, layout, key: int) -> None:
+    if packed.take_scales is not None:
+        tids = [tid for g in layout.take_groups for tid in g.table_ids]
+        packed.take_scales.copy_(torch.tensor([tb.table_scale(key, t) for t in tids],
+                                              dtype=torch.float32))
+
+
+def build_packed(cfg, plan, seed: int, device):
+    """The port's PackedTables of ``cfg`` on ``device`` holding the
+    harness's values for ``seed``."""
+    from fleetrec_tpu_torch.models import pack_pm1_sharded
+
+    lay = plan.layout
+    key = tb.seed_key(seed)
+    packed = pack_pm1_sharded(cfg, lay, device=device)
+    rows_of = {t.table_id: t.rows for t in cfg.tables}
+    fill_classes(packed, lay, key, cfg.table_dtype, rows_of)
+    if packed.take_buffer is not None:
+        fill_take(packed.take_buffer, lay, cfg, key, cfg.table_dtype)
+    take_scales(packed, lay, key)
+    return packed
+
+
+def weights(cfg, seed: int, device):
+    from fleetrec_tpu_torch.models.embedding import TORCH_DTYPES
+
+    return tb.tower_weights(seed, cfg.mlp.widths, TORCH_DTYPES[cfg.dtype], device)
+
+
+def build_model(cfg, seed: int, device):
+    """A FleetRecModel on ``device``: tables and weights from ``seed``."""
+    from fleetrec_tpu_torch.models import FleetRecModel, ModelPlan
+
+    plan = ModelPlan.create(cfg)
+    packed = build_packed(cfg, plan, seed, device)
+    return FleetRecModel(plan, packed, weights(cfg, seed, device))

@@ -120,16 +120,35 @@ _HEADER = 7
 _ID_DTYPES = (torch.int32, torch.int64)
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(slots=True)
 class BatchRecord:
     """One device call's stamps, all on the monotonic clock the native
     ingest tier stamps with (steady_clock = CLOCK_MONOTONIC =
-    time.monotonic_ns)."""
+    time.monotonic_ns).
+
+    Beside the three the latency reads (first byte, submit, done), the
+    engine's loop and drain threads stamp every layer boundary a batch
+    crosses; ``SPANS`` names each span, a pair of consecutive stamps.  A
+    stamp the batch never reached (a batch given to ``submit`` directly has
+    no ring stamps) stays 0.  With ``fuse`` K > 1 one record covers the K
+    wire batches of a call: ``t_complete_ns`` and ``t_acquired_ns`` are the
+    group's first slot's, ``t_parsed_ns`` the K-th slot parsed and released
+    (so ``parse`` holds the other K - 1 acquires too) and ``t_validated_ns``
+    the K-th batch validated."""
 
     batch_id: int
     t_first_byte_ns: int  # earliest first byte across senders (0 if host-gen)
     t_submit_ns: int      # host submit to the device
     t_done_ns: int = 0    # scores on the host
+    t_complete_ns: int = 0      # the slot whole in the ingest ring
+    t_acquire_call_ns: int = 0  # the loop done with the batch before, asking for a slot
+    t_acquired_ns: int = 0      # the slot in the loop's hands
+    t_parsed_ns: int = 0        # ids and dense copied out of the slot, the slot released
+    t_validated_ns: int = 0     # every id checked against its table's rows
+    t_h2d_ns: int = 0           # ids and dense on the device
+    t_dispatched_ns: int = 0    # the forward's checks and launches returned
+    t_dequeued_ns: int = 0      # the readback taken up (drain thread, or the loop inline)
+    t_replied_ns: int = 0       # on_done returned: scores replied
 
     @property
     def latency_ns(self) -> int:
@@ -137,6 +156,27 @@ class BatchRecord:
         ingest ring, host parsing/validation and any wait on the in-flight
         window all count.  Batches submitted directly start at submit."""
         return self.t_done_ns - (self.t_first_byte_ns or self.t_submit_ns)
+
+
+# A batch's spans in order, (name, where, from stamp, to stamp).  First
+# byte -> submit is wire + ring_wait + parse + validate + slot_wait, and
+# submit -> done is h2d + dispatch + queued + readback.  ``acquire`` is the
+# loop thread's wait for the slot: it starts at the stamp the loop's work
+# on the batch before ended with (``t_dispatched_ns``, or, draining inline,
+# the last ``t_replied_ns`` it drained), so the loop's spans tile its time.
+SPANS = (
+    ("wire", "ingest", "t_first_byte_ns", "t_complete_ns"),
+    ("ring_wait", "ingest", "t_complete_ns", "t_acquired_ns"),
+    ("acquire", "loop", "t_acquire_call_ns", "t_acquired_ns"),
+    ("parse", "loop", "t_acquired_ns", "t_parsed_ns"),
+    ("validate", "loop", "t_parsed_ns", "t_validated_ns"),
+    ("slot_wait", "loop", "t_validated_ns", "t_submit_ns"),
+    ("h2d", "loop", "t_submit_ns", "t_h2d_ns"),
+    ("dispatch", "loop", "t_h2d_ns", "t_dispatched_ns"),
+    ("queued", "in flight", "t_dispatched_ns", "t_dequeued_ns"),
+    ("readback", "drain", "t_dequeued_ns", "t_done_ns"),
+    ("reply", "drain", "t_done_ns", "t_replied_ns"),
+)
 
 
 class LatencyStats:
@@ -189,13 +229,16 @@ def _broadcast_header(mesh, ids: torch.Tensor, has_dense: bool) -> None:
 class ServingEngine:
     """Dispatch loop with a bounded in-flight window.
 
-    score_fn: (indices_np, dense_np) -> device scores tensor.  Built from a
+    A batch is scored in two parts, stamped apart: ``copy_in``
+    (indices_np, dense_np) -> the forward's operands on the device, then
+    ``forward`` (operands) -> device scores tensor.  Built from a
     FleetRecModel by from_model()."""
 
-    def __init__(self, score_fn: Callable, num_tables: int, dense_dim: int,
-                 batch_size: int, max_in_flight: int = 2,
+    def __init__(self, copy_in: Callable, forward: Callable, num_tables: int,
+                 dense_dim: int, batch_size: int, max_in_flight: int = 2,
                  background_drain: bool = False):
-        self.score_fn = score_fn
+        self.copy_in = copy_in
+        self.forward = forward
         self.num_tables = num_tables
         self.dense_dim = dense_dim
         self.batch_size = batch_size
@@ -225,6 +268,10 @@ class ServingEngine:
             )
             self._drain_thread.start()
 
+    def score_fn(self, inputs_np, dense_np):
+        """(indices_np, dense_np) -> device scores: both parts at once."""
+        return self.forward(*self.copy_in(inputs_np, dense_np))
+
     # -- construction ----------------------------------------------------
     @classmethod
     def from_model(cls, model, batch_size: int, max_in_flight: int = 2,
@@ -249,10 +296,13 @@ class ServingEngine:
         dev = model.device
         n_id = 2 if bag_L else 1  # trailing axes of one query's ids
 
-        def score(indices_np, dense_np):
+        def copy_in(indices_np, dense_np):
             i = torch.from_numpy(np.ascontiguousarray(indices_np)).to(dev)
             d = (None if dense_np is None
                  else torch.from_numpy(np.ascontiguousarray(dense_np)).to(dev))
+            return i, d
+
+        def forward(i, d):
             lead = i.shape[:-n_id]
             i = i.reshape(-1, *i.shape[-n_id:])
             d = None if d is None else d.reshape(-1, d.shape[-1])
@@ -260,7 +310,7 @@ class ServingEngine:
                 s = model.forward_pooled(i, d, mean=bag_mean) if bag_L else model(i, d)
             return s.reshape(lead)
 
-        eng = cls(score, model.cfg.num_tables, model.cfg.dense_dim, batch_size,
+        eng = cls(copy_in, forward, model.cfg.num_tables, model.cfg.dense_dim, batch_size,
                   max_in_flight, background_drain)
         eng.fuse = fuse
         eng.bag_L = bag_L
@@ -298,7 +348,7 @@ class ServingEngine:
         dev = mesh.device
         run = sharded.forward_pipelined if fuse > 1 else sharded.forward
 
-        def score(indices_np, dense_np):
+        def copy_in(indices_np, dense_np):
             if not mesh.is_leader:
                 raise ValueError("a follower rank runs follow(); its leader takes the batches")
             i = torch.from_numpy(np.ascontiguousarray(indices_np))
@@ -312,11 +362,14 @@ class ServingEngine:
                 d = None if d is None else host_local_batch_to_global(mesh, d)
             else:
                 i, d = i.to(dev), None if d is None else d.to(dev)
+            return i, d
+
+        def forward(i, d):
             with torch.inference_mode():
                 return run(i, d)
 
-        eng = cls(score, sharded.cfg.num_tables, sharded.cfg.dense_dim, batch_size,
-                  max_in_flight, background_drain)
+        eng = cls(copy_in, forward, sharded.cfg.num_tables, sharded.cfg.dense_dim,
+                  batch_size, max_in_flight, background_drain)
         eng.fuse = fuse
         eng._sharded, eng._run = sharded, run
         eng._followers_live = multiprocess and mesh.is_leader and mesh.model > 1
@@ -376,12 +429,14 @@ class ServingEngine:
         weights = model.mlp_weights
         activation = model.cfg.mlp.activation
 
-        def score(feats_np, _dense):
-            x = torch.from_numpy(np.ascontiguousarray(feats_np)).to(dev)
+        def copy_in(feats_np, _dense):
+            return torch.from_numpy(np.ascontiguousarray(feats_np)).to(dev), None
+
+        def forward(x, _dense):
             with torch.inference_mode():
                 return mlp_apply(weights, x, activation)[:, 0]
 
-        return cls(score, 0, 0, batch_size, max_in_flight, background_drain)
+        return cls(copy_in, forward, 0, 0, batch_size, max_in_flight, background_drain)
 
     def warmup(self):
         """Run the scoring path once on dummy data before the first real
@@ -436,32 +491,50 @@ class ServingEngine:
         semaphore while the drain thread reads back).  t_first_byte_ns:
         the ingest tier's monotonic first-byte stamp, where the batch's
         latency starts."""
+        rec = BatchRecord(self._batch_id, t_first_byte_ns, 0)
+        self._dispatch(rec, inputs_np, dense_np, on_done)
+        return rec.batch_id
+
+    def _dispatch(self, rec: BatchRecord, inputs_np, dense_np, on_done) -> int:
+        """Submit one batch under ``rec`` (its stamps up to validation set
+        by the caller); returns the loop thread's last stamp: the batch's
+        ``t_dispatched_ns``, or the last ``t_replied_ns`` it drained
+        inline."""
         self._check_drain_error()
-        wd = (self.watchdog.guard(f"dispatch batch {self._batch_id}")
+        rec.batch_id = self._batch_id
+        wd = (self.watchdog.guard(f"dispatch batch {rec.batch_id}")
               if self.watchdog is not None else contextlib.nullcontext())
         if self._drain_thread is not None:
             self._sem.acquire()
             try:
-                t_submit = time.monotonic_ns()
+                rec.t_submit_ns = time.monotonic_ns()
                 with wd:
-                    scores = self.score_fn(inputs_np, dense_np)
+                    operands = self.copy_in(inputs_np, dense_np)
+                    rec.t_h2d_ns = time.monotonic_ns()
+                    scores = self.forward(*operands)
             except BaseException:
                 self._sem.release()  # a lost permit shrinks the window forever
                 raise
         else:
-            t_submit = time.monotonic_ns()
+            rec.t_submit_ns = time.monotonic_ns()
             with wd:
-                scores = self.score_fn(inputs_np, dense_np)
-        rec = BatchRecord(self._batch_id, t_first_byte_ns, t_submit)
+                operands = self.copy_in(inputs_np, dense_np)
+                rec.t_h2d_ns = time.monotonic_ns()
+                scores = self.forward(*operands)
+        rec.t_dispatched_ns = mark = time.monotonic_ns()
         self._batch_id += 1
         self._in_flight.put((scores, rec, on_done))
         if self._drain_thread is None:
             while self._in_flight.qsize() > self.max_in_flight:
-                self._drain_one()
-        return rec.batch_id
+                mark = self._drain_one(t_dequeued_ns=mark)
+        return mark
 
-    def _drain_one(self, item=None):
+    def _drain_one(self, item=None, t_dequeued_ns: int = 0) -> int:
+        """Read one batch back and hand its scores to on_done; returns its
+        ``t_replied_ns``.  ``t_dequeued_ns``: where its readback starts on
+        the loop thread when drained inline (the loop's last stamp)."""
         scores, rec, on_done = item if item is not None else self._in_flight.get()
+        rec.t_dequeued_ns = t_dequeued_ns or time.monotonic_ns()
         wd = (self.watchdog.guard(f"readback batch {rec.batch_id}")
               if self.watchdog is not None else contextlib.nullcontext())
         with wd:
@@ -470,6 +543,8 @@ class ServingEngine:
         self.stats.add(rec)
         if on_done is not None:
             on_done(rec.batch_id, out)
+        rec.t_replied_ns = time.monotonic_ns()
+        return rec.t_replied_ns
 
     def _drain_loop(self):
         while True:
@@ -546,10 +621,12 @@ class ServingEngine:
         N consumers round-robin.
 
         Fused dispatch (from_model(fuse=K)): wire batches are grouped K at
-        a time into one [K, B, T] call (n_batches must divide by K).
+        a time into one [K, B, T] call (n_batches must divide by K): the K
+        slots are acquired and parsed, then the K batches validated.
         Replies still go out per wire batch; the latency record per group
         spans the earliest first byte to all K scores ready, on the ingest
-        tier's monotonic clock, so time a slot waits in the ring counts."""
+        tier's monotonic clock, so time a slot waits in the ring counts.
+        Each record holds the group's stamps (``BatchRecord``)."""
         B = self.batch_size
         fuse = self.fuse
         if mode not in ("index", "feature"):
@@ -589,22 +666,23 @@ class ServingEngine:
                      if self.dense_dim else None)
             return idx, dense
 
+        mark = time.monotonic_ns()  # the loop thread's last stamp
         for i in range(0, n_batches, fuse):
+            rec = BatchRecord(0, 0, 0, t_acquire_call_ns=mark)
             idxs, denses, t_firsts = [], [], []
             for k in range(fuse):
                 got = ingest.acquire(timeout_ms)
                 if got is None:
                     raise TimeoutError(f"ingest timeout at batch {i + k}")
-                slot, view, t_first, _ = got
+                slot, view, t_first, t_complete = got
+                if not k:
+                    rec.t_acquired_ns = time.monotonic_ns()
+                    rec.t_complete_ns = t_complete
                 if mode == "feature":
                     idx, dense = view.reshape(B, feature_dim).copy(), None
                 else:
                     idx, dense = parse_index_slot(view)
                 ingest.release(slot)
-                if row_limits is not None and mode == "index":
-                    # reject bad row ids at the wire (otherwise they surface
-                    # as NaN scores)
-                    self.validate_indices(idx, row_limits)
                 idxs.append(idx)
                 denses.append(dense)
                 t_firsts.append(t_first)
@@ -613,7 +691,15 @@ class ServingEngine:
                 dense = None if denses[0] is None else np.stack(denses)
             else:
                 idx, dense = idxs[0], denses[0]
-            self.submit(idx, dense, min(t_firsts), on_done)
+            rec.t_parsed_ns = time.monotonic_ns()
+            if row_limits is not None and mode == "index":
+                # reject bad row ids at the wire (otherwise they surface
+                # as NaN scores)
+                for one in idxs:
+                    self.validate_indices(one, row_limits)
+            rec.t_validated_ns = time.monotonic_ns()
+            rec.t_first_byte_ns = min(t_firsts)
+            mark = self._dispatch(rec, idx, dense, on_done)
         summary = self.drain()
         if summary.get("batches_per_sec"):
             # each LatencyStats record covers `fuse` wire batches of B queries

@@ -1,1 +1,1 @@
-"""Timing and profiling helpers (utils/timing.py, utils/prof.py)."""
+"""Timing helpers (utils/timing.py)."""

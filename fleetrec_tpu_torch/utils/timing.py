@@ -1,10 +1,9 @@
 """Timing utilities, the port of ``fleetrec_tpu/utils/timing.py``.
 
-``Timer`` is the host-side section timer.  ``DeviceBench`` measures a
-step's device time the way the JAX package's one compiled ``lax.scan`` of
-K steps does: on CUDA it records the K calls into one CUDA graph and times
-replays of it with CUDA events, so no host dispatch sits between the
-steps.  ``measure_corrected`` is the two-K difference, which splits a
+``DeviceBench`` measures a step's device time the way the JAX package's
+one compiled ``lax.scan`` of K steps does: on CUDA it records the K calls
+into one CUDA graph and times replays of it with CUDA events, so no host
+dispatch sits between the steps.  ``measure_corrected`` is the two-K difference, which splits a
 replay's time into a per-step term and a per-call constant.
 """
 
@@ -14,38 +13,6 @@ import time
 from typing import Callable
 
 import torch
-
-
-class Timer:
-    """Accumulating section timer: with t.section("recv"): ..."""
-
-    def __init__(self):
-        self.totals = {}
-        self.counts = {}
-
-    def section(self, name: str):
-        return _Section(self, name)
-
-    def add(self, name: str, dt: float):
-        self.totals[name] = self.totals.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
-
-    def summary(self) -> dict:
-        return {
-            k: {"total_s": v, "count": self.counts[k], "mean_ms": v / self.counts[k] * 1e3}
-            for k, v in self.totals.items()
-        }
-
-
-class _Section:
-    def __init__(self, timer, name):
-        self.timer, self.name = timer, name
-
-    def __enter__(self):
-        self.t0 = time.time()
-
-    def __exit__(self, *exc):
-        self.timer.add(self.name, time.time() - self.t0)
 
 
 def _step_input(xs, k: int):

@@ -1,10 +1,7 @@
-"""The port's utils/timing.py and utils/prof.py on the CPU: DeviceBench runs
-K steps, its accumulator is the sum of the step outputs (the JAX scan's
-carry on the same inputs), and its result keys are the JAX package's.
+"""The port's utils/timing.py on the CPU: DeviceBench runs K steps, its
+accumulator is the sum of the step outputs (the JAX scan's carry on the
+same inputs), and its result keys are the JAX package's.
 The CUDA-graph path runs on the card (``cuda`` marker, chip_smoke.py)."""
-
-import json
-import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,8 +9,7 @@ import pytest
 import torch
 
 from fleetrec_tpu.utils.timing import DeviceBench as JBench
-from fleetrec_tpu_torch.utils.prof import profile_trace
-from fleetrec_tpu_torch.utils.timing import DeviceBench, Timer
+from fleetrec_tpu_torch.utils.timing import DeviceBench
 
 
 def _inputs(K=5, seed=0):
@@ -87,32 +83,6 @@ def test_measure_refuses_a_device_without_a_timer():
     xs = torch.zeros(2, 3, device="meta")
     with pytest.raises(ValueError, match="no timer"):
         DeviceBench(lambda p, x: x).measure(None, xs)
-
-
-def test_timer_accumulates_sections():
-    t = Timer()
-    for _ in range(3):
-        with t.section("recv"):
-            pass
-    with t.section("score"):
-        pass
-    s = t.summary()
-    assert s["recv"]["count"] == 3 and s["score"]["count"] == 1
-    assert s["recv"]["mean_ms"] == pytest.approx(s["recv"]["total_s"] / 3 * 1e3)
-
-
-def test_profile_trace_writes_a_chrome_trace(tmp_path):
-    with profile_trace(str(tmp_path / "tr")) as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    assert prof is not None
-    with open(tmp_path / "tr" / "trace.json") as f:
-        assert json.load(f)["traceEvents"]
-
-
-def test_profile_trace_disabled_is_a_no_op(tmp_path):
-    with profile_trace(str(tmp_path / "off"), enabled=False) as prof:
-        pass
-    assert prof is None and not os.path.exists(tmp_path / "off")
 
 
 @pytest.mark.cuda

@@ -9,7 +9,9 @@ Two modes, as in the JAX engine:
 * index mode (``from_model``): batches of table ids (+ the dense slice) are
   scored by the whole forward (lookup + concat + MLP) on the device; with
   ``bag_L=L`` the ids are pooled bags ``[B, T, L]`` (``models/pooled.py``:
-  -1 is padding) scored by the pooled forward;
+  -1 is padding) scored by the pooled forward.  On a CUDA device a batch of
+  the served shape is scored by replaying that forward from a CUDA graph
+  (``GraphSlots``);
 * feature mode (``mlp_only``): batches arrive as pre-gathered feature
   vectors, the reference's wire, and only the MLP tower runs (the
   ``fused_mlp`` kernel on CUDA).
@@ -40,6 +42,8 @@ import torch.distributed as dist
 
 from ..models.fleetrec import check_pooled_config
 from ..models.mlp import mlp_apply
+from ..ops.lookup import lookup_fused, lookup_fused_bags
+from ..ops.mlp_fused import fused_mlp
 
 # watchdog abort status: 124 is the `timeout(1)` convention
 EXIT_PEER_TIMEOUT = 124
@@ -149,6 +153,7 @@ class BatchRecord:
     t_dispatched_ns: int = 0    # the forward's checks and launches returned
     t_dequeued_ns: int = 0      # the readback taken up (drain thread, or the loop inline)
     t_replied_ns: int = 0       # on_done returned: scores replied
+    graph: bool = False         # scored by a CUDA graph's replay (else the eager forward)
 
     @property
     def latency_ns(self) -> int:
@@ -226,13 +231,143 @@ def _broadcast_header(mesh, ids: torch.Tensor, has_dense: bool) -> None:
     dist.broadcast(hdr.to(mesh.device), src=mesh.leader, group=mesh.group)
 
 
+# the kernel wrappers a served forward calls: a replay adds to their
+# ``launches`` what one capture of the forward called
+_FORWARD_KERNELS = (lookup_fused, lookup_fused_bags, fused_mlp)
+
+
+@dataclasses.dataclass(slots=True)
+class _Slot:
+    ids: torch.Tensor                # static ids of the served shape, int32
+    dense: Optional[torch.Tensor]    # static dense, float32 (None: no dense)
+    graph: Optional[object] = None   # torch.cuda.CUDAGraph of the forward on them
+    out: Optional[torch.Tensor] = None  # the graph's static scores
+
+
+class GraphSlots:
+    """The served forward of a one-device engine on a CUDA device, replayed
+    from CUDA graphs.  ``copy_in`` and ``forward`` stand in for the eager
+    pair they wrap: ids of exactly the served shape as int32 (and dense of
+    the served shape as float32, where the model reads dense) are copied
+    into the next of ``n`` slots and scored by one replay of the graph
+    captured on that slot; any other batch runs the eager pair as it is.
+
+    The graphs are captured at the first batch of the served shape (the
+    engine's ``warmup`` sends one): that batch's forward runs eagerly on a
+    side stream, which sets the kernels' function attributes and loads
+    their modules, then each slot's forward is captured.  A replay's scores
+    are the slot's static output, overwritten by the slot's next replay:
+    ``n`` must exceed the batches that can be in flight (the argument is
+    at the slot rotation in ``copy_in``)."""
+
+    def __init__(self, copy_in: Callable, forward: Callable, ids_shape: tuple,
+                 dense_shape: Optional[tuple], n: int, device: torch.device):
+        self.eager_copy_in, self.eager_forward = copy_in, forward
+        self.ids_shape, self.dense_shape = tuple(ids_shape), dense_shape
+        self.n, self.device = n, device
+        self.slots: List[_Slot] = []
+        self.capture_s = 0.0    # seconds spent capturing the graphs
+        self.replayed = False   # whether the last forward was a replay
+        self._batches = 0       # batches copied into a slot so far
+        self._next: Optional[_Slot] = None  # the slot the last copy_in filled
+        self._launches: tuple = ()  # (kernel wrapper, launches) a replay adds
+
+    def fits(self, indices_np, dense_np) -> bool:
+        """A batch of the served shape and dtypes, which a slot can take."""
+        if dense_np is None or self.dense_shape is None:
+            dense_ok = dense_np is None and self.dense_shape is None
+        else:
+            dense_ok = dense_np.shape == self.dense_shape and dense_np.dtype == np.float32
+        return (dense_ok and isinstance(indices_np, np.ndarray)
+                and indices_np.shape == self.ids_shape and indices_np.dtype == np.int32)
+
+    def copy_in(self, indices_np, dense_np):
+        self._next = None
+        if not self.fits(indices_np, dense_np):
+            return self.eager_copy_in(indices_np, dense_np)
+        if not self.slots:
+            self.slots = [_Slot(
+                torch.empty(self.ids_shape, dtype=torch.int32, device=self.device),
+                None if self.dense_shape is None else
+                torch.empty(self.dense_shape, dtype=torch.float32, device=self.device))
+                for _ in range(self.n)]
+        # Batch k of this shape takes slot k % n, n = max_in_flight + 1.  Its
+        # copies are queued on the stream behind the replay of batch k - n,
+        # the slot's last user, so they cannot change that replay's inputs.
+        # Its replay overwrites the slot's scores, which batch k - n's
+        # readback must have copied out first, and it has: the engine's
+        # batches are read back in order, and when batch k is copied in at
+        # most max_in_flight older batches are not read back yet (draining
+        # in the background, batch k holds one of max_in_flight permits, and
+        # a batch gives its permit back once read back; draining inline,
+        # ``_dispatch`` reads back until at most max_in_flight are left
+        # after each dispatch), so batch k - n = k - max_in_flight - 1 is.
+        slot = self.slots[self._batches % self.n]
+        self._batches += 1
+        slot.ids.copy_(torch.from_numpy(np.ascontiguousarray(indices_np)))
+        if slot.dense is not None:
+            slot.dense.copy_(torch.from_numpy(np.ascontiguousarray(dense_np)))
+        self._next = slot
+        return slot.ids, slot.dense
+
+    def forward(self, ids, dense):
+        slot, self._next = self._next, None
+        self.replayed = slot is not None and ids is slot.ids and dense is slot.dense
+        if not self.replayed:
+            return self.eager_forward(ids, dense)
+        if slot.graph is None:
+            self.replayed = False
+            return self._capture(slot)
+        slot.graph.replay()
+        for kernel, n in self._launches:
+            kernel.launches += n
+        return slot.out
+
+    def _capture(self, first: _Slot) -> torch.Tensor:
+        """Score ``first``'s batch eagerly on a side stream, then capture
+        every slot's forward; returns ``first``'s scores."""
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            scores = self.eager_forward(first.ids, first.dense)
+        cur.wait_stream(side)
+        scores.record_stream(cur)
+        t0 = time.perf_counter()
+        before = [k.launches for k in _FORWARD_KERNELS]
+        for s in self.slots:
+            s.graph = torch.cuda.CUDAGraph()
+            # relaxed: a kernel's entry point may set a function attribute
+            with torch.cuda.graph(s.graph, capture_error_mode="relaxed"):
+                s.out = self.eager_forward(s.ids, s.dense)
+        # a capture launches nothing: put the counts back, and add one
+        # capture's calls at each replay
+        self._launches = tuple((k, (k.launches - b) // self.n)
+                               for k, b in zip(_FORWARD_KERNELS, before) if k.launches != b)
+        for k, b in zip(_FORWARD_KERNELS, before):
+            k.launches = b
+        self.capture_s += time.perf_counter() - t0
+        return scores
+
+
 class ServingEngine:
     """Dispatch loop with a bounded in-flight window.
 
     A batch is scored in two parts, stamped apart: ``copy_in``
     (indices_np, dense_np) -> the forward's operands on the device, then
     ``forward`` (operands) -> device scores tensor.  Built from a
-    FleetRecModel by from_model()."""
+    FleetRecModel by from_model().
+
+    A one-device ``from_model`` engine on a CUDA device keeps
+    ``max_in_flight + 1`` graph slots (``GraphSlots``): a dispatched batch of
+    the served shape, int32 ids and float32 dense, is copied into the next
+    slot and scored by replaying the forward's CUDA graph captured there;
+    any other batch, and every batch of an engine on the CPU, of a sharded
+    engine or of ``mlp_only``, runs the forward eagerly.  ``score_fn`` is
+    always eager: its caller keeps the tensor, which a slot's next replay
+    would overwrite.  ``graph_replays`` and ``eager_forwards`` count the
+    dispatched batches each way, ``graph_capture_s`` the seconds spent
+    capturing, and each ``BatchRecord`` says which way it went (``graph``)."""
 
     def __init__(self, copy_in: Callable, forward: Callable, num_tables: int,
                  dense_dim: int, batch_size: int, max_in_flight: int = 2,
@@ -252,6 +387,10 @@ class ServingEngine:
         self._sharded = None
         self._run: Optional[Callable] = None
         self._followers_live = False
+        # from_model on a CUDA device: the forward replayed from CUDA graphs
+        self._graphs: Optional[GraphSlots] = None
+        self.graph_replays = 0   # dispatched batches scored by a graph's replay
+        self.eager_forwards = 0  # dispatched batches scored by the eager forward
         self.stats = LatencyStats()
         self._in_flight: "queue.Queue" = queue.Queue()
         self._batch_id = 0
@@ -268,9 +407,19 @@ class ServingEngine:
             )
             self._drain_thread.start()
 
+    @property
+    def graph_capture_s(self) -> float:
+        """Seconds spent capturing the forward's CUDA graphs (0.0 without)."""
+        return 0.0 if self._graphs is None else self._graphs.capture_s
+
     def score_fn(self, inputs_np, dense_np):
-        """(indices_np, dense_np) -> device scores: both parts at once."""
-        return self.forward(*self.copy_in(inputs_np, dense_np))
+        """(indices_np, dense_np) -> device scores: both parts at once,
+        eagerly (a graph slot's scores are overwritten by its next replay,
+        and the caller keeps this tensor)."""
+        g = self._graphs
+        copy_in, forward = ((g.eager_copy_in, g.eager_forward) if g is not None
+                            else (self.copy_in, self.forward))
+        return forward(*copy_in(inputs_np, dense_np))
 
     # -- construction ----------------------------------------------------
     @classmethod
@@ -288,7 +437,18 @@ class ServingEngine:
         carry int32 [B, T, L] bag ids (-1 = padding) instead of [B, T], sum-
         pooled, or mean-pooled with ``bag_mean``; fused dispatch reshapes
         [K, B, T, L] to [K*B, T, L].  A config with an interaction head is
-        refused."""
+        refused.
+
+        On a CUDA device the engine keeps ``max_in_flight + 1`` graph slots
+        (``GraphSlots``), each the static ids ([B, T], [K, B, T] fused, with
+        a trailing L for bags; int32) and dense ([B, dense_dim] or
+        [K, B, dense_dim]; float32) of the served shape, the CUDA graph of
+        this forward captured on them, and its static scores.  They are
+        captured in ``warmup``, or at the first dispatched batch of the
+        served shape.  Dispatched batch k of that shape is copied into slot
+        k % (max_in_flight + 1) and scored by one replay: the same kernels
+        on the same inputs, so the same scores to the bit.  Another shape,
+        int64 ids, and ``score_fn`` run the forward eagerly."""
         if bag_L < 0:
             raise ValueError(f"bag_L must be >= 0, got {bag_L}")
         if bag_L:
@@ -314,6 +474,11 @@ class ServingEngine:
                   max_in_flight, background_drain)
         eng.fuse = fuse
         eng.bag_L = bag_L
+        if dev.type == "cuda":
+            ids_shape, dense_shape = eng._served_shapes()
+            eng._graphs = GraphSlots(copy_in, forward, ids_shape, dense_shape,
+                                     max_in_flight + 1, dev)
+            eng.copy_in, eng.forward = eng._graphs.copy_in, eng._graphs.forward
         return eng
 
     @classmethod
@@ -438,18 +603,24 @@ class ServingEngine:
 
         return cls(copy_in, forward, 0, 0, batch_size, max_in_flight, background_drain)
 
+    def _served_shapes(self):
+        """The ids' and the dense features' shapes of one dispatched batch
+        (the dense None without dense features)."""
+        lead = (self.fuse, self.batch_size) if self.fuse > 1 else (self.batch_size,)
+        ids = lead + (self.num_tables,) + ((self.bag_L,) if self.bag_L else ())
+        return ids, (lead + (self.dense_dim,) if self.dense_dim else None)
+
     def warmup(self):
         """Run the scoring path once on dummy data before the first real
-        batch, so that building the kernels (first use) stays out of the
-        latency records.  Index-mode engines only."""
+        batch, so that building the kernels (first use) and capturing the
+        forward's CUDA graphs stay out of the latency records.  Index-mode
+        engines only."""
         if self.num_tables == 0:
             raise ValueError("warmup is for index-mode engines")
-        lead = (self.fuse, self.batch_size) if self.fuse > 1 else (self.batch_size,)
-        shape = lead + (self.num_tables,) + ((self.bag_L,) if self.bag_L else ())
-        idx = np.zeros(shape, np.int32)
-        dense = (np.zeros(lead + (self.dense_dim,), np.float32)
-                 if self.dense_dim else None)
-        _to_np(self.score_fn(idx, dense))  # readback forces completion
+        ids_shape, dense_shape = self._served_shapes()
+        idx = np.zeros(ids_shape, np.int32)
+        dense = None if dense_shape is None else np.zeros(dense_shape, np.float32)
+        _to_np(self.forward(*self.copy_in(idx, dense)))  # readback forces completion
 
     # -- validation (host-side guard against out-of-range ids) -----------
     def validate_indices(self, indices: np.ndarray, row_limits: Sequence[int]):
@@ -522,6 +693,11 @@ class ServingEngine:
                 rec.t_h2d_ns = time.monotonic_ns()
                 scores = self.forward(*operands)
         rec.t_dispatched_ns = mark = time.monotonic_ns()
+        rec.graph = self._graphs is not None and self._graphs.replayed
+        if rec.graph:
+            self.graph_replays += 1
+        else:
+            self.eager_forwards += 1
         self._batch_id += 1
         self._in_flight.put((scores, rec, on_done))
         if self._drain_thread is None:
@@ -706,4 +882,7 @@ class ServingEngine:
             summary["queries_per_sec"] = summary["batches_per_sec"] * fuse * B
         summary["wire_batches"] = n_batches
         summary["fuse"] = fuse
+        summary["graph_replays"] = self.graph_replays
+        summary["eager_forwards"] = self.eager_forwards
+        summary["graph_capture_s"] = self.graph_capture_s
         return summary

@@ -4,7 +4,10 @@ tier at a tiny size, and the benchmark's reading of them
 (``portbench/spans.py``): the seven span readers on hand-made outcomes, the
 profiler's clock mapped onto the monotonic one, the device's idle gaps put
 down to spans, and the records widened without moving the two metrics that
-read their first three columns."""
+read their first three columns.  Besides, a CPU engine scores every batch
+eagerly (no CUDA graph), and says so in its counters and records; the
+graph slots' choice of batches, which needs no card, is checked here too
+(the replays themselves in tests/test_torch_engine_graph.py, on the card)."""
 
 import dataclasses
 import socket
@@ -19,7 +22,7 @@ from fleetrec_tpu_torch import config as C
 from fleetrec_tpu_torch.models import init_model
 from fleetrec_tpu_torch.parallel import ShardedFleetRec, make_mesh
 from fleetrec_tpu_torch.serving import IngestServer, ServingEngine
-from fleetrec_tpu_torch.serving.engine import SPANS, BatchRecord
+from fleetrec_tpu_torch.serving.engine import SPANS, BatchRecord, GraphSlots
 from portbench import loader, spans
 from portbench.serve import Cell, Outcome
 from torch_variants import CPU
@@ -52,7 +55,7 @@ def _span(rec, name):
 def _served(fuse, bg):
     """NB batches of micro_test served through an IngestServer with
     replies to the one sender: (engine, records in batch order, batches,
-    replied scores [NB, B])."""
+    replied scores [NB, B], run_from_ingest's summary)."""
     cfg = C.get_config("micro_test", batch_size=B)
     eng = ServingEngine.from_model(init_model(cfg, device=CPU), batch_size=B,
                                    background_drain=bg, fuse=fuse)
@@ -76,18 +79,19 @@ def _served(fuse, bg):
         th = threading.Thread(target=send, daemon=True)
         th.start()
         try:
-            eng.run_from_ingest(ing, NB, row_limits=[t.rows for t in cfg.tables], reply_to=0)
+            got["summary"] = eng.run_from_ingest(ing, NB, row_limits=[t.rows for t in cfg.tables],
+                                                 reply_to=0)
         finally:
             eng.close()
         th.join(30)
     recs = sorted(eng.stats.records, key=lambda r: r.batch_id)
-    return eng, recs, batches, got["scores"]
+    return eng, recs, batches, got["scores"], got["summary"]
 
 
 @pytest.mark.parametrize("fuse", [1, 2])
 @pytest.mark.parametrize("bg", [False, True], ids=["inline_drain", "background_drain"])
 def test_served_spans_are_ordered_tile_the_loop_and_sum_to_the_latency(fuse, bg):
-    eng, recs, batches, scores = _served(fuse, bg)
+    eng, recs, batches, scores, _summary = _served(fuse, bg)
     assert len(recs) == NB // fuse and scores.shape == (NB, B)
     for k, (i, d) in enumerate(batches):
         np.testing.assert_allclose(scores[k], eng.score_fn(i, d).numpy(), rtol=1e-5, atol=1e-6)
@@ -113,6 +117,52 @@ def test_served_spans_are_ordered_tile_the_loop_and_sum_to_the_latency(fuse, bg)
     assert all(tiles[k + 1][0] == tiles[k][1] for k in range(len(tiles) - 1)), tiles
     assert tiles[0][0] == recs[0].t_acquire_call_ns
     assert tiles[-1][1] >= recs[-1].t_dispatched_ns
+
+
+@pytest.mark.parametrize("fuse", [1, 2])
+@pytest.mark.parametrize("bg", [False, True], ids=["inline_drain", "background_drain"])
+def test_a_cpu_engine_scores_every_batch_eagerly(fuse, bg):
+    eng, recs, batches, scores, summary = _served(fuse, bg)
+    assert eng._graphs is None
+    assert summary["eager_forwards"] == eng.eager_forwards == NB // fuse
+    assert summary["graph_replays"] == eng.graph_replays == 0
+    assert summary["graph_capture_s"] == 0.0
+    assert [r.graph for r in recs] == [False] * (NB // fuse)
+    want = np.concatenate([eng.score_fn(i, d).numpy() for i, d in batches])
+    np.testing.assert_array_equal(scores.reshape(-1), want)
+
+
+def test_graph_slots_take_batches_of_the_served_shape_in_turn():
+    """``GraphSlots.copy_in``: a batch of the served shape (int32 ids,
+    float32 dense) goes into slot k % n; another shape, int64 ids or a
+    missing dense goes to the eager copy, and ``forward`` scores those
+    eagerly."""
+    cfg = C.get_config("micro_test", batch_size=B)
+    eng = ServingEngine.from_model(init_model(cfg, device=CPU), batch_size=B)
+    ids_shape, dense_shape = eng._served_shapes()
+    assert ids_shape == (B, cfg.num_tables) and dense_shape == (B, cfg.dense_dim)
+    g = GraphSlots(eng.copy_in, eng.forward, ids_shape, dense_shape, 3, torch.device("cpu"))
+    rng = np.random.default_rng(4)
+
+    def batch(rows=B):
+        return (np.stack([rng.integers(0, t.rows, rows) for t in cfg.tables], 1).astype(np.int32),
+                rng.uniform(-1, 1, (rows, cfg.dense_dim)).astype(np.float32))
+
+    taken = []
+    for _ in range(7):
+        i, d = batch()
+        ops = g.copy_in(i, d)
+        np.testing.assert_array_equal(ops[0].numpy(), i)
+        taken.append(next(k for k, s in enumerate(g.slots) if s.ids is ops[0] and s.dense is ops[1]))
+    assert taken == [0, 1, 2, 0, 1, 2, 0]
+    i, d = batch()
+    assert not g.fits(i, None) and g.copy_in(i, None)[1] is None
+    for other in [batch(B // 2), (i.astype(np.int64), d), (i, d.astype(np.float64))]:
+        ops = g.copy_in(*other)
+        assert all(ops[0] is not s.ids for s in g.slots)
+        np.testing.assert_array_equal(g.forward(*ops).numpy(), eng.score_fn(*other).numpy())
+        assert not g.replayed
+    assert g._batches == 7
 
 
 def test_a_batch_submitted_directly_has_no_ring_stamps():

@@ -15,9 +15,10 @@ One thread a sender and one reading the replies of sender 0 (one float32
 score a query, a batch at a time, in order).  The traffic is ``stream``:
 every sender sends its next batch as soon as its socket takes it.  The
 window opens when the reply of the last warm-up batch arrives and lasts
-``seconds``; then, after ``tail_s`` more (a traced run's, in which the
-profiler may need a second stretch), the senders finish the batches any of
-them started and stop.
+``seconds``; then, after ``tail_s`` more (a profiled run's, in which the
+profiler may need a second stretch), or as soon as the parent writes
+``stop`` on standard input past the window's close, the senders finish the
+batches any of them started and stop.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import socket
 import sys
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -40,14 +42,15 @@ REPLY_WAIT_S = 60.0  # how long a reply may be late past the window's close
 
 
 class Run:
-    def __init__(self, spec: dict):
+    def __init__(self, spec: dict, stop_fd: Optional[int] = None):
         self.spec = spec
+        self.stop_fd = stop_fd
         t = spec["traffic"]
         self.B = spec["batch"]
         self.warm = t["warmup_batches"]
         self.seconds = spec["seconds"]
         P = t["pool_batches"]
-        ids = inputs.id_pool(spec["seed"], spec["rows"], self.B, P)
+        ids = inputs.id_pool(spec["seed"], spec["rows"], self.B, P, spec.get("hot"))
         dense = inputs.dense_pool(spec["seed"], spec["dense_dim"], self.B, P)
         self.pay = [inputs.payloads(ids[p], dense[p], spec["wire"]) for p in range(P)]
         self.S = len(spec["wire"])
@@ -134,8 +137,7 @@ class Run:
         else:
             self.t_open = self.recv_ns[self.warm - 1]
             self.t_close = self.t_open + int(self.seconds * 1e9)
-            t_end = self.t_close + int(self.spec.get("tail_s", 0.0) * 1e9)
-            time.sleep(max(0.0, (t_end - time.monotonic_ns()) / 1e9))
+            self.wait_until(self.t_close + int(self.spec.get("tail_s", 0.0) * 1e9))
             with self.lock:
                 self.limit, self.stopped = max(self.next_j), True
         for t in threads:
@@ -143,6 +145,17 @@ class Run:
         reader.join()
         for sk in socks:
             sk.close()
+
+    def wait_until(self, t_end: int):
+        """Sleep until ``t_end`` (monotonic ns), or until ``stop`` comes
+        on ``stop_fd`` (or it closes), but not past the window's close."""
+        while (left := t_end - time.monotonic_ns()) > 0:
+            if self.stop_fd is None:
+                time.sleep(left / 1e9)
+                continue
+            if select.select([self.stop_fd], [], [], left / 1e9)[0]:
+                os.read(self.stop_fd, 64)  # "stop", or b"" once the parent is gone
+                self.stop_fd, t_end = None, self.t_close
 
     def result(self) -> tuple:
         head = {"warm": self.warm, "n_sent": min(self.n_sent), "n_recv": len(self.recv_ns),
@@ -155,7 +168,7 @@ class Run:
 
 def main() -> int:
     spec = json.loads(sys.stdin.readline())
-    run = Run(spec)
+    run = Run(spec, stop_fd=sys.stdin.fileno())
     print("ready", flush=True)
     go = json.loads(sys.stdin.readline())
     try:

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """The control of the comparison that decides ``correct``: the plain
 reference put in the program's place one precision below the
-configuration's (a float32 tower with TF32 operands, a bfloat16 tower with
-fp8 e4m3 operands; ``reference.tower_control``), read by the same number
+configuration's (every product of the head on TF32 operands for a float32
+configuration, on fp8 e4m3 operands for a bfloat16 one, float32 sums;
+``reference.head(control=True)``), read by the same number
 a run compares (``reference.max_err`` over every pool entry of the cell)
 against the reference at the configuration's precision:
 
@@ -32,9 +33,8 @@ def reading(cell, seed: int, device, pool=None, batch=None) -> float:
     P = pool or cell.traffic["pool_batches"]
     B = batch or cell.serve["batch"]
     m = cell.model
-    ids = inputs.id_pool(seed, [t["rows"] for t in m["tables"]], B, P)
-    dense = inputs.dense_pool(seed, m["dense_dim"], B, P)
-    w = tables.tower_weights(seed, m["mlp"], tables.STORAGE_DTYPES[m["dtype"]], device)
+    ids, dense = inputs.pools(seed, m, B, P)
+    w = tables.head_weights(seed, m, device)
     key = tables.seed_key(seed)
     ref = reference.pool_scores(m, key, ids, dense, w)
     ctl = reference.pool_scores(m, key, ids, dense, w, control=True)

@@ -67,6 +67,12 @@ def metrics(cell_name: str, trace: bool, root: str = ROOT) -> List[dict]:
     return [m for m in group if reports(m, cell_name, bench)]
 
 
+def needs_trace(cell_name: str, root: str = ROOT) -> bool:
+    """Whether an end-to-end metric of ``cell_name`` reads the device's
+    trace, so that its untraced runs profile a stretch too."""
+    return any(m["source"] == "device_trace" for m in metrics(cell_name, False, root))
+
+
 def reader(name: str, bench_dir: str = HERE):
     """The ``read`` function of ``metrics/<name>.py``."""
     path = os.path.join(bench_dir, "metrics", f"{name}.py")

@@ -1,12 +1,22 @@
 """The system under test, built from a configuration file: the port's
-``ModelConfig`` from the file's sizes, its packed tables made on the device
-by the port's ``pack_pm1_sharded`` and then overwritten with the harness's
-seeded values (``tables.py``) through the layout the port exposes
+``ModelConfig`` from the file's sizes and head, its packed tables made on
+the device by the port's ``pack_pm1_sharded`` and then overwritten with the
+harness's seeded values (``tables.py``) through the layout the port exposes
 (``biginit.take_segments``, the class buffers, the int8 scales), and the
-tower's weights from the seed.  Nothing here is read back by the reference.
+head's weights from the seed (``tables.head_weights``).  Nothing here is
+read back by the reference.
+
+What the port has no field or argument for is not handed to it, and the
+comparison with the reference (which follows the configuration) decides:
+the bottom tower's ``last_activation`` reaches ``MLPSpec`` only where the
+port's ``MLPSpec`` has that field, and the towers' biases reach
+``FleetRecModel`` only where it takes ``mlp_bias`` and ``bottom_bias``.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import inspect
 
 import torch
 
@@ -16,26 +26,43 @@ from . import tables as tb
 def port_config(name: str, model: dict, serve: dict):
     """The port's ModelConfig of a configuration file's ``model``,
     ``storage`` and ``serve`` blocks (config-order tables, table id =
-    column)."""
+    column; the head's keys as ``README.md`` lists them)."""
     from fleetrec_tpu_torch.config import MLPSpec, ModelConfig, TableSpec
 
-    w = model["mlp"]
+    bias = bool(model.get("bias"))
+
+    def spec(w, activation, **extra):
+        known = {f.name for f in dataclasses.fields(MLPSpec)}
+        return MLPSpec(input_dim=w[0], hidden=tuple(w[1:-1]), out_dim=w[-1],
+                       activation=activation, use_bias=bias,
+                       **{k: v for k, v in extra.items() if k in known})
+
+    bottom = model.get("bottom_mlp")
+    interaction = model.get("interaction", "none")
     cfg = ModelConfig(
         name=name,
         tables=tuple(TableSpec(table_id=i, rows=t["rows"], dim=t["dim"],
                                out_offset=t["out_offset"])
                      for i, t in enumerate(model["tables"])),
-        mlp=MLPSpec(input_dim=w[0], hidden=tuple(w[1:-1]), out_dim=w[-1],
-                    activation=model.get("activation")),
+        mlp=spec(model["mlp"], model.get("activation")),
         dense_dim=model["dense_dim"],
         batch_size=serve["batch"],
         dtype=model["dtype"],
         table_dtype=model["table_dtype"],
+        interaction=interaction,
+        bottom_mlp=(spec(bottom["widths"], bottom.get("activation"),
+                         last_activation=bool(bottom.get("last_activation")))
+                    if bottom else None),
+        cross_layers=model.get("cross_layers", 0),
+        cross_rank=model.get("cross_rank", 0),
         **model["storage"],
     )
     cfg.validate()
-    if cfg.qr_rem or cfg.interaction != "none" or cfg.feature_dim != model["feature_dim"]:
-        raise ValueError(f"{name}: the harness serves tower-only configs without QR tables")
+    if cfg.qr_rem:
+        raise ValueError(f"{name}: the harness serves configs without QR tables")
+    if interaction != "dot" and cfg.feature_dim != model["feature_dim"]:
+        raise ValueError(f"{name}: the top tower's input {cfg.feature_dim} is not the "
+                         f"feature vector's {model['feature_dim']}")
     return cfg
 
 
@@ -98,16 +125,15 @@ def build_packed(cfg, plan, seed: int, device):
     return packed
 
 
-def weights(cfg, seed: int, device):
-    from fleetrec_tpu_torch.models.embedding import TORCH_DTYPES
-
-    return tb.tower_weights(seed, cfg.mlp.widths, TORCH_DTYPES[cfg.dtype], device)
-
-
-def build_model(cfg, seed: int, device):
-    """A FleetRecModel on ``device``: tables and weights from ``seed``."""
+def build_model(cfg, model: dict, seed: int, device):
+    """A FleetRecModel on ``device`` of the configuration's ``model``
+    block: tables and weights from ``seed`` (``tables.head_weights``; the
+    cross layers [W, b] or [U, V, b] a layer, the port's format)."""
     from fleetrec_tpu_torch.models import FleetRecModel, ModelPlan
 
     plan = ModelPlan.create(cfg)
     packed = build_packed(cfg, plan, seed, device)
-    return FleetRecModel(plan, packed, weights(cfg, seed, device))
+    w = tb.head_weights(seed, model, device)
+    takes = inspect.signature(FleetRecModel).parameters
+    biases = {k: w[k] for k in ("mlp_bias", "bottom_bias") if w[k] and k in takes}
+    return FleetRecModel(plan, packed, w["mlp"], bottom=w["bottom"], cross=w["cross"], **biases)

@@ -44,6 +44,11 @@ def per_call_s(tr, pattern: str, calls: Optional[int] = None) -> Optional[float]
     return tr.seconds(pattern) / n if n and tr.count(pattern) else None
 
 
+def stretch_queries(tr, batch: int) -> int:
+    """Queries scored in a trace's stretch: one score readback a batch."""
+    return tr.count(READBACK) * batch
+
+
 def idle_percent(out) -> Optional[float]:
     tr = trace_of(out)
     return None if tr is None else 100.0 * (1.0 - tr.busy_ns / (tr.end - tr.start))
@@ -52,7 +57,7 @@ def idle_percent(out) -> Optional[float]:
 def window_lookup_bytes(out) -> float:
     """The mean of ``yardstick.lookup_bytes`` over the window's batches."""
     m, P = out.cell.model, out.cell.traffic["pool_batches"]
-    ids = inputs.id_pool(out.seed, [t["rows"] for t in m["tables"]], out.batch, P)
+    ids = inputs.pools(out.seed, m, out.batch, P)[0]
     per = np.asarray([yardstick.lookup_bytes(m, ids[p]) for p in range(P)], np.float64)
     j = out.window()
     return float(per[j % P].mean()) if len(j) else float(per.mean())

@@ -10,10 +10,13 @@ cards as the cell asks for), drives it with the cell's traffic for
 ``--seconds`` after its warm-up, compares every score it replied with the
 plain reference, and prints one JSON object as its last line of standard
 output: the cell's end-to-end metrics (``--trace 0``) or its per-layer
-metrics from a profiled stretch of the window (``--trace 1``), the device,
+metrics (``--trace 1``), the device,
 and the numbers compared with their limits (``checks``, also the last lines
 of standard error).  Exits nonzero, printing no result, without enough CUDA
 devices, or when JAX or the JAX package was loaded.
+
+A stretch at the window's end is profiled in every traced run, and in the
+untraced runs of a cell whose end-to-end metrics read the device's trace.
 """
 
 from __future__ import annotations
@@ -81,8 +84,9 @@ def main(argv=None) -> int:
     if split is not None:  # the server off the senders' cores
         os.sched_setaffinity(0, split[0])
     gc_watch = serve.GcWatch()
-    out = serve.run_single(cell, args.seed, args.seconds, bool(args.trace), t_start, stamps=stamps,
-              client_cores=None if split is None else split[1])
+    profile = bool(args.trace) or loader.needs_trace(args.workload)
+    out = serve.run_single(cell, args.seed, args.seconds, profile, t_start, stamps=stamps,
+                           client_cores=None if split is None else split[1])
 
     metrics = {}
     for m in loader.metrics(args.workload, bool(args.trace)):
@@ -112,6 +116,7 @@ def main(argv=None) -> int:
           f"window {len(out.window())}; setup {out.setup_s:.3f} s: "
           f"{out.setup_phases(t_start)}", file=sys.stderr)
     print(gc_watch.line(out.head["t_open_ns"], out.head["t_close_ns"]), file=sys.stderr)
+    print(f"after the window's close: {out.after_phases()}", file=sys.stderr)
     for line in serve.diagnostics(out):
         print(line, file=sys.stderr)
     for e in out.errors + h["errors"]:

@@ -25,15 +25,17 @@ from typing import Callable, List, Optional
 import numpy as np
 
 from . import inputs, reference, tables
+from .readers import READBACK
 from .trace import StretchProfiler, breakdown, profile_for, summarize
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 STREAM_BATCHES = 1 << 40  # a back-to-back run's count: it ends by the ring's timeout
 PROFILE_SPAN_S = 4.0      # the profiled stretch: at most this long, ending at the
 PROFILE_SHARE = 0.2       # window's close, at most this share of the window
-TRACE_TAIL_S = 12.0       # a traced run's senders go on this long past the window's
-                          # close, so that a stretch CUPTI recorded without its
-                          # kernels can be profiled again (trace.StretchProfiler)
+TRACE_TAIL_S = 12.0       # a profiled run's senders go on at most this long past the
+                          # window's close, so that a stretch CUPTI recorded without
+                          # its kernels can be profiled again (trace.StretchProfiler);
+                          # they stop once the profiler is done (Client.stop)
 WARM_PROFILES = 3         # profiler warm-ups tried until one records a kernel
 
 
@@ -66,6 +68,7 @@ class Outcome:
     stamps: Optional[dict] = None  # set-up phases: name -> monotonic ns at its end
     check_s: float = 0.0
     profiled: Optional[str] = None  # the profiler's sessions, for standard error
+    after: Optional[dict] = None    # phases after the window: name -> monotonic ns at its end
 
     def setup_phases(self, t_start: int) -> str:
         """The set-up's phases in seconds, in order."""
@@ -73,6 +76,14 @@ class Outcome:
         marks.append(("senders warm, window open", self.head["t_open_ns"]))
         out, prev = [], t_start
         for name, t in marks:
+            out.append(f"{name} {(t - prev) / 1e9:.3f}")
+            prev = t
+        return ", ".join(out)
+
+    def after_phases(self) -> str:
+        """The phases after the window's close in seconds, in order."""
+        out, prev = [], self.head["t_close_ns"]
+        for name, t in sorted((self.after or {}).items(), key=lambda kv: kv[1]):
             out.append(f"{name} {(t - prev) / 1e9:.3f}")
             prev = t
         return ", ".join(out)
@@ -144,19 +155,41 @@ def process_start_ns() -> int:
     return time.monotonic_ns() - int(since * 1e9)
 
 
-def wire_of(cfg, serve: dict):
-    """(IndexWireFormat or None, bytes a sender, the client's wire)."""
+def wire_of(cfg, serve: dict, hot):
+    """(IndexWireFormat or None, bytes a sender, the client's wire).  One
+    sender sends a query's ids as ``inputs.py`` lays them out ([B,
+    sum(hot)] int32), then its dense features; several senders split the
+    tables by the port's ``IndexWireFormat`` (single ids only)."""
     from fleetrec_tpu_torch.serving import IndexWireFormat
 
     B, S, T, D = serve["batch"], serve["senders"], cfg.num_tables, cfg.dense_dim
+    n_ids = sum(hot)
     if S > 1:
+        if n_ids != T:
+            raise ValueError(f"bags (hot {list(hot)}) on {S} senders: the port's "
+                             f"IndexWireFormat splits single ids only")
         wire = IndexWireFormat.plan(cfg, B, S)
         segs, c = ([[("dense",)]] if wire.dense_dim else []), 0
         for n in wire.table_splits:
             segs.append([("ids", c, c + n)])
             c += n
         return wire, wire.bytes_per_sender(), segs
-    return None, [B * (T + D) * 4], [[("ids", 0, T)] + ([("dense",)] if D else [])]
+    return None, [B * (n_ids + D) * 4], [[("ids", 0, n_ids)] + ([("dense",)] if D else [])]
+
+
+def bag_fields(hot, spec_fields) -> dict:
+    """``ServeSpec``'s bag fields for a configuration's ``hot``: none for
+    single ids; ``bag_sizes`` where the port's ServeSpec has that field
+    (``spec_fields``), else ``bag_L`` for bags of one size.  Ragged bags
+    that the port cannot take raise."""
+    if all(h == 1 for h in hot):
+        return {}
+    if "bag_sizes" in spec_fields:
+        return {"bag_sizes": tuple(hot)}
+    if len(set(hot)) == 1:
+        return {"bag_L": hot[0]}
+    raise ValueError(f"ragged bags (hot {list(hot)}): the port's ServeSpec has no "
+                     f"bag_sizes, and its bag_L serves bags of one size only")
 
 
 class Client:
@@ -167,6 +200,7 @@ class Client:
         self.tail_s = tail_s
         spec = {"seed": seed, "batch": cell.serve["batch"], "seconds": seconds, "tail_s": tail_s,
                 "rows": [t["rows"] for t in cell.model["tables"]],
+                "hot": inputs.hot_of(cell.model),
                 "dense_dim": cell.model["dense_dim"], "wire": wire, "traffic": cell.traffic}
         self.proc = subprocess.Popen([sys.executable, os.path.join(HERE, "client.py")],
                                      stdin=subprocess.PIPE, stdout=subprocess.PIPE)
@@ -187,6 +221,15 @@ class Client:
         self.proc.wait(timeout=60)
         head = json.loads(buf.readline())
         return head, [np.load(buf) for _ in range(2)]
+
+    def stop(self):
+        """Tell the load generator that the traffic's tail is not needed
+        (it stops no earlier than the window's close)."""
+        try:
+            self.proc.stdin.write(b"stop\n")
+            self.proc.stdin.flush()
+        except (OSError, ValueError):
+            pass
 
     def kill(self):
         if self.proc.poll() is None:
@@ -233,14 +276,16 @@ def serve_window(eng, cfg, cell: Cell, client: Client, seconds: float, trace: bo
     until the traffic ends.  Returns the StretchProfiler (or None)."""
     if cell.traffic["kind"] != "stream":
         raise ValueError(f"{cell.name}: traffic kind {cell.traffic['kind']!r} is not 'stream'")
+    t_warm = now()
     warm = warm_profiler() if trace else None
-    wire, nbytes, _ = wire_of(cfg, cell.serve)
+    warm_s = (now() - t_warm) / 1e9
+    wire, nbytes, _ = wire_of(cfg, cell.serve, inputs.hot_of(cell.model))
     prof = None
     with open_ingest(nbytes, cell.serve["slots"]) as ing:
         client.go(ing.port_base)
         if trace:
             stretch = Stretch(eng, cell.traffic["warmup_batches"], seconds, client.tail_s)
-            prof = StretchProfiler(stretch.times, lambda: stretch.done)
+            prof = StretchProfiler(stretch.times, lambda: stretch.done, on_end=client.stop)
         try:
             eng.run_from_ingest(ing, STREAM_BATCHES, wire=wire,
                                 row_limits=[t.rows for t in cfg.tables], reply_to=0,
@@ -253,7 +298,7 @@ def serve_window(eng, cfg, cell: Cell, client: Client, seconds: float, trace: bo
             eng.close()
     if prof is not None:
         prof.join()
-        prof.warm = warm
+        prof.warm, prof.warm_s = warm, warm_s
     return prof
 
 
@@ -292,10 +337,8 @@ def check(out: Outcome, seed: int, device) -> None:
     t0 = now()
     cell = out.cell
     P = cell.traffic["pool_batches"]
-    ids = inputs.id_pool(seed, [t["rows"] for t in cell.model["tables"]], out.batch, P)
-    dense = inputs.dense_pool(seed, cell.model["dense_dim"], out.batch, P)
-    dtype = tables.STORAGE_DTYPES[cell.model["dtype"]]
-    w = tables.tower_weights(seed, cell.model["mlp"], dtype, device)
+    ids, dense = inputs.pools(seed, cell.model, out.batch, P)
+    w = tables.head_weights(seed, cell.model, device)
     ref = reference.pool_scores(cell.model, tables.seed_key(seed), ids, dense, w)
     del w
     if str(device).startswith("cuda"):
@@ -327,25 +370,30 @@ def run_single(cell: Cell, seed: int, seconds: float, trace: bool, t_start: int,
     if patch is not None:
         patch()
     cfg = port_config(cell.config, cell.model, cell.serve)
-    client = Client(cell, seed, seconds, wire_of(cfg, cell.serve)[2], client_cores,
+    hot = inputs.hot_of(cell.model)
+    bags = bag_fields(hot, {f.name for f in dataclasses.fields(ServeSpec)})
+    client = Client(cell, seed, seconds, wire_of(cfg, cell.serve, hot)[2], client_cores,
                     tail_s=TRACE_TAIL_S if trace else 0.0)
     stamps = dict(stamps or {})
     stamps["the port imported, the load generator started"] = now()
     try:
         dev = torch.device(device)
-        model = build_model(cfg, seed, dev)
+        model = build_model(cfg, cell.model, seed, dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         stamps["tables and weights on the device"] = time.monotonic_ns()
         sv = cell.serve
         spec = ServeSpec(batch=sv["batch"], batches=0, slots=sv["slots"], senders=sv["senders"],
-                         fuse=sv["fuse"], bg_drain=sv["bg_drain"], reply=True, warm=sv["warm"])
+                         fuse=sv["fuse"], bg_drain=sv["bg_drain"], reply=True, warm=sv["warm"],
+                         **bags)
         eng = build_engine(model, spec)
         if spec.warm:
             eng.warmup()
         stamps["engine warm-up (kernels loaded)"] = time.monotonic_ns()
         prof = serve_window(eng, cfg, cell, client, seconds, trace)
+        after = {"traffic ended, the profiled stretch reduced": now()}
         head, (recv, replies) = client.result()
+        after["the load generator's replies read"] = now()
     finally:
         client.kill()
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
@@ -354,16 +402,22 @@ def run_single(cell: Cell, seed: int, seconds: float, trace: bool, t_start: int,
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    after["the program's state freed"] = now()
     errors = [] if prof is None or prof.error is None else [f"profiler: {prof.error}"]
     if prof is not None and (prof.trace is None or not prof.trace.kernels):
         errors.append("profiler: no kernel in any profiled stretch")
+    # the profiler's warm-up (CUPTI's first session, ~10 s on the card) is
+    # the harness's instrument, not the system's set-up: left out of setup_s
+    warm_s = 0.0 if prof is None else prof.warm_s
     out = Outcome(cell, seconds, head, recv, replies, records,
-                  (head["t_open_ns"] - t_start) / 1e9, peak,
-                  None if prof is None else prof.trace, errors, seed, stamps=stamps)
+                  (head["t_open_ns"] - t_start) / 1e9 - warm_s, peak,
+                  None if prof is None else prof.trace, errors, seed, stamps=stamps, after=after)
     if prof is not None:
-        out.profiled = (f"profiler: warm-up sessions' kernels {prof.warm}; stretches' "
+        out.profiled = (f"profiler: warm-up {warm_s:.3f} s (not in setup_s), its sessions' "
+                        f"kernels {prof.warm}; stretches' "
                         f"(device operations, kernels) {prof.attempts}")
     check(out, seed, dev)
+    out.after["the reference's check"] = now()
     return out
 
 
@@ -384,6 +438,12 @@ def diagnostics(out: Outcome) -> List[str]:
             lines.append(f"{name} ms: p50 {np.median(d):.4f}, p95 {np.percentile(d, 95):.4f}")
     if out.profiled is not None:
         lines.append(out.profiled)
+    if out.trace is not None and out.trace.count(READBACK):
+        n = out.trace.count(READBACK)
+        ops = breakdown(out.trace)["device_ops"]
+        lines.append(f"the stretch: {n} score readbacks, device busy {out.trace.busy_s:.6f} s of "
+                     f"{out.trace.window_s:.6f}; device ms a batch by operation: "
+                     + ", ".join(f"{k} {v * 1e3 / n:.5f}" for k, v in ops))
     lines.append(f"the comparison with the reference took {out.check_s:.3f} s")
     return lines
 

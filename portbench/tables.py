@@ -16,12 +16,16 @@ sub-row or a wrong column reads other values.
 
 The tower's weights come from a ``torch.Generator`` on the device, one
 ``rand`` a layer, uniform in +-sqrt(3 / fan_in) so that activations of the
-bias-free linear chain stay of order one.
+bias-free linear chain stay of order one.  The other weights a head may
+state (``head_weights``: the bottom tower's, the cross layers' and the
+towers' biases) each come from a generator of their own, seeded by the
+seed in a namespace of their own, so that adding a head leaves the top
+tower's weights as they are.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import torch
 
@@ -100,15 +104,88 @@ def values(key: int, tables: torch.Tensor, rows: torch.Tensor, dim: int,
 STORAGE_DTYPES = {"int8": torch.int8, "bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+# generator namespaces: the top tower (``tower_weights``), the bottom tower,
+# the cross layers and the two towers' biases
+_NS_TOWER, _NS_BOTTOM, _NS_CROSS, _NS_BIAS, _NS_BOTTOM_BIAS = 0x70E7, 0xB077, 0xC205, 0xB1A5, 0xB1A6
+
+
+def _generator(seed: int, namespace: int, dev: torch.device) -> torch.Generator:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(splitmix64(int(seed) ^ namespace) & 0x7FFFFFFFFFFFFFFF)
+    return gen
+
+
+def _uniform(gen: torch.Generator, shape, half: float, dtype: torch.dtype,
+             dev: torch.device) -> torch.Tensor:
+    """Uniform in +-``half``, drawn in float32 and cast to ``dtype``."""
+    w = torch.rand(shape, generator=gen, device=dev, dtype=torch.float32)
+    return ((w * 2 - 1) * half).to(dtype)
+
+
+def _tower(seed: int, namespace: int, widths: Sequence[int], dtype: torch.dtype,
+           device) -> List[torch.Tensor]:
+    dev = torch.device(device)
+    gen = _generator(seed, namespace, dev)
+    return [_uniform(gen, (a, b), (3.0 / a) ** 0.5, dtype, dev)
+            for a, b in zip(widths[:-1], widths[1:])]
+
+
 def tower_weights(seed: int, widths: Sequence[int], dtype: torch.dtype,
                   device) -> List[torch.Tensor]:
     """Weights [in, out] a layer in ``dtype`` on ``device``, from a
     generator on that device seeded by ``seed``."""
+    return _tower(seed, _NS_TOWER, widths, dtype, device)
+
+
+def bottom_weights(seed: int, widths: Sequence[int], dtype: torch.dtype,
+                   device) -> List[torch.Tensor]:
+    """The bottom tower's weights [in, out] a layer, as ``tower_weights``
+    in a namespace of their own."""
+    return _tower(seed, _NS_BOTTOM, widths, dtype, device)
+
+
+def tower_biases(seed: int, widths: Sequence[int], dtype: torch.dtype, device,
+                 bottom: bool = False) -> List[torch.Tensor]:
+    """Biases [out] a layer of the top tower (or the bottom tower), uniform
+    in +-1 / sqrt(fan_in)."""
     dev = torch.device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(splitmix64(int(seed) ^ 0x70E7) & 0x7FFFFFFFFFFFFFFF)
-    out = []
-    for a, b in zip(widths[:-1], widths[1:]):
-        w = torch.rand((a, b), generator=gen, device=dev, dtype=torch.float32)
-        out.append(((w * 2 - 1) * (3.0 / a) ** 0.5).to(dtype))
+    gen = _generator(seed, _NS_BOTTOM_BIAS if bottom else _NS_BIAS, dev)
+    return [_uniform(gen, (b,), a ** -0.5, dtype, dev) for a, b in zip(widths[:-1], widths[1:])]
+
+
+def cross_weights(seed: int, width: int, layers: int, rank: int, dtype: torch.dtype,
+                  device) -> List[List[torch.Tensor]]:
+    """The cross layers' weights a layer: [W [F, F], b [F]] at full rank
+    (``rank`` 0), else [U [F, r], V [r, F], b [F]]; every factor uniform
+    in +-sqrt(3 / its input width), so that x_l U V stays of the order of
+    x_l, and b in +-1 / sqrt(F)."""
+    dev = torch.device(device)
+    gen = _generator(seed, _NS_CROSS, dev)
+    F, out = width, []
+    for _ in range(layers):
+        shapes = [(F, F)] if rank == 0 else [(F, rank), (rank, F)]
+        mats = [_uniform(gen, s, (3.0 / s[0]) ** 0.5, dtype, dev) for s in shapes]
+        out.append(mats + [_uniform(gen, (F,), F ** -0.5, dtype, dev)])
     return out
+
+
+def head_weights(seed: int, model: dict, device) -> Dict[str, list]:
+    """Every weight that a configuration's ``model`` block states, in its
+    compute dtype: ``mlp`` (the top tower), ``bottom``, ``cross`` (a list a
+    layer), ``mlp_bias`` and ``bottom_bias`` (empty lists for what the
+    configuration does not state).  The one source of weights of the
+    program, the reference and the control."""
+    dtype = STORAGE_DTYPES[model["dtype"]]
+    bottom = model.get("bottom_mlp")
+    bias = bool(model.get("bias"))
+    w = {"mlp": tower_weights(seed, model["mlp"], dtype, device),
+         "bottom": bottom_weights(seed, bottom["widths"], dtype, device) if bottom else [],
+         "cross": [], "mlp_bias": [], "bottom_bias": []}
+    if model.get("interaction", "none") == "cross":
+        w["cross"] = cross_weights(seed, model["feature_dim"], model["cross_layers"],
+                                   model.get("cross_rank", 0), dtype, device)
+    if bias:
+        w["mlp_bias"] = tower_biases(seed, model["mlp"], dtype, device)
+        if bottom:
+            w["bottom_bias"] = tower_biases(seed, bottom["widths"], dtype, device, bottom=True)
+    return w

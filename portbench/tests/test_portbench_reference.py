@@ -61,7 +61,7 @@ def test_program_tables_hold_the_reference_values(kw):
 
     c = tiny.cell(**kw)
     cfg = port_config("tiny", c.model, c.serve)
-    model = build_model(cfg, SEED, torch.device("cpu"))
+    model = build_model(cfg, c.model, SEED, torch.device("cpu"))
     rng = np.random.default_rng(1)
     ids = np.stack([rng.integers(0, t["rows"], 64) for t in c.model["tables"]], 1)
     for t, spec in enumerate(c.model["tables"]):  # every table's first and last rows

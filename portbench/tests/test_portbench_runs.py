@@ -27,7 +27,7 @@ def test_sound_run_is_correct(senders):
     assert out.checks["max_err"]["value"] < 1e-5
     assert len(out.window()) > 0
     assert out.setup_s > 0
-    assert loader.reader("qps")(out) > 0
+    assert loader.reader("qps.stream")(out) > 0
     assert loader.reader("to_submit_ms.stream")(out) > 0
 
 

@@ -4,6 +4,7 @@ the trace's kernels are told from its copies and fills."""
 
 from __future__ import annotations
 
+import threading
 import time
 
 import pytest
@@ -86,3 +87,39 @@ def test_the_last_trace_stands_where_no_stretch_holds_a_kernel():
     p = run(sessions(COPIES, COPIES, COPIES, COPIES), span=0.1, tail=0.35)
     assert p.attempts == [(2, 0)] * 3
     assert p.trace is not None and p.trace.kernels == 0
+
+
+def test_the_load_generators_tail_ends_at_stop_but_not_before_the_close():
+    import os
+
+    from portbench.client import Run
+
+    r, w = os.pipe()
+    try:
+        run = Run.__new__(Run)
+        t0 = time.monotonic_ns()
+        run.stop_fd, run.t_close = r, t0 + 300_000_000
+        os.write(w, b"stop\n")
+        run.wait_until(t0 + 10_000_000_000)  # a 10 s tail
+        waited = (time.monotonic_ns() - t0) / 1e9
+        assert 0.3 <= waited < 2.0
+        run.stop_fd, run.t_close = r, time.monotonic_ns()
+        t1 = time.monotonic()
+        threading.Timer(0.2, lambda: os.write(w, b"stop\n")).start()
+        run.wait_until(time.monotonic_ns() + 10_000_000_000)
+        assert 0.2 <= time.monotonic() - t1 < 2.0
+    finally:
+        os.close(r)
+        os.close(w)
+
+
+def test_the_profiler_calls_on_end_whichever_way_it_ends():
+    ended = []
+    t0 = time.monotonic()
+    p = StretchProfiler(lambda: (t0, t0 + 0.05, t0 + 0.05), lambda: False,
+                        profile=sessions([Event("Memcpy HtoD", 0, 1)]), on_end=lambda: ended.append(1))
+    p.join(10.0)
+    assert ended == [1]
+    p = StretchProfiler(lambda: None, lambda: True, on_end=lambda: ended.append(2))
+    p.join(10.0)
+    assert ended == [1, 2]

@@ -12,7 +12,7 @@ runtime calls the host was in during each gap.
 CUPTI now and then hands back a session's copies without any of its
 kernels.  Such a trace is no reading of the kernels, so the profiler then
 profiles another stretch of the same length, as long as the traffic still
-runs (a traced run's senders go on past the window for that).
+runs (a profiled run's senders go on past the window for that).
 """
 
 from __future__ import annotations
@@ -153,13 +153,16 @@ class StretchProfiler:
     whose trace holds no kernel is profiled again, for as long, right
     after, while the next one can stop by ``last``.  ``attempts`` lists
     each stretch's (device operations, kernels); ``trace`` is the first
-    with a kernel, else the last."""
+    with a kernel, else the last.  ``on_end`` is called when the thread is
+    done, whichever way."""
 
     def __init__(self, times: Callable[[], Optional[Tuple[float, float, float]]],
-                 give_up: Callable[[], bool], profile: Callable = profile_for):
+                 give_up: Callable[[], bool], profile: Callable = profile_for,
+                 on_end: Optional[Callable[[], None]] = None):
         self._times = times
         self._give_up = give_up
         self._profile = profile
+        self._on_end = on_end
         self.trace: Optional[Trace] = None
         self.error: Optional[str] = None
         self.attempts: List[Tuple[int, int]] = []
@@ -188,6 +191,9 @@ class StretchProfiler:
                     return
         except Exception as e:  # noqa: BLE001 - reported beside the run's result
             self.error = repr(e)
+        finally:
+            if self._on_end is not None:
+                self._on_end()
 
     def join(self, timeout: float = 120.0):
         self._thread.join(timeout)

@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch + CUDA port (``fleetrec_tpu_torch``) on one
 NVIDIA GPU (written for the H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase
+    python3 chip_smoke.py --phase 17  # the build and phase 17 alone
 
 Builds the port's CUDA kernels from the sources in this checkout (and
 prints the seconds the build took) and runs, on cuda:0, with TF32 off:
@@ -244,9 +245,31 @@ prints the seconds the build took) and runs, on cuda:0, with TF32 off:
    GB, pieces past 4 GiB of offset) and restored on the card, every array
    bit-equal (its take rows holding the index pattern), the restored
    forward bit-equal to the saved model's and, the take rows written back
-   as pm1, to the oracle; save and load seconds and GB/s.
+   as pm1, to the oracle; save and load seconds and GB/s;
+17. MLPerf DLRM-DCNv2 at full rows (``dcnv2_rank``, after phase 16, in a
+   process of its own): the configuration of the benchmark's cell
+   ``dcnv2_bf16.b2048.stream`` (26 bf16 tables, 204,184,588 rows x 128,
+   52.27 GB; 214-id ragged bags; the bottom tower 13-512-256-128 with its
+   last ReLU; 3 cross layers of rank 512 over 3456; the top tower
+   3456-1024-1024-512-256-1; biases; float32) built on the card as the
+   benchmark builds it, at B = 2048 on the benchmark's inputs:
+   ``lookup_fused_ragged`` bit-equal to ``lookup_fused_ragged_plain``
+   (features and flags) on the pool's ids, every id 0 and ids with
+   padding, last rows and out-of-range members; ``fused_mlp`` with biases
+   (bottom with ``last_activation``, top) bit-equal to ``fused_mlp_plain``
+   on small-integer data and within 1e-4 of it on the model's weights;
+   ``cross_tail`` bit-equal to ``cross_tail_plain`` at [2048, 3456]; the
+   forward's launches (1 ``lookup_fused_ragged``, 2 ``fused_mlp``, 3
+   ``cross_tail``, no plain call), within 1e-4 of its plain composition
+   and within the cell's ``max_err`` of the benchmark's float64 reference,
+   a bad take member NaN on its row only; 4 batches served over loopback
+   with ``ServeSpec.bag_sizes`` (graph replays), replies bit-equal to
+   direct forwards, launches 1, 2 and 3 a batch; each kernel's time
+   against its plain version, its bound and a library yardstick (the ragged
+   kernel also on every id 0 and beside the bag kernel on the bags padded
+   to 100), and the forward's ms a batch, eager and from a CUDA graph.
 
-In phases 6-12 and 14-16 the kernels' launch counters are zeroed just before
+In phases 6-12 and 14-17 the kernels' launch counters are zeroed just before
 each path runs and read just after (in phases 12 and 15 inside each rank);
 each kernel of the path must have launched.
 A counter counts wrapper calls that launched a kernel: eager calls, and
@@ -294,11 +317,13 @@ from fleetrec_tpu_torch.ops.gather import (gather_rows, gather_rows_grouped,
 from fleetrec_tpu_torch.models.mlp import init_mlp_params
 from fleetrec_tpu_torch.models.train import Trainer, bce_with_logits
 from fleetrec_tpu_torch.ops import lookup as lookup_mod
+from fleetrec_tpu_torch.ops.cross import cross_tail, cross_tail_plain
 from fleetrec_tpu_torch.ops.lookup import (LOOKUP_COL_FIELDS, lookup_fused,
                                           lookup_fused_backward, lookup_fused_backward_plain,
                                           lookup_fused_bags, lookup_fused_bags_plain,
-                                          lookup_fused_plain, lookup_offsets_plain,
-                                          lookup_out_dtype)
+                                          lookup_fused_plain, lookup_fused_ragged,
+                                          lookup_fused_ragged_plain, lookup_offsets_plain,
+                                          lookup_out_dtype, pad_ragged)
 from fleetrec_tpu_torch.ops.mlp_fused import (PRODUCT, TILES, fused_mlp,
                                              fused_mlp_plain, mlp_plan)
 from fleetrec_tpu_torch.parallel import planner
@@ -976,7 +1001,7 @@ def phase_serve(model, tabs, ws):
 
 
 KERNELS = (gather_rows, gather_rows_grouped, fused_mlp, lookup_fused, lookup_fused_bags,
-           lookup_fused_backward)
+           lookup_fused_backward, lookup_fused_ragged, cross_tail)
 
 
 def _counted(fn):
@@ -1123,30 +1148,37 @@ def heads_oracle(cfg, tables, idx, dense, scheme):
 def plain_kernels():
     """The model's wrappers swapped for their plain versions
     (``lookup_fused_plain``, ``lookup_fused_bags_plain``,
-    ``fused_mlp_plain``, and in ``LookupFunction`` ``lookup_fused_plain``
-    and ``lookup_fused_backward_plain``): inside, a forward or a training
-    step is the same one composed from the plain versions, and launches
+    ``lookup_fused_ragged_plain``, ``fused_mlp_plain``, ``cross_tail_plain``,
+    and in ``LookupFunction`` ``lookup_fused_plain`` and
+    ``lookup_fused_backward_plain``): inside, a forward or a training step
+    is the same one composed from the plain versions, and launches
     nothing."""
     from fleetrec_tpu_torch.models import fleetrec as fr_mod
+    from fleetrec_tpu_torch.models import interaction as interaction_mod
     from fleetrec_tpu_torch.models import mlp as mlp_mod
 
-    saved = (fr_mod.lookup_fused, fr_mod.lookup_fused_bags, mlp_mod.fused_mlp,
-             lookup_mod.lookup_fused, lookup_mod.lookup_fused_backward)
+    saved = (fr_mod.lookup_fused, fr_mod.lookup_fused_bags, fr_mod.lookup_fused_ragged,
+             mlp_mod.fused_mlp, interaction_mod.cross_tail, lookup_mod.lookup_fused,
+             lookup_mod.lookup_fused_backward)
     fr_mod.lookup_fused, fr_mod.lookup_fused_bags = lookup_fused_plain, lookup_fused_bags_plain
+    fr_mod.lookup_fused_ragged = lookup_fused_ragged_plain
     mlp_mod.fused_mlp = fused_mlp_plain
+    interaction_mod.cross_tail = cross_tail_plain
     lookup_mod.lookup_fused = lookup_fused_plain
     lookup_mod.lookup_fused_backward = lookup_fused_backward_plain
     try:
         yield
     finally:
-        (fr_mod.lookup_fused, fr_mod.lookup_fused_bags, mlp_mod.fused_mlp,
-         lookup_mod.lookup_fused, lookup_mod.lookup_fused_backward) = saved
+        (fr_mod.lookup_fused, fr_mod.lookup_fused_bags, fr_mod.lookup_fused_ragged,
+         mlp_mod.fused_mlp, interaction_mod.cross_tail, lookup_mod.lookup_fused,
+         lookup_mod.lookup_fused_backward) = saved
 
 
-def _launches(lookup=0, mlp=0, bags=0, backward=0):
+def _launches(lookup=0, mlp=0, bags=0, backward=0, ragged=0, tail=0):
     return {"gather_rows": 0, "gather_rows_grouped": 0, "fused_mlp": mlp,
             "lookup_fused": lookup, "lookup_fused_bags": bags,
-            "lookup_fused_backward": backward}
+            "lookup_fused_backward": backward, "lookup_fused_ragged": ragged,
+            "cross_tail": tail}
 
 
 def micro_heads():
@@ -1187,11 +1219,12 @@ def phase_heads(dev, dlrm):
             want = heads_oracle(cfg, ref.init_tables(cfg), idx, dense, "ones")
             if not np.array_equal(scores.cpu().numpy(), want.astype(np.float32)):
                 raise AssertionError(f"{name}: scores are not bit-equal to the oracle")
-            if launches != _launches(1, 2 if cfg.interaction == "dot" else 1):
+            cross = cfg.interaction == "cross"
+            if launches != _launches(1, 1 if cross else 2, tail=cfg.cross_layers if cross else 0):
                 raise AssertionError(f"{name}: launches {launches}")
         notes.append(f"(1) {', '.join(micro_heads())} at B={B_SERVE}: pm1 / all-ones "
                      f"bit-equal to the oracle, launches 1 lookup_fused and 2 (dot) or "
-                     f"1 (cross) fused_mlp a forward")
+                     f"1 (cross) fused_mlp a forward, and a cross_tail a cross layer")
 
         cfg, model, tables = dlrm
         idx = _rand_ids(cfg, B_TIME, rng)
@@ -1587,13 +1620,16 @@ STEP_TOL = {"rtol": 1e-5, "atol": 1e-6}
 @contextlib.contextmanager
 def plain_calls():
     """Counts the calls of ``lookup_fused_plain``,
-    ``lookup_fused_bags_plain``, ``lookup_fused_backward_plain`` and
-    ``fused_mlp_plain`` made through the kernels' wrappers (which call them
+    ``lookup_fused_bags_plain``, ``lookup_fused_backward_plain``,
+    ``lookup_fused_ragged_plain``, ``fused_mlp_plain`` and
+    ``cross_tail_plain`` made through the kernels' wrappers (which call them
     only for CPU tensors) inside the block."""
+    from fleetrec_tpu_torch.ops import cross as cross_mod
     from fleetrec_tpu_torch.ops import mlp_fused as mlp_fused_mod
 
     where = {"lookup_fused_plain": lookup_mod, "lookup_fused_bags_plain": lookup_mod,
-             "lookup_fused_backward_plain": lookup_mod, "fused_mlp_plain": mlp_fused_mod}
+             "lookup_fused_backward_plain": lookup_mod, "lookup_fused_ragged_plain": lookup_mod,
+             "fused_mlp_plain": mlp_fused_mod, "cross_tail_plain": cross_mod}
     counts = dict.fromkeys(where, 0)
     saved = {n: getattr(mod, n) for n, mod in where.items()}
 
@@ -3651,6 +3687,308 @@ def phase_full_rows(tmp):
     return out
 
 
+# ---- phase 17: MLPerf DLRM-DCNv2 at full rows (the benchmark's DCNv2 cell) ----
+
+# the benchmark's cell whose configuration, batch and inputs phase 17 takes
+DCNV2_CELL = "dcnv2_bf16.b2048.stream"
+DCNV2_SEED = 2_147_483_917
+# the towers' tolerance against their plain chain on the model's weights
+# (float32 sums in another order over K up to 3456); a dropped bias, a lost
+# last ReLU or a wrong column is off by orders of magnitude more
+DCNV2_TOWER_TOL = 1e-4
+
+
+def _exact_tower(widths, B, dev, seed):
+    """Weights, biases and an input of small integers (weights 1 in 16
+    nonzero), so that every float32 sum of the tower is exact and its
+    kernels must equal the plain chain to the bit."""
+    g = torch.Generator().manual_seed(seed)
+    ws = [(torch.randint(-1, 2, (a, b), generator=g).float()
+           * (torch.rand(a, b, generator=g) < 1 / 16)).to(dev)
+          for a, b in zip(widths[:-1], widths[1:])]
+    bs = [torch.randint(-3, 4, (b,), generator=g).float().to(dev) for b in widths[1:]]
+    x = torch.randint(-1, 2, (B, widths[0]), generator=g).float().to(dev)
+    return ws, bs, x
+
+
+def ragged_lookup_bytes(ops, ids, bag_sizes) -> int:
+    """``lookup_bytes`` of ragged bags: the padded bags' count, less the id
+    bytes of the padding, which the ragged kernel never reads."""
+    padded = pad_ragged(ids, bag_sizes)
+    return (lookup_bytes(ops, padded, None)
+            - (padded.numel() - ids.numel()) * ids.element_size())
+
+
+def dcnv2_rank(rank, seed, device="cuda:0"):
+    """Phase 17 in a process of its own (the card holds nothing else):
+    ``DCNV2_CELL``'s configuration (MLPerf DLRM-DCNv2: 26 bf16 tables of
+    204,184,588 rows x 128, 214-id ragged bags, the bottom tower 13-512-256-128
+    with its last ReLU, 3 cross layers of rank 512 over 3456, the top tower
+    3456-1024-1024-512-256-1, biases, float32) built on the card as the
+    benchmark builds it (``portbench.model.build_model``), at its batch of
+    2048 on its inputs (``portbench.inputs.pools``).  (1) the ragged bag
+    kernel bit-equal to its plain twin, features and flags, on the pool's
+    ids, every id 0, and ids with padding (-1, -5), last rows and
+    out-of-range members; (2) the biased towers (bottom with its last ReLU,
+    top) equal to their plain chain to the bit on exact small-integer data
+    and within ``DCNV2_TOWER_TOL`` on the model's weights; (3) the cross
+    layers' tail bit-equal to its torch expression at [2048, 3456]; (4) the
+    forward: 1 ``lookup_fused_ragged``, 2 ``fused_mlp`` and 3 ``cross_tail``
+    launches and no plain call, within ``DCNV2_TOWER_TOL`` of the same
+    forward composed from the plain versions (which launches nothing), both
+    within the cell's ``max_err`` of the benchmark's float64 reference, a bad
+    take member NaN on its row only; (5) N_SERVE batches served over
+    loopback with ``bag_sizes`` (graph replays), the launch counts zeroed
+    just before and read after, replies bit-equal to direct forwards; (6)
+    each kernel's time against its plain version, its bound and a library
+    yardstick, and the forward's ms a batch, eager and from a CUDA graph.
+    Returns the results and the log lines."""
+    from portbench import inputs, loader, reference
+    from portbench import tables as ptables
+    from portbench.model import build_model, port_config
+
+    dev = torch.device(device)
+    lines, out = [], {"card": card_line()}
+
+    def note(msg):
+        lines.append(msg)
+        print(msg, flush=True)
+
+    cell = loader.cell(DCNV2_CELL)
+    m, B, limit = cell.model, cell.serve["batch"], cell.check["max_err"]
+    hot = inputs.hot_of(m)
+    t0 = time.perf_counter()
+    cfg = port_config(cell.config, m, cell.serve)
+    model = build_model(cfg, m, seed, dev)
+    torch.cuda.synchronize()
+    ops = model.lookup_operands()
+    table_bytes = sum(b.numel() * b.element_size() for b in ops["bufs"])
+    note(f"{cfg.name}: {cfg.num_tables} tables, {sum(t.rows for t in cfg.tables)} rows "
+         f"({table_bytes} B of {cfg.table_dtype} buffers), {sum(hot)} ids a query, built on "
+         f"{dev} in {time.perf_counter() - t0:.1f} s; memory_allocated "
+         f"{torch.cuda.memory_allocated(dev)} B")
+    ids_np, dense_np = inputs.pools(seed, m, B, N_SERVE)
+    ids, dense = (torch.from_numpy(a[0]).to(dev) for a in (ids_np, dense_np))
+    starts = np.concatenate([[0], np.cumsum(hot)])
+    big = max(range(cfg.num_tables), key=lambda t: cfg.tables[t].rows)  # a take table
+    rng = np.random.default_rng(seed % (1 << 32))
+    edges = ids_np[0].copy()
+    for t, spec in enumerate(cfg.tables):
+        cols = np.arange(starts[t], starts[t + 1])
+        rows = rng.choice(B, 4, replace=False)
+        edges[rows[0], cols] = -1                  # a bag of padding only
+        edges[rows[1], cols[-1]] = -5              # below -1: padding too
+        edges[rows[2], cols[0]] = spec.rows - 1    # the table's last row
+        edges[rows[3], cols[-1]] = spec.rows       # one past it
+    draws = {"pool": ids, "ids0": torch.zeros_like(ids),
+             "edges": torch.from_numpy(edges).to(dev)}
+
+    # (1) the ragged bag kernel against its plain twin
+    with torch.inference_mode():
+        for name, i in draws.items():
+            before = lookup_fused_ragged.launches
+            got = lookup_fused_ragged(i, None, bag_sizes=hot, **ops)
+            if lookup_fused_ragged.launches != before + 1:
+                raise AssertionError("phase 17: lookup_fused_ragged launched no kernel")
+            want = lookup_fused_ragged_plain(i, None, bag_sizes=hot, **ops)
+            if not (torch.equal(bits(got[0]), bits(want[0])) and _same_flags(got[1], want[1])):
+                raise AssertionError(f"phase 17: lookup_fused_ragged on {name} ids differs "
+                                     f"from its plain twin")
+    note(f"(1) lookup_fused_ragged at B={B} over {sum(hot)} ids a query (bags of "
+         f"{min(hot)}..{max(hot)}): features and flags bit-equal to lookup_fused_ragged_plain "
+         f"on {', '.join(draws)} ids")
+
+    # (2) the biased towers against their plain chain
+    towers = {"bottom": (cfg.bottom_mlp, model.bottom_weights, model.bottom_biases,
+                         dense),
+              "top": (cfg.mlp, model.mlp_weights, model.mlp_biases,
+                      torch.rand(B, cfg.feature_dim, generator=torch.Generator(
+                          device=dev).manual_seed(17), device=dev) * 2 - 1)}
+    err_towers = {}
+    with torch.inference_mode():
+        for name, (spec, ws, bs, x) in towers.items():
+            last = spec.last_activation
+            ew, eb, ex = _exact_tower(spec.widths, B, dev, 17 + len(name))
+            if not torch.equal(fused_mlp(ew, ex, spec.activation, eb, last),
+                               fused_mlp_plain(ew, ex, spec.activation, eb, last)):
+                raise AssertionError(f"phase 17: the {name} tower on exact data differs "
+                                     f"from its plain chain")
+            got = fused_mlp(ws, x, spec.activation, bs, last)
+            want = fused_mlp_plain(ws, x, spec.activation, bs, last)
+            scale = want.abs().max().item()
+            torch.testing.assert_close(got, want, rtol=DCNV2_TOWER_TOL,
+                                       atol=DCNV2_TOWER_TOL * scale,
+                                       msg=lambda s: f"phase 17 {name} tower: {s}")
+            err_towers[name] = (got - want).abs().max().item() / scale
+    note(f"(2) fused_mlp with biases at B={B}: bottom {cfg.bottom_mlp.widths} (ReLU after "
+         f"every layer, the last too) and top {cfg.mlp.widths} bit-equal to fused_mlp_plain on "
+         f"small-integer data; on the model's weights max|diff| / max|plain| bottom "
+         f"{err_towers['bottom']:.3g}, top {err_towers['top']:.3g} (limit {DCNV2_TOWER_TOL})")
+
+    # (3) the cross layers' tail
+    g = torch.Generator(device=dev).manual_seed(19)
+    F = cfg.feature_dim
+    x0, xl, xw = (torch.randn(B, F, generator=g, device=dev) for _ in range(3))
+    b = model.cross_weights[0][-1]
+    with torch.inference_mode():
+        if not torch.equal(cross_tail(x0, xw, b, xl), cross_tail_plain(x0, xw, b, xl)):
+            raise AssertionError("phase 17: cross_tail differs from its torch expression")
+    note(f"(3) cross_tail at [{B}, {F}] float32 bit-equal to cross_tail_plain")
+
+    # (4) the forward
+    with torch.inference_mode():
+        with plain_calls() as plain:
+            scores, launches = _counted(lambda: model.forward_ragged(ids, hot, dense))
+        want_launches = _launches(mlp=2, ragged=1, tail=cfg.cross_layers)
+        if launches != want_launches or any(plain.values()):
+            raise AssertionError(f"phase 17: a forward launched {launches} (want "
+                                 f"{want_launches}) and called {plain}")
+        with plain_kernels():
+            composed, plain_launches = _counted(lambda: model.forward_ragged(ids, hot, dense))
+        if plain_launches != _launches():
+            raise AssertionError(f"phase 17: the plain composition launched {plain_launches}")
+        scale = composed.abs().max().item()
+        torch.testing.assert_close(scores, composed, rtol=DCNV2_TOWER_TOL,
+                                   atol=DCNV2_TOWER_TOL * scale,
+                                   msg=lambda s: f"phase 17 forward against its plain "
+                                                 f"composition: {s}")
+        w = ptables.head_weights(seed, m, dev)
+        golden = reference.pool_scores(m, ptables.seed_key(seed), ids_np[:1], dense_np[:1], w)
+        err_ref = reference.max_err(scores.cpu().numpy()[None], golden)
+        err_plain_ref = reference.max_err(composed.cpu().numpy()[None], golden)
+        if not err_ref <= limit or not err_plain_ref <= limit:
+            raise AssertionError(f"phase 17: max_err against the reference {err_ref} (plain "
+                                 f"composition {err_plain_ref}), limit {limit}")
+        bad = ids_np[0].copy()
+        bad[5, starts[big]] = cfg.tables[big].rows
+        sb = model.forward_ragged(torch.from_numpy(bad).to(dev), hot, dense).cpu().numpy()
+        nan_rows = np.flatnonzero(np.isnan(sb)).tolist()
+        if nan_rows != [5]:
+            raise AssertionError(f"phase 17: a bad take member poisons rows {nan_rows}, want [5]")
+    out["max_err_reference"], out["max_err_towers"] = err_ref, err_towers
+    note(f"(4) forward_ragged at B={B}: launches {launches}, no plain call; within "
+         f"{DCNV2_TOWER_TOL} of its plain composition (max|diff| / max|plain| "
+         f"{(scores - composed).abs().max().item() / scale:.3g}), which launched nothing; "
+         f"max_err against the float64 reference {err_ref:.4g} (plain composition "
+         f"{err_plain_ref:.4g}; the cell's limit {limit}); a bad take member NaN on row 5 only")
+
+    # (5) served over loopback
+    batches = [(ids_np[p], dense_np[p]) for p in range(N_SERVE)]
+    served, serve_launches, summary = serve_loopback(cfg, model, batches, bag_sizes=tuple(hot))
+    with torch.inference_mode():
+        for k, (i, d) in enumerate(batches):
+            direct = model.forward_ragged(torch.from_numpy(i).to(dev), hot,
+                                          torch.from_numpy(d).to(dev)).cpu().numpy()
+            if not np.array_equal(served[k], direct):
+                raise AssertionError(f"phase 17: served batch {k} differs from a direct forward")
+    want_serve = _launches(mlp=2 * N_SERVE, ragged=N_SERVE, tail=cfg.cross_layers * N_SERVE)
+    if serve_launches != want_serve:
+        raise AssertionError(f"phase 17: the served run launched {serve_launches}, want "
+                             f"{want_serve}")
+    out["launches"], out["serve_launches"] = launches, serve_launches
+    note(f"(5) serve() with bag_sizes: {summary['wire_batches']} batches x {B} ([{B}, "
+         f"{sum(hot)}] int32 ids and {cfg.dense_dim} dense floats a query) over loopback, "
+         f"replies bit-equal to direct forwards; launches in the run {serve_launches}")
+
+    # (6) times: CUDA events over graph replays, each beside its bound
+    stats = {}
+    with torch.inference_mode():
+        nbytes = ragged_lookup_bytes(ops, ids, hot)
+        padded = pad_ragged(ids, hot)
+        # the plain twin timed without its padding gather (pad_ragged builds
+        # its index on the host, which a graph capture cannot hold)
+        cases = [(f"lookup_fused_ragged dcnv2 B={B}",
+                  functools.partial(lookup_fused_ragged, ids, None, bag_sizes=hot, **ops),
+                  functools.partial(lookup_fused_bags_plain, padded, None, **ops),
+                  None, bound(nbytes),
+                  {"ms_ids0": functools.partial(lookup_fused_ragged, draws["ids0"], None,
+                                                bag_sizes=hot, **ops),
+                   # the bag kernel on the bags padded to the longest, the
+                   # path ragged bags would take without the ragged kernel
+                   "padded_ms": functools.partial(lookup_fused_bags, padded, None, **ops)},
+                  f"{nbytes} B counted once; plain: lookup_fused_bags_plain on the bags "
+                  f"padded to {max(hot)}")]
+        for name, (spec, ws, bs, x) in towers.items():
+            flops = 2 * B * sum(a * c for a, c in zip(spec.widths[:-1], spec.widths[1:]))
+            tb = 4 * (x.numel() + sum(t.numel() for t in (*ws, *bs)) + B * spec.widths[-1])
+            cases.append((f"fused_mlp fp32 dcnv2_{name} B={B}",
+                          functools.partial(fused_mlp, ws, x, spec.activation, bs,
+                                            spec.last_activation),
+                          functools.partial(fused_mlp_plain, ws, x, spec.activation, bs,
+                                            spec.last_activation),
+                          multi_dot_call(ws, x), bound(tb, flops), {},
+                          f"widths {spec.widths}, biases, {flops} FLOP; multi_dot without "
+                          f"the biases and ReLUs"))
+        tb = 4 * (4 * B * F + F)
+        cases.append((f"cross_tail dcnv2 B={B}", functools.partial(cross_tail, x0, xw, b, xl),
+                      functools.partial(cross_tail_plain, x0, xw, b, xl),
+                      ("addcmul", functools.partial(torch.addcmul, xl, x0, xw)), bound(tb), {},
+                      f"[{B}, {F}] float32, {tb} B; addcmul x + x0 * xw without the bias"))
+        for label, k, p, lib, (bound_ms, bound_by), extra, what in cases:
+            kg, pg = _pair_graph(k, p)
+            stats[label] = {"ms": kg, "plain_ms": pg, "bound_ms": bound_ms, "bound_by": bound_by,
+                            "library_ms": None if lib is None else _graph_ms(lib[1])}
+            stats[label].update({key: _graph_ms(fn) for key, fn in extra.items()})
+            lib_txt = ("no one PyTorch call computes it" if lib is None
+                       else f"{lib[0]} {stats[label]['library_ms']:.4f} ms")
+            more = "".join(f", {key} {v:.4f}" for key, v in stats[label].items()
+                           if key in extra)
+            note(f"time {label}: kernel {kg:.4f} ms, plain {pg:.4f} ms, {lib_txt}{more} "
+                 f"(CUDA events over graph replays); bound {bound_ms:.4f} ms ({bound_by}), "
+                 f"kernel at {bound_ms / kg:.3f} of it; {what}")
+        fwd = functools.partial(model.forward_ragged, ids, hot, dense)
+        for _ in range(5):
+            fwd()
+        torch.cuda.synchronize()
+        eager = float(np.median([_ms(fwd) for _ in range(5)]))
+        graphed = _graph_ms(fwd, 10)
+    out["forward_ms"], out["forward_graph_ms"] = eager, graphed
+    note(f"time dcnv2 forward_ragged B={B}: eager {eager:.4f} ms, from a CUDA graph "
+         f"{graphed:.4f} ms a batch on {out['card']}")
+    out["stats"], out["lines"], out["batch"] = stats, lines, B
+    return out
+
+
+def phase_dcnv2(tmp):
+    """Phase 17: ``dcnv2_rank`` in a process forked from the forkserver
+    ``main`` starts first; its log lines are printed here.  Returns its
+    results."""
+    t0 = time.time()
+    (res,), _ = run_world(1, dcnv2_rank, (DCNV2_SEED,), tmp, "dcnv2", backend=None,
+                          method="forkserver")
+    for line in res["lines"]:
+        log(f"phase 17 {line}")
+    log(f"phase 17 DLRM-DCNv2 ({DCNV2_CELL}'s configuration) at full rows on one card: "
+        f"passed ({time.time() - t0:.1f}s)")
+    return res
+
+
+def dcnv2_kernels(res) -> list:
+    """The kernels' record entries of phase 17: the ragged bag kernel and
+    the cross layers' tail (times at the cell's batch, launches of its
+    served run), and the biased towers' times under ``fused_mlp_dcnv2``."""
+    stats, sl, B = res["stats"], res["serve_launches"], res["batch"]
+    return [
+        {"name": "lookup_fused_ragged", "route": "cuda",
+         "source": "fleetrec_tpu_torch/ops/csrc/lookup_fused.cu",
+         "replaces": "fleetrec_tpu/ops/gather_pallas.py:182",
+         "launches": sl["lookup_fused_ragged"], "max_abs_err": 0.0,
+         **stats[f"lookup_fused_ragged dcnv2 B={B}"]},
+        {"name": "cross_tail", "route": "cuda",
+         "source": "fleetrec_tpu_torch/ops/csrc/cross_tail.cu",
+         "replaces": "fleetrec_tpu/models/interaction.py:90",
+         "launches": sl["cross_tail"], "max_abs_err": 0.0, **stats[f"cross_tail dcnv2 B={B}"]},
+        {"name": "fused_mlp_dcnv2", "route": "cuda",
+         "source": "fleetrec_tpu_torch/ops/csrc/fused_mlp.cu",
+         "replaces": "fleetrec_tpu/ops/mlp_fused.py:84",
+         "launches": sl["fused_mlp"],
+         **{f"max_abs_err_{t}": e for t, e in res["max_err_towers"].items()},
+         **{f"{k}_{t}": stats[f"fused_mlp fp32 dcnv2_{t} B={B}"][k]
+            for t in ("bottom", "top") for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms")}},
+    ]
+
+
 def _ms(fn, iters: int = 20) -> float:
     """Mean ms per call over ``iters`` back-to-back calls, from CUDA events
     (includes any gap the host leaves between launches)."""
@@ -4373,7 +4711,13 @@ def profile_training(runs, timed):
             log(f"  device time per training step: {ms:.4f} ms  {kname[:80]}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="the port's smoke test on one CUDA card")
+    ap.add_argument("--phase", type=int, choices=(17,),
+                    help="run the build and this phase alone (17: DLRM-DCNv2 at full rows)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no result",
               file=sys.stderr)
@@ -4390,6 +4734,8 @@ def main() -> int:
     multiprocessing.forkserver.ensure_running()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
+    if args.phase == 17:
+        return main_dcnv2()
     t0 = t_start = time.perf_counter()
     _build.kernels()
     log(f"build: {len(_build.kernel_sources())} kernel sources, one nvcc each, "
@@ -4436,6 +4782,7 @@ def main() -> int:
     try:
         crit = phase_full(CRITEO_FULL, 14, tmp)
         full = phase_full_rows(tmp)
+        dcnv2 = phase_dcnv2(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     crit_lk = crit["lookup"]
@@ -4562,13 +4909,33 @@ def main() -> int:
          "launches": sharded["train_model1"]["launches"]["lookup_fused_backward"],
          "max_abs_err": err_wb,
          **_draw_keys(window_bwd["draws"]), "ms_eager": window_bwd["ms_eager"]},
+        *dcnv2_kernels(dcnv2),
     ]}
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s, the build included")
+    return finish(record)
+
+
+def finish(record) -> int:
+    """Print the kernels' record and the ok line; 0."""
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def main_dcnv2() -> int:
+    """``--phase 17``: the build, then phase 17 alone; its kernels' record."""
+    t0 = time.perf_counter()
+    _build.kernels()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dcnv2_")
+    try:
+        res = phase_dcnv2(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 17 passed in {time.perf_counter() - t0:.1f} s, the build included")
+    return finish({"kernels": dcnv2_kernels(res)})
 
 
 if __name__ == "__main__":

@@ -70,6 +70,9 @@ class MLPSpec:
     out_dim: int = 1
     use_bias: bool = False
     activation: Optional[str] = None  # None = pure matmul chain (reference)
+    # the activation after the last layer too (MLPerf DLRM's bottom MLP);
+    # off by default, as in the JAX package's towers
+    last_activation: bool = False
 
     @property
     def widths(self) -> Tuple[int, ...]:
@@ -197,9 +200,35 @@ class ModelConfig:
             seg = used[t.out_offset : t.out_offset + t.dim]
             assert not seg.any(), f"overlap at table {t.table_id}"
             used[t.out_offset : t.out_offset + t.dim] = True
-        if self.dense_dim:
+        if self.bottom_mlp is not None:
+            assert self.interaction == "cross", "a bottom tower needs a dot or cross head"
+            assert self.bottom_mlp.input_dim == self.dense_dim, (
+                f"bottom tower input {self.bottom_mlp.input_dim} != dense_dim "
+                f"{self.dense_dim}")
+            self.dense_columns()  # raises where the bottom output has no room
+        elif self.dense_dim:
             tail = used[-self.dense_dim :]
             assert not tail.any(), "dense slice overlaps a table"
+
+    def dense_columns(self) -> Tuple[int, int]:
+        """(first column, width) of the dense part of a cross or tower-only
+        config's feature vector: the raw dense features at the tail, or,
+        with a bottom tower, its output at the tail where no table covers
+        it, else from the first column no table covers (DCNv2's
+        ``cat((bottom, pooled))``: columns 0 .. W - 1).  Raises where the
+        bottom output would overlap a table or run past the vector."""
+        F = self.feature_dim
+        if self.bottom_mlp is None:
+            return F - self.dense_dim, self.dense_dim
+        W = self.bottom_mlp.widths[-1]
+        used = np.zeros(F, dtype=bool)
+        for t in self.tables:
+            used[t.out_offset : t.out_offset + t.dim] = True
+        start = F - W if not used[F - W:].any() else int(np.flatnonzero(~used)[0])
+        if start + W > F or used[start:start + W].any():
+            raise ValueError(f"the bottom tower's {W} outputs have no room among the "
+                             f"{F} features that no table covers")
+        return start, W
 
 
 def qr_expand(cfg: ModelConfig):

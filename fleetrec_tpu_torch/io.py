@@ -170,7 +170,7 @@ def quantize_tables(model: FleetRecModel) -> FleetRecModel:
         layout=layout, onehot_buffers=oh_bufs, take_buffer=take,
         plan=plan_tensors(layout, dev), onehot_scales=oh_scales,
         take_scales=take_scales), model.mlp_weights, model.bottom_weights,
-        model.cross_weights)
+        model.cross_weights, mlp_bias=model.mlp_biases, bottom_bias=model.bottom_biases)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -191,9 +191,16 @@ def _to_tensor(arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
+def _check_bias_free(model: FleetRecModel) -> None:
+    """Checkpoints hold the JAX package's arrays, which have no tower biases."""
+    if model.has_biases:
+        raise ValueError("checkpoints hold bias-free towers; this model has tower biases")
+
+
 def save_npz(path: str, model: FleetRecModel) -> None:
     """Write ``model``'s packed buffers, scales and MLP weights, with the
     fingerprint of its config, under the JAX package's array names."""
+    _check_bias_free(model)
     packed = model.packed
     arrs = {"config_fingerprint": np.frombuffer(
         config_fingerprint(model.cfg).encode(), dtype=np.uint8)}
@@ -329,6 +336,7 @@ def checkpoint_tensors(target: Union[FleetRecModel, ShardedFleetRec]
         weights = (target.mlp, target.bottom, target.cross)
         m, M = target.mesh.m, target.mesh.model
     else:
+        _check_bias_free(target)
         ops = target.lookup_operands()
         weights = (target.mlp_weights, target.bottom_weights, target.cross_weights)
         m, M = 0, 1

@@ -1,6 +1,7 @@
 """The end-to-end model, the port of ``fleetrec_tpu/models/fleetrec.py``:
 multi-table embedding lookup -> fixed-offset concat -> [interaction] ->
-bias-free MLP -> [B] scores, on one device.
+MLP (bias-free unless the model is given biases) -> [B] scores, on one
+device.
 
 ``ModelPlan`` is the static half (the JAX package's frozen
 ``FleetRecModel``: layout, index permutation, QR plan).  ``FleetRecModel``
@@ -18,7 +19,16 @@ tensors ``trainable_tensors`` names.  ``plan_indices``, ``bad_take_rows`` and
 ``lookup_concat`` (one gather a tier) stay as the ports of the JAX
 functions that ``lookup`` computes.  ``lookup_pooled`` / ``forward_pooled``
 are the same for multi-hot bags ``[B, num_tables, L]`` (``models/pooled.py``):
-one ``lookup_fused_bags`` launch, then the tower.
+one ``lookup_fused_bags`` launch, then the head; ``lookup_ragged`` /
+``forward_ragged`` for bags of different sizes ``[B, sum(bag_sizes)]`` (the
+wire's layout): one ``lookup_fused_ragged`` launch, then the head.
+
+A cross (DCNv2) config may have a bottom tower on the dense features
+(MLPerf's DLRM-DCNv2: ``bottom_mlp`` with ``last_activation``): its output
+fills the columns of the feature vector that no table covers
+(``ModelConfig.dense_columns``), which the lookup leaves zero, before the
+cross layers.  The towers may carry biases (``mlp_bias`` / ``bottom_bias``,
+float32 only), which the fused tower adds in its epilogue.
 """
 
 from __future__ import annotations
@@ -44,7 +54,8 @@ from .embedding import (
 )
 from .interaction import cross_network, dot_interaction, init_cross_params, pair_columns
 from .mlp import init_mlp_params, mlp_apply, mlp_train
-from ..ops.lookup import LookupFunction, lookup_fused, lookup_fused_bags
+from ..ops.cross import cross_tail_plain
+from ..ops.lookup import LookupFunction, lookup_fused, lookup_fused_bags, lookup_fused_ragged
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +79,10 @@ class ModelPlan:
             # (the head reads it as [B, T, D]); the dense features feed the
             # bottom tower, not the concat
             feature_dim, dense_dim = cfg.num_tables * cfg.tables[0].dim, 0
+        elif cfg.bottom_mlp is not None:
+            # DCNv2: the dense features feed the bottom tower, whose output
+            # the head writes into the columns no table covers
+            feature_dim, dense_dim = cfg.feature_dim, 0
         else:
             feature_dim, dense_dim = cfg.feature_dim, cfg.dense_dim
         layout = build_layout(
@@ -86,13 +101,32 @@ class ModelPlan:
 class FleetRecModel(nn.Module):
     """Scores [B] from config-order ids [B, num_tables] and dense features
     [B, dense_dim], on the device its buffers live on.  ``bottom``: the
-    DLRM bottom tower's weights; ``cross``: the DCNv2 layers, [W, b] or
-    [U, V, b] each (both empty for a config without that head)."""
+    bottom tower's weights (DLRM, or DCNv2 with one); ``cross``: the DCNv2
+    layers, [W, b] or [U, V, b] each (both empty for a config without that
+    head).  ``mlp_bias`` / ``bottom_bias``: one ``[out]`` tensor a layer of
+    the top / bottom tower, given exactly where the config's ``MLPSpec``
+    says ``use_bias`` (float32 towers only), else None."""
 
     def __init__(self, plan: ModelPlan, packed: PackedTables,
                  mlp: Sequence[torch.Tensor], bottom: Sequence[torch.Tensor] = (),
-                 cross: Sequence[Sequence[torch.Tensor]] = ()):
+                 cross: Sequence[Sequence[torch.Tensor]] = (),
+                 mlp_bias: Optional[Sequence[torch.Tensor]] = None,
+                 bottom_bias: Optional[Sequence[torch.Tensor]] = None):
         super().__init__()
+        cfg = plan.cfg
+        for name, spec, biases, ws in (("mlp_bias", cfg.mlp, mlp_bias, mlp),
+                                       ("bottom_bias", cfg.bottom_mlp, bottom_bias, bottom)):
+            use_bias = spec is not None and spec.use_bias
+            if (biases is not None) != use_bias:
+                raise ValueError(f"{cfg.name}'s tower says use_bias={use_bias}, so {name} "
+                                 f"must be {'given' if use_bias else 'None'}")
+            if biases is not None and [tuple(b.shape) for b in biases] != [
+                    (w.shape[1],) for w in ws]:
+                raise ValueError(f"{name} must be one [out] a layer of its tower, got "
+                                 f"{[tuple(b.shape) for b in biases]}")
+        if (mlp_bias is not None or bottom_bias is not None) and plan.cfg.dtype != "float32":
+            raise ValueError(f"tower biases need a float32 config, {plan.cfg.name} computes in "
+                             f"{plan.cfg.dtype}")
         self.plan = plan
         self.cfg = plan.cfg
         self.layout = plan.layout
@@ -117,6 +151,12 @@ class FleetRecModel(nn.Module):
         for li, layer in enumerate(cross):
             for j, w in enumerate(layer):
                 self.register_buffer(f"cross_{li}_{j}", w)
+        self._n_mlp_bias = 0 if mlp_bias is None else len(mlp_bias)
+        self._n_bottom_bias = 0 if bottom_bias is None else len(bottom_bias)
+        for i, b in enumerate(mlp_bias or ()):
+            self.register_buffer(f"mlp_bias_{i}", b)
+        for i, b in enumerate(bottom_bias or ()):
+            self.register_buffer(f"bottom_bias_{i}", b)
         dev = packed.plan["feature_perm"].device
         self.register_buffer("index_perm", torch.as_tensor(
             np.asarray(plan.index_perm, np.int64), device=dev))
@@ -158,6 +198,24 @@ class FleetRecModel(nn.Module):
     def cross_weights(self) -> List[List[torch.Tensor]]:
         return [[getattr(self, f"cross_{li}_{j}") for j in range(n)]
                 for li, n in enumerate(self._cross_shape)]
+
+    @property
+    def mlp_biases(self) -> Optional[List[torch.Tensor]]:
+        """The top tower's biases, or None for a bias-free tower."""
+        n = self._n_mlp_bias
+        return [getattr(self, f"mlp_bias_{i}") for i in range(n)] if n else None
+
+    @property
+    def bottom_biases(self) -> Optional[List[torch.Tensor]]:
+        """The bottom tower's biases, or None for a bias-free tower."""
+        n = self._n_bottom_bias
+        return [getattr(self, f"bottom_bias_{i}") for i in range(n)] if n else None
+
+    @property
+    def has_biases(self) -> bool:
+        """Whether a tower has biases: the config's ``use_bias``."""
+        bottom = self.cfg.bottom_mlp
+        return self.cfg.mlp.use_bias or (bottom is not None and bottom.use_bias)
 
     def plan_indices(self, indices: torch.Tensor) -> torch.Tensor:
         """Config-order [B, num_tables] -> plan-order internal matrix: QR
@@ -244,14 +302,28 @@ class FleetRecModel(nn.Module):
         # lookup would check against the layout
         self._check_inputs(indices, dense, cfg.dense_dim)
         feats, bad = self._lookup(indices, dense)
+        return self.poison_scores(self.head(feats, dense), bad)
+
+    def head(self, feats: torch.Tensor, dense: Optional[torch.Tensor]) -> torch.Tensor:
+        """Scores [B] (float32) of the lookup's features [B, layout.feature_dim]
+        and the dense features: the DLRM ``interaction_head``, or the bottom
+        tower (where a cross config has one) into its columns, the cross
+        layers and the top tower."""
+        cfg = self.cfg
         if cfg.interaction == "dot":
-            return self.poison_scores(interaction_head(
-                cfg, self.pair_cols, feats, dense, self.bottom_weights, self.mlp_weights), bad)
+            return interaction_head(cfg, self.pair_cols, feats, dense, self.bottom_weights,
+                                    self.mlp_weights, mlp_bias=self.mlp_biases,
+                                    bottom_bias=self.bottom_biases)
         x = feats.to(TORCH_DTYPES[cfg.dtype])
+        if cfg.bottom_mlp is not None:
+            x = place_bottom(cfg, x, mlp_apply(
+                self.bottom_weights, dense.to(x.dtype), cfg.bottom_mlp.activation, x.dtype,
+                **tower_options(self.bottom_biases, cfg.bottom_mlp.last_activation)))
         if cfg.interaction == "cross":
             x = cross_network(x, self.cross_weights)
-        scores = mlp_apply(self.mlp_weights, x, activation=cfg.mlp.activation)
-        return self.poison_scores(scores[:, 0], bad)
+        scores = mlp_apply(self.mlp_weights, x, activation=cfg.mlp.activation,
+                           **tower_options(self.mlp_biases))
+        return scores[:, 0]
 
     def forward_train(self, indices: torch.Tensor, dense: Optional[torch.Tensor] = None,
                       tensors: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
@@ -260,7 +332,10 @@ class FleetRecModel(nn.Module):
         ``head_train(*lookup_train(...))``.  ``tensors``:
         ``trainable_tensors``' names -> the tensors read in their place (the
         Trainer passes leaves that alias the buffers and require grad); None
-        reads the buffers.  int8 tables raise."""
+        reads the buffers.  int8 tables raise, and so do the heads the JAX
+        package does not train: tower biases, a bottom tower's last
+        activation and a cross head's bottom tower."""
+        check_trainable_head(self)
         self._check_inputs(indices, dense, self.cfg.dense_dim)
         t = trainable_tensors(self) if tensors is None else tensors
         feats, bad = self.lookup_train(indices, dense, t)
@@ -296,7 +371,8 @@ class FleetRecModel(nn.Module):
             x = feats.to(TORCH_DTYPES[cfg.dtype])
             if cfg.interaction == "cross":
                 x = cross_network(x, [[tensors[f"cross_{li}_{j}"] for j in range(n)]
-                                      for li, n in enumerate(self._cross_shape)])
+                                      for li, n in enumerate(self._cross_shape)],
+                                  tail=cross_tail_plain)
             scores = mlp_train(mlp, x, activation=cfg.mlp.activation)[:, 0]
         return scores if bad is None else scores.masked_fill(bad, float("nan"))
 
@@ -321,16 +397,38 @@ class FleetRecModel(nn.Module):
         (float32).
 
         A non-negative take id ``>=`` its table's rows poisons its row's
-        score with NaN; padding never does.  A config with an interaction
-        head raises: the JAX package's pooled forward runs the plain tower
-        whatever ``cfg.interaction`` says, which this port does not
-        repeat."""
-        cfg = self.cfg
-        check_pooled_config(cfg)
+        score with NaN; padding never does.  The pooled features go through
+        the head (``head``): the tower, or a DCNv2 head with its bottom tower.
+        A DLRM dot config raises: the JAX package's pooled forward runs the
+        plain tower whatever ``cfg.interaction`` says, which this port does
+        not repeat."""
+        check_pooled_config(self.cfg)
         feats, bad = self.lookup_pooled(indices, dense, mean)
-        scores = mlp_apply(self.mlp_weights, feats.to(TORCH_DTYPES[cfg.dtype]),
-                           activation=cfg.mlp.activation)
-        return self.poison_scores(scores[:, 0], bad)
+        return self.poison_scores(self.head(feats, dense), bad)
+
+    def lookup_ragged(self, indices: torch.Tensor, bag_sizes: Sequence[int],
+                      dense: Optional[torch.Tensor] = None, mean: bool = False
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Ragged bag ids [B, sum(bag_sizes)] (config order, table t's
+        ``bag_sizes[t]`` members in one run; a negative id is padding) and
+        the dense tail -> ``lookup_pooled``'s (features, bad), by one
+        ``lookup_fused_ragged`` call."""
+        check_ragged(self.cfg, indices, bag_sizes)
+        check_dense(indices.shape[0], dense, self.layout.dense_dim)
+        return lookup_fused_ragged(indices, dense if self.layout.dense_dim else None,
+                                   bag_sizes=bag_sizes, mean=mean, **self.lookup_operands())
+
+    def forward_ragged(self, indices: torch.Tensor, bag_sizes: Sequence[int],
+                       dense: Optional[torch.Tensor] = None, mean: bool = False
+                       ) -> torch.Tensor:
+        """``forward_pooled`` for bags of different sizes: ids [B,
+        sum(bag_sizes)] as ``lookup_ragged`` takes them, dense [B,
+        dense_dim].  On bags of one size L it gives ``forward_pooled``'s
+        scores on the same ids viewed as [B, T, L], to the bit."""
+        check_pooled_config(self.cfg)
+        check_dense(indices.shape[0], dense, self.cfg.dense_dim)
+        feats, bad = self.lookup_ragged(indices, bag_sizes, dense, mean)
+        return self.poison_scores(self.head(feats, dense), bad)
 
 
 def check_inputs(cfg: ModelConfig, indices: torch.Tensor, dense: Optional[torch.Tensor],
@@ -341,44 +439,96 @@ def check_inputs(cfg: ModelConfig, indices: torch.Tensor, dense: Optional[torch.
     if indices.dim() != 2 + bags or indices.shape[1] != n:
         raise ValueError(f"indices must be [B, {n}{', L' if bags else ''}], got "
                          f"{tuple(indices.shape)}")
-    if dense_dim and (dense is None
-                      or tuple(dense.shape) != (indices.shape[0], dense_dim)):
+    check_dense(indices.shape[0], dense, dense_dim)
+
+
+def check_dense(B: int, dense: Optional[torch.Tensor], dense_dim: int) -> None:
+    """Raise unless ``dense`` is [B, dense_dim] (anything when ``dense_dim``
+    is 0)."""
+    if dense_dim and (dense is None or tuple(dense.shape) != (B, dense_dim)):
         raise ValueError(
-            f"dense must be [{indices.shape[0]}, {dense_dim}], got "
+            f"dense must be [{B}, {dense_dim}], got "
             f"{None if dense is None else tuple(dense.shape)}")
 
 
 def check_pooled_config(cfg: ModelConfig) -> None:
-    """Pooled bags feed the plain tower only."""
-    if cfg.interaction != "none":
+    """Pooled bags feed the plain tower or a DCNv2 cross head."""
+    if cfg.interaction not in ("none", "cross"):
         raise ValueError(f"pooled bags are not defined for interaction "
-                         f"{cfg.interaction!r} ({cfg.name}): only for 'none'")
+                         f"{cfg.interaction!r} ({cfg.name}): only for 'none' and 'cross'")
+
+
+def check_trainable_head(model: "FleetRecModel") -> None:
+    """Training takes the heads the JAX package trains: raise for tower
+    biases, a bottom tower's last activation and a cross head's bottom
+    tower (DLRM-DCNv2's, which only the served forward runs)."""
+    cfg = model.cfg
+    bottom = cfg.bottom_mlp
+    if model.has_biases or (bottom is not None and (bottom.last_activation
+                                                    or cfg.interaction == "cross")):
+        raise ValueError(f"training takes the JAX package's heads; {cfg.name} has tower "
+                         f"biases, a bottom tower's last activation or a cross head's bottom "
+                         f"tower")
+
+
+def check_ragged(cfg: ModelConfig, indices: torch.Tensor, bag_sizes: Sequence[int]) -> None:
+    """Raise unless ``bag_sizes`` gives every table a bag of 1 or more and
+    ``indices`` is [B, sum(bag_sizes)]."""
+    if len(bag_sizes) != cfg.num_tables or min(bag_sizes, default=0) < 1:
+        raise ValueError(f"bag_sizes must give each of the {cfg.num_tables} tables 1 or more "
+                         f"members, got {tuple(bag_sizes)}")
+    if indices.dim() != 2 or indices.shape[1] != sum(bag_sizes):
+        raise ValueError(f"ragged bags are indices [B, {sum(bag_sizes)}], got "
+                         f"{tuple(indices.shape)}")
+
+
+def place_bottom(cfg: ModelConfig, x: torch.Tensor, bottom: torch.Tensor) -> torch.Tensor:
+    """The features ``x`` [B, F] with the bottom tower's output ``bottom``
+    [B, W] in its columns (``cfg.dense_columns()``), which the lookup left
+    zero: a new tensor (autograd differentiates both)."""
+    start, W = cfg.dense_columns()
+    parts = [x[:, :start], bottom.to(x.dtype), x[:, start + W:]]
+    return torch.cat([p for p in parts if p.shape[1]], dim=1)
 
 
 def interaction_head(cfg: ModelConfig, pair_cols: torch.Tensor, emb_flat: torch.Tensor,
                      dense: Optional[torch.Tensor], bottom_weights: Sequence[torch.Tensor],
-                     top_weights: Sequence[torch.Tensor], tower=mlp_apply) -> torch.Tensor:
+                     top_weights: Sequence[torch.Tensor], tower=mlp_apply,
+                     mlp_bias: Optional[Sequence[torch.Tensor]] = None,
+                     bottom_bias: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
     """DLRM head: [B, T*D] offset-order embeddings (and the dense features
     through the bottom tower) -> pairwise dot interaction (over the
     triangle's flat columns ``pair_cols``) -> top tower -> scores [B]
     float32.  ``tower``: the function that runs a tower (``mlp_apply``, or
     ``mlp_train`` for training).  The bottom tower applies its activation to
-    every layer but the last, as ``mlp_apply`` does, so its D-wide output
-    has no ReLU (the MLPerf DLRM bottom MLP has one there); the port keeps
-    the JAX package's tower for parity."""
+    every layer but the last, and to the last too where
+    ``cfg.bottom_mlp.last_activation`` says so (the MLPerf DLRM bottom MLP;
+    off by default, as in the JAX package).  ``mlp_bias`` / ``bottom_bias``:
+    the towers' biases (``mlp_apply`` only), or None."""
     dtype = TORCH_DTYPES[cfg.dtype]
     B = emb_flat.shape[0]
     vecs = emb_flat.reshape(B, cfg.num_tables, cfg.tables[0].dim).to(dtype)
     bottom = None
     if cfg.bottom_mlp is not None:
         bottom = tower(bottom_weights, dense.to(dtype),
-                       activation=cfg.bottom_mlp.activation, out_dtype=dtype)
+                       activation=cfg.bottom_mlp.activation, out_dtype=dtype,
+                       **tower_options(bottom_bias, cfg.bottom_mlp.last_activation))
         vecs = torch.cat([bottom[:, None, :], vecs], dim=1)
     z = dot_interaction(vecs, pair_cols)
     if bottom is not None:
         z = torch.cat([bottom, z], dim=1)
-    scores = tower(top_weights, z, activation=cfg.mlp.activation)
+    scores = tower(top_weights, z, activation=cfg.mlp.activation, **tower_options(mlp_bias))
     return scores[:, 0]
+
+
+def tower_options(biases: Optional[Sequence[torch.Tensor]] = None,
+                  last_activation: bool = False) -> dict:
+    """The keyword arguments of a tower call that differ from its defaults
+    (a bias-free tower without a last activation passes none)."""
+    kw = {} if biases is None else {"biases": biases}
+    if last_activation:
+        kw["last_activation"] = True
+    return kw
 
 
 def trainable_tensors(model: FleetRecModel) -> Dict[str, torch.Tensor]:
@@ -434,7 +584,8 @@ def init_model(
 ) -> FleetRecModel:
     """Build the model on ``device`` (the card unless the caller asks for
     the CPU; without a card, "cuda" raises).  Default data is the reference parity
-    convention (pm1 tables, all-ones weights, zero cross biases),
+    convention (pm1 tables, all-ones weights, zero cross biases, and zero
+    tower biases where the config's ``use_bias`` asks for them),
     numpy-seeded as in the JAX package (the bottom tower in the seed + 1
     namespace, the cross layers in seed + 2); pass tables_np/mlp_np to load
     real tables and top-tower weights."""
@@ -464,4 +615,8 @@ def init_model(
     if cfg.interaction == "cross":
         cross = init_cross_params(cfg.feature_dim, cfg.cross_layers, rank=cfg.cross_rank,
                                   scheme=mlp_scheme, seed=seed, dtype=dtype, device=device)
-    return FleetRecModel(plan, packed, mlp, bottom, cross)
+    biases = {name: [torch.zeros(w.shape[1], dtype=dtype, device=device) for w in ws]
+              for name, spec, ws in (("mlp_bias", cfg.mlp, mlp),
+                                     ("bottom_bias", cfg.bottom_mlp, bottom))
+              if spec is not None and spec.use_bias}
+    return FleetRecModel(plan, packed, mlp, bottom, cross, **biases)

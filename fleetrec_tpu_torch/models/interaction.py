@@ -3,7 +3,7 @@
 and DCNv2's cross network, as plain functions on tensors.
 
 Neither runs inside a TPU kernel in the JAX package (both are XLA ops
-there), so both stay library products and torch ops here, with the JAX
+there), so their products stay library products here, with the JAX
 package's cast points: every product takes fp32 operands and sums in fp32
 (TF32 stays off), and the result is cast back to the activation dtype
 where JAX casts it.
@@ -11,7 +11,9 @@ where JAX casts it.
 * dot: the Gram matrix of the per-example vectors, one ``torch.bmm``, then
   one static column gather of its strict lower triangle in row-major order.
 * cross: x_{l+1} = x0 * (x_l W_l + b_l) + x_l a layer (arXiv:2008.13535);
-  the low-rank variant factors W = U V into two skinny products.
+  the low-rank variant factors W = U V into two skinny products
+  (``torch.matmul``), and the layer's elementwise tail is one launch of the
+  port's own kernel (``ops/cross.py::cross_tail``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..ops.cross import cross_tail
 
 
 def num_pairs(n_vectors: int) -> int:
@@ -88,14 +92,18 @@ def init_cross_params(
     return layers
 
 
-def cross_network(x0: torch.Tensor,
-                  layers: Sequence[Sequence[torch.Tensor]]) -> torch.Tensor:
+def cross_network(x0: torch.Tensor, layers: Sequence[Sequence[torch.Tensor]],
+                  tail=None) -> torch.Tensor:
     """DCNv2 stacked cross layers on x0 [B, F] -> [B, F] in ``x0.dtype``.
 
     Each layer's x_l W (or x_l U V) is summed in fp32 from operands in
     ``x0.dtype`` (the low-rank intermediate stays fp32, as JAX's promotion
     keeps it), then cast to ``x0.dtype``; ``+ b``, ``x0 * (...)`` and
-    ``+ x_l`` are each computed in ``x0.dtype``."""
+    ``+ x_l`` are each computed in ``x0.dtype``, by one ``tail`` a layer:
+    None is ``cross_tail`` (the kernel), which the served forward runs;
+    training passes ``cross_tail_plain`` (the same arithmetic,
+    differentiable)."""
+    tail = cross_tail if tail is None else tail
     dtype = x0.dtype
     x = x0
     for lp in layers:
@@ -103,5 +111,5 @@ def cross_network(x0: torch.Tensor,
         xw = x.float()
         for m in mats:
             xw = torch.matmul(xw, m.to(dtype).float())
-        x = x0 * (xw.to(dtype) + b.to(dtype)) + x
+        x = tail(x0, xw, b, x)
     return x

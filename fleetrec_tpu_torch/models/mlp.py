@@ -45,12 +45,16 @@ def mlp_apply(
     x: torch.Tensor,
     activation: Optional[str] = None,
     out_dtype: torch.dtype = torch.float32,
+    biases: Optional[Sequence[torch.Tensor]] = None,
+    last_activation: bool = False,
 ) -> torch.Tensor:
     """x: [B, input_dim] -> [B, out_dim] in ``out_dtype``; fp32 sums
     whatever the storage dtype.  No TF32: matmuls run in full fp32.  The
     fp32 sums of the last layer are cast to ``out_dtype`` once, as the JAX
-    package rounds them."""
-    return fused_mlp(weights, x, activation).to(out_dtype)
+    package rounds them.  ``biases``: a float32 ``[out]`` a layer, added to
+    each layer's fp32 sum before its activation (float32 towers only);
+    ``last_activation``: the activation after the last layer too."""
+    return fused_mlp(weights, x, activation, biases, last_activation).to(out_dtype)
 
 
 def mlp_train(

@@ -1,11 +1,17 @@
-// Fused bias-free MLP tower: scores = x @ W1 @ ... @ Wn, one launch per
-// layer on the caller's stream, so one fused_mlp call is n_layers launches.
+// Fused MLP tower: scores = x @ W1 @ ... @ Wn, bias-free by default, one
+// launch per layer on the caller's stream, so one fused_mlp call is n_layers
+// launches.
 //
 // Replaces the Pallas kernel fleetrec_tpu/ops/mlp_fused.py::fused_mlp
 // (_kernel), with the same semantics as models/mlp.py::mlp_apply: weights
 // in the activation dtype D (float32 or bfloat16), every sum in fp32, ReLU
-// (optional) on every layer but the last, activations re-narrowed to D
-// between layers, fp32 out.
+// (optional) on every layer but the last (and on the last too where the
+// caller asks: MLPerf DLRM's bottom MLP), activations re-narrowed to D
+// between layers, fp32 out.  In fp32 a tower may carry a bias a layer
+// (DLRM-DCNv2's towers): the epilogue adds it to the fp32 sum, rounded, before
+// the ReLU.  The bias is a compile-time switch (ffma_product<BM, BN, true>,
+// rowdot<float, true>), so a bias-free tower's kernels read no bias and take
+// no branch for it.
 //
 // The TPU kernel kept every weight resident in VMEM and every intermediate
 // out of HBM.  Here the weights cannot stay on chip (model1's are 4.1 MB in
@@ -100,10 +106,11 @@ constexpr int ffma_smem() {
 // (j / 4) * 64 + tx * 4 + j % 4 of the tile.  A warp is a 4 x 8 patch of
 // that grid: per k it reads 4 A values (one bank group each) and 32
 // consecutive W values, one shared-memory wavefront each.
-template <int BM, int BN>
+template <int BM, int BN, bool BIAS>
 __global__ void __launch_bounds__(kFfmaThreads)
 ffma_product(const float* __restrict__ A, const float* __restrict__ W,
-             float* __restrict__ C, int M, int K, int N, int n_store, int relu) {
+             const float* __restrict__ bias, float* __restrict__ C, int M, int K, int N,
+             int n_store, int relu) {
   constexpr int BK = kFfmaBK, AS = BK + kFfmaPad, TM = BM / 16, TN = BN / 16;
   constexpr int A_TILE = BM * AS, W_TILE = BK * BN;
   extern __shared__ __align__(16) float smem[];
@@ -201,6 +208,7 @@ ffma_product(const float* __restrict__ A, const float* __restrict__ W,
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         v[q] = acc[i][jj * 4 + q];
+        if constexpr (BIAS) v[q] = __fadd_rn(v[q], c + q < n_store ? __ldg(bias + c + q) : 0.f);
         if (relu) v[q] = fmaxf(v[q], 0.f);
       }
       if (vec && c + 3 < n_store) {
@@ -403,10 +411,10 @@ wgmma_product(const __grid_constant__ CUtensorMap map_a,
 
 constexpr int kRowdotWarps = 8;
 
-template <typename D>
+template <typename D, bool BIAS>
 __global__ void __launch_bounds__(kRowdotWarps * 32)
-rowdot(const D* __restrict__ H, const D* __restrict__ W, float* __restrict__ out,
-       int M, int K, int N) {
+rowdot(const D* __restrict__ H, const D* __restrict__ W, const float* __restrict__ bias,
+       float* __restrict__ out, int M, int K, int N) {
   const int lane = threadIdx.x % 32;
   const int64_t row = (int64_t)blockIdx.x * kRowdotWarps + threadIdx.x / 32;
   if (row >= M) return;
@@ -426,6 +434,7 @@ rowdot(const D* __restrict__ H, const D* __restrict__ W, float* __restrict__ out
     float v = acc[n];
 #pragma unroll
     for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if constexpr (BIAS) v = __fadd_rn(v, __ldg(bias + n));
     if (lane == 0) out[row * N + n] = v;
   }
 }
@@ -454,29 +463,36 @@ inline dim3 product_grid(const Layer& p, int64_t B) {
   return dim3((unsigned)((p.n + p.bn - 1) / p.bn), (unsigned)((B + p.bm - 1) / p.bm));
 }
 
-template <typename D>
-cudaError_t launch_rowdot(const Layer& p, const void* in, const void* w, void* out,
-                          int64_t B, cudaStream_t st) {
+template <typename D, bool BIAS>
+cudaError_t launch_rowdot(const Layer& p, const void* in, const void* w, const float* bias,
+                          void* out, int64_t B, cudaStream_t st) {
   if (p.n < 1 || p.n > kRowdotMaxN) return cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((B + kRowdotWarps - 1) / kRowdotWarps);
-  rowdot<D><<<blocks, kRowdotWarps * 32, 0, st>>>(
-      static_cast<const D*>(in), static_cast<const D*>(w), static_cast<float*>(out),
+  rowdot<D, BIAS><<<blocks, kRowdotWarps * 32, 0, st>>>(
+      static_cast<const D*>(in), static_cast<const D*>(w), bias, static_cast<float*>(out),
       (int)B, p.k, p.n);
   return cudaGetLastError();
 }
 
-template <int BM, int BN>
-cudaError_t launch_ffma(const Layer& p, const void* in, const void* w, void* out,
-                        int64_t B, int relu, cudaStream_t st) {
+template <int BM, int BN, bool BIAS>
+cudaError_t launch_ffma(const Layer& p, const void* in, const void* w, const float* bias,
+                        void* out, int64_t B, int relu, cudaStream_t st) {
   constexpr int smem = ffma_smem<BM, BN>();
   static_assert(smem <= kSmemMax, "fp32 tile ring does not fit shared memory");
   static unsigned long long smem_set = 0;
-  cudaError_t err = allow_smem(ffma_product<BM, BN>, smem, smem_set);
+  cudaError_t err = allow_smem(ffma_product<BM, BN, BIAS>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  ffma_product<BM, BN><<<product_grid(p, B), kFfmaThreads, smem, st>>>(
-      static_cast<const float*>(in), static_cast<const float*>(w),
+  ffma_product<BM, BN, BIAS><<<product_grid(p, B), kFfmaThreads, smem, st>>>(
+      static_cast<const float*>(in), static_cast<const float*>(w), bias,
       static_cast<float*>(out), (int)B, p.k, p.n, p.n_store, relu);
   return cudaGetLastError();
+}
+
+template <int BM, int BN>
+cudaError_t launch_ffma_bias(const Layer& p, const void* in, const void* w, const float* bias,
+                             void* out, int64_t B, int relu, cudaStream_t st) {
+  return bias ? launch_ffma<BM, BN, true>(p, in, w, bias, out, B, relu, st)
+              : launch_ffma<BM, BN, false>(p, in, w, nullptr, out, B, relu, st);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -535,23 +551,28 @@ cudaError_t launch_wgmma(const Layer& p, const void* in, const void* w, void* ou
   return cudaGetLastError();
 }
 
+// bias: the layer's fp32 bias [n], or null for none (bfloat16 takes none)
 template <typename D>
-cudaError_t launch_product(const Layer& p, const void* in, const void* w, void* out,
-                           int64_t B, int relu, int last, cudaStream_t st);
+cudaError_t launch_product(const Layer& p, const void* in, const void* w, const float* bias,
+                           void* out, int64_t B, int relu, int last, cudaStream_t st);
 
 template <>
 cudaError_t launch_product<float>(const Layer& p, const void* in, const void* w,
-                                  void* out, int64_t B, int relu, int, cudaStream_t st) {
-  if (p.bm == 128 && p.bn == 128) return launch_ffma<128, 128>(p, in, w, out, B, relu, st);
-  if (p.bm == 64 && p.bn == 128) return launch_ffma<64, 128>(p, in, w, out, B, relu, st);
-  if (p.bm == 64 && p.bn == 64) return launch_ffma<64, 64>(p, in, w, out, B, relu, st);
+                                  const float* bias, void* out, int64_t B, int relu, int,
+                                  cudaStream_t st) {
+  if (p.bm == 128 && p.bn == 128)
+    return launch_ffma_bias<128, 128>(p, in, w, bias, out, B, relu, st);
+  if (p.bm == 64 && p.bn == 128)
+    return launch_ffma_bias<64, 128>(p, in, w, bias, out, B, relu, st);
+  if (p.bm == 64 && p.bn == 64) return launch_ffma_bias<64, 64>(p, in, w, bias, out, B, relu, st);
   return cudaErrorInvalidValue;
 }
 
 template <>
 cudaError_t launch_product<__nv_bfloat16>(const Layer& p, const void* in, const void* w,
-                                          void* out, int64_t B, int relu, int last,
-                                          cudaStream_t st) {
+                                          const float* bias, void* out, int64_t B, int relu,
+                                          int last, cudaStream_t st) {
+  if (bias != nullptr) return cudaErrorInvalidValue;
   if (p.bm == 128 && p.bn == 128)
     return launch_wgmma<128, 128>(p, in, w, out, B, relu, last, st);
   if (p.bm == 64 && p.bn == 128)
@@ -562,8 +583,8 @@ cudaError_t launch_product<__nv_bfloat16>(const Layer& p, const void* in, const 
 
 template <typename D>
 cudaError_t fused_mlp(int n_layers, const void* const* in, const void* const* w,
-                      void* const* out, const int* plan, int64_t B, int relu,
-                      cudaStream_t st) {
+                      const void* const* biases, void* const* out, const int* plan, int64_t B,
+                      int relu, int relu_last, cudaStream_t st) {
   const int align = 16 / (int)sizeof(D);
   if (n_layers < 1 || B < 1 || B > INT32_MAX || (B + 63) / 64 > 65535)
     return cudaErrorInvalidValue;
@@ -571,12 +592,15 @@ cudaError_t fused_mlp(int n_layers, const void* const* in, const void* const* w,
     const int* q = plan + kPlanInts * l;
     const Layer p{q[0], q[1], q[2], q[3], q[4], q[5]};
     const int last = l == n_layers - 1;
+    const float* bias = biases ? static_cast<const float*>(biases[l]) : nullptr;
     cudaError_t err;
-    if (p.kind == kRowdot && last) {
-      err = launch_rowdot<D>(p, in[l], w[l], out[l], B, st);
+    if (p.kind == kRowdot && last && !relu_last && (bias == nullptr || sizeof(D) == 4)) {
+      err = bias ? launch_rowdot<D, true>(p, in[l], w[l], bias, out[l], B, st)
+                 : launch_rowdot<D, false>(p, in[l], w[l], nullptr, out[l], B, st);
     } else if (p.kind == kProduct && p.k % align == 0 && p.n % align == 0 &&
                p.n_store <= p.n) {
-      err = launch_product<D>(p, in[l], w[l], out[l], B, relu && !last, last, st);
+      err = launch_product<D>(p, in[l], w[l], bias, out[l], B, relu && (!last || relu_last),
+                              last, st);
     } else {
       err = cudaErrorInvalidValue;
     }
@@ -588,18 +612,23 @@ cudaError_t fused_mlp(int n_layers, const void* const* in, const void* const* w,
 }  // namespace
 
 // n_layers launches on `stream`: layer l reads in[l] ([B, K_l]), its padded
-// weight w[l] ([K_l, N_l]) and writes out[l] (scratch in D, or the fp32
-// scores for the last layer).  plan: kPlanInts ints a layer (mlp_plan).
+// weight w[l] ([K_l, N_l]) and, where biases is not null, its fp32 bias
+// biases[l] ([N_l], zero-padded; float32 only), and writes out[l] (scratch in
+// D, or the fp32 output of the last layer).  plan: kPlanInts ints a layer
+// (mlp_plan).  relu: ReLU after every layer but the last; relu_last: after
+// the last too (a product, never a row-dot).
 extern "C" int fr_fused_mlp_f32(int n_layers, const void* const* in,
-                                const void* const* w, void* const* out,
-                                const int* plan, int64_t B, int relu, void* stream) {
-  return (int)fused_mlp<float>(n_layers, in, w, out, plan, B, relu,
+                                const void* const* w, const void* const* biases,
+                                void* const* out, const int* plan, int64_t B, int relu,
+                                int relu_last, void* stream) {
+  return (int)fused_mlp<float>(n_layers, in, w, biases, out, plan, B, relu, relu_last,
                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fr_fused_mlp_bf16(int n_layers, const void* const* in,
-                                 const void* const* w, void* const* out,
-                                 const int* plan, int64_t B, int relu, void* stream) {
-  return (int)fused_mlp<__nv_bfloat16>(n_layers, in, w, out, plan, B, relu,
-                                       static_cast<cudaStream_t>(stream));
+                                 const void* const* w, const void* const* biases,
+                                 void* const* out, const int* plan, int64_t B, int relu,
+                                 int relu_last, void* stream) {
+  return (int)fused_mlp<__nv_bfloat16>(n_layers, in, w, biases, out, plan, B, relu,
+                                       relu_last, static_cast<cudaStream_t>(stream));
 }

@@ -101,6 +101,19 @@
 // were no faster.  L is an argument, bounded by shared memory (ids
 // and records grow with it: ops/lookup.py::bags_plan).
 //
+// The ragged bag kernel (lookup_ragged_kernel, entry point
+// fr_lookup_ragged_bags) is the bag kernel over bags of different sizes, as
+// MLPerf's DLRM-DCNv2 sends them (1 to 100 members a table, 214 ids a query):
+// int32 ids [B, n_ids], each table's bag one run of ids [runs[t], runs[t +
+// 1]) of a row, tables in config order.  The ids stay as they came: no bag
+// is padded to the longest (padding DCNv2's to L = 100 would move 2,600 id
+// slots a query to serve 214).  Both kernels run one body: staging gives each
+// plan column where its bag starts in a row of ids and its member count, and
+// pass 1 walks that run; L is the longest bag (the records' size).  The
+// uniform kernel's runs are [t * L, (t + 1) * L).  Its arithmetic is the bag
+// kernel's rule, so a ragged call on bags of one size gives the bag kernel's
+// bits.
+//
 // The row window (row_lo, rows_local) is the two forward kernels' form for one
 // model shard of the sharded forward (parallel/sharded.py, the port of
 // fleetrec_tpu/parallel/sharded.py:177-261 and :312-414): the take buffer
@@ -267,7 +280,8 @@ struct Col {
   int32_t dim;     // the row's width
   float scale;     // int8 dequant scale (1 for float storage)
   int16_t op, take;
-  int16_t buf, pad;
+  int16_t buf;
+  int16_t count;   // the bag kernels': the members of the column's bag (else 0)
 };
 static_assert(sizeof(Col) == 40, "Col is 40 bytes (ops/lookup.py::smem_bytes)");
 
@@ -282,18 +296,21 @@ __host__ __device__ constexpr int smem_bytes(int F, int n_plan, int rows) {
 // odd number of words, so that neighbouring threads write to other banks.
 __host__ __device__ constexpr int bag_record_words(int L) { return (L + 2) | 1; }
 
-// Bytes of one ring slot: a tile's ids and the 16-byte lines its ends share
-// with the neighbouring tiles.
-__host__ __device__ constexpr int64_t ring_slot_bytes(int rows, int T, int L, int id_bytes) {
-  return ((int64_t)rows * T * L * id_bytes + 15) / 16 * 16 + 32;
+// Bytes of one ring slot: a tile's ids (row_ids a batch row) and the 16-byte
+// lines its ends share with the neighbouring tiles.
+__host__ __device__ constexpr int64_t ring_slot_bytes(int rows, int64_t row_ids, int id_bytes) {
+  return ((int64_t)rows * row_ids * id_bytes + 15) / 16 * 16 + 32;
 }
 
-__host__ __device__ constexpr int64_t smem_bytes_bags(int n_pos, int n_plan, int rows, int T,
-                                                      int L, int id_bytes, int stages) {
+// row_ids: ids a batch row (T * L, or the ragged kernel's sum of the bags);
+// L: the most members a bag has
+__host__ __device__ constexpr int64_t smem_bytes_bags(int n_pos, int n_plan, int rows,
+                                                      int64_t row_ids, int L, int id_bytes,
+                                                      int stages) {
   // ops/lookup.py::bag_smem_bytes: a mbarrier a ring slot (16-byte
   // aligned), the ring, n_pos staged output descriptors (8 B), the plan
   // columns, two buffers of a record a (row, plan column) and of a flag a row
-  return (8 * (int64_t)stages + 15) / 16 * 16 + stages * ring_slot_bytes(rows, T, L, id_bytes) +
+  return (8 * (int64_t)stages + 15) / 16 * 16 + stages * ring_slot_bytes(rows, row_ids, id_bytes) +
          8 * (int64_t)n_pos + (int64_t)sizeof(Col) * n_plan +
          8 * (int64_t)rows * n_plan * bag_record_words(L) + 8 * (int64_t)rows;
 }
@@ -327,7 +344,7 @@ __device__ __forceinline__ void stage_cols(const int64_t* __restrict__ cols, int
     col.op = (int16_t)c[kOp];
     col.take = c[kKind] == kTake;
     col.buf = (int16_t)c[kBuf];
-    col.pad = 0;
+    col.count = 0;
     s_col[k] = col;
   }
 }
@@ -755,19 +772,22 @@ __device__ __forceinline__ void store_run(int2 q, const uint32_t* recs, int W,
   }
 }
 
-// The bag kernel: ids [B, T, L], a negative id padding.  VEC as above;
+// The two bag kernels' body: a batch row's ids are row_ids ids, config-order
+// table t's bag the run of ids [runs[t], runs[t + 1]) of it (the ragged
+// kernel), or, with runs null, [t * L, (t + 1) * L) (ids [B, T, L]); a
+// negative id is padding; L is the most members a bag has.  VEC as above;
 // kSlots: member loads in flight a thread.  Dynamic shared memory
 // smem_bytes_bags: the ring's mbarriers, the ring, the staged output
 // descriptors (a chunk each with VEC, else a column each), the plan columns,
 // two buffers of records and of flags.
 template <typename TS, typename I, bool VEC, int kSlots>
-__global__ void __launch_bounds__(kThreads)
-    lookup_bags_kernel(Buffers bufs, const I* __restrict__ ids,
-                       const float* __restrict__ dense, const int64_t* __restrict__ cols,
-                       const int2* __restrict__ pos, typename Elem<TS>::Out* __restrict__ out,
-                       bool* __restrict__ bad, int B, int T, int L, int n_plan, int F,
-                       int dense_dim, int rows, int stages, int mean, int64_t stripes,
-                       int64_t stripe_height, int64_t row_lo, int64_t rows_local) {
+__device__ __forceinline__ void bags_body(
+    const Buffers& bufs, const I* __restrict__ ids, const float* __restrict__ dense,
+    const int64_t* __restrict__ cols, const int2* __restrict__ pos,
+    typename Elem<TS>::Out* __restrict__ out, bool* __restrict__ bad, int B,
+    const int* __restrict__ runs, int64_t row_ids, int L, int n_plan, int F, int dense_dim,
+    int rows, int stages, int mean, int64_t stripes, int64_t stripe_height, int64_t row_lo,
+    int64_t rows_local) {
   using E = Elem<TS>;
   using Out = typename E::Out;
   constexpr int kV = 16 / sizeof(Out);  // output columns a 16-byte chunk
@@ -777,8 +797,7 @@ __global__ void __launch_bounds__(kThreads)
   const int chunks = F / kV;
   const int n_pos = VEC ? chunks : F;
   const int W = bag_record_words(L);
-  const int64_t row_ids = (int64_t)T * L;
-  const int64_t slot_bytes = ring_slot_bytes(rows, T, L, sizeof(I));
+  const int64_t slot_bytes = ring_slot_bytes(rows, row_ids, sizeof(I));
   const int tile_recs = rows * n_plan * W;
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* s_bar = reinterpret_cast<uint64_t*>(smem);
@@ -814,6 +833,14 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = threadIdx.x; i < 2 * rows; i += kThreads) s_bad[i] = 0;
   __syncthreads();
   stage_cols(cols, n_plan, s_col, s_sc);
+  // each column's bag: where it starts in a row of ids, and its members (the
+  // thread that staged the column)
+  for (int k = threadIdx.x; k < n_plan; k += kThreads) {
+    Col& c = s_col[k];
+    const int t = c.src;
+    c.src = runs ? __ldg(runs + t) : t * L;
+    c.count = (int16_t)(runs ? __ldg(runs + t + 1) - __ldg(runs + t) : L);
+  }
   __syncthreads();  // s_col, and the first tiles' unaligned ends
 
   const uint32_t S = (uint32_t)stripes;
@@ -836,17 +863,18 @@ __global__ void __launch_bounds__(kThreads)
     for (int u = threadIdx.x; u < nr * n_plan; u += kThreads) {
       const int r = u / n_plan;
       const Col& c = s_col[u - r * n_plan];
-      const I* x = tile_ids + ((int64_t)r * T + c.src) * L;
+      const I* x = tile_ids + (int64_t)r * row_ids + c.src;
+      const int members_max = c.count;
       uint32_t* rec = recs + u * W;
       // row_address's row number, with shifts where the divisors are powers of 2
       const uint32_t s = (uint32_t)c.s;
       const int s_sh = (s & (s - 1)) ? -1 : __ffs(s) - 1;
       int n = 0, members = 0;
       bool flag = false;
-      for (int l0 = 0; l0 < L; l0 += 4) {
+      for (int l0 = 0; l0 < members_max; l0 += 4) {
         Id v[4];  // four slots' ids read before any is used
 #pragma unroll
-        for (int j = 0; j < 4; ++j) v[j] = l0 + j < L ? (Id)x[l0 + j] : Id(-1);
+        for (int j = 0; j < 4; ++j) v[j] = l0 + j < members_max ? (Id)x[l0 + j] : Id(-1);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           Id id = v[j];
@@ -943,6 +971,39 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
+}
+
+// The bag kernel: ids [B, T, L], a negative id padding (bags_body).
+template <typename TS, typename I, bool VEC, int kSlots>
+__global__ void __launch_bounds__(kThreads)
+    lookup_bags_kernel(Buffers bufs, const I* __restrict__ ids,
+                       const float* __restrict__ dense, const int64_t* __restrict__ cols,
+                       const int2* __restrict__ pos, typename Elem<TS>::Out* __restrict__ out,
+                       bool* __restrict__ bad, int B, int T, int L, int n_plan, int F,
+                       int dense_dim, int rows, int stages, int mean, int64_t stripes,
+                       int64_t stripe_height, int64_t row_lo, int64_t rows_local) {
+  bags_body<TS, I, VEC, kSlots>(bufs, ids, dense, cols, pos, out, bad, B, nullptr,
+                                (int64_t)T * L, L, n_plan, F, dense_dim, rows, stages, mean,
+                                stripes, stripe_height, row_lo, rows_local);
+}
+
+// The ragged bag kernel (entry point fr_lookup_ragged_bags): int32 ids
+// [B, n_ids], table t's bag the ids [runs[t], runs[t + 1]) of a row (the
+// wire's layout: no bag is padded to the longest), L the longest bag
+// (bags_body).  A kernel of its own, so that a device trace tells it from
+// the uniform bag kernel.
+template <typename TS, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    lookup_ragged_kernel(Buffers bufs, const int32_t* __restrict__ ids,
+                         const float* __restrict__ dense, const int64_t* __restrict__ cols,
+                         const int2* __restrict__ pos, typename Elem<TS>::Out* __restrict__ out,
+                         bool* __restrict__ bad, int B, const int* __restrict__ runs,
+                         int n_ids, int L, int n_plan, int F, int dense_dim, int rows,
+                         int stages, int mean, int64_t stripes, int64_t stripe_height,
+                         int64_t row_lo, int64_t rows_local) {
+  bags_body<TS, int32_t, VEC, 4>(bufs, ids, dense, cols, pos, out, bad, B, runs, n_ids, L,
+                                 n_plan, F, dense_dim, rows, stages, mean, stripes,
+                                 stripe_height, row_lo, rows_local);
 }
 
 // The backward of the single-id kernel (entry point fr_lookup_fused_backward):
@@ -1159,7 +1220,9 @@ struct Args {
   int B, T, n_plan, F, dense_dim, rows, grid, vec;
   int64_t stripes, stripe_height;
   int64_t row_lo, rows_local;  // the take buffer's row window
-  int L, mean, stages, slots;  // the bag kernel's
+  int L, mean, stages, slots;  // the bag kernels'
+  const int* runs;             // the ragged kernel's bags (null: [B, T, L])
+  int n_ids;                   // the ragged kernel's ids a row
 };
 
 template <typename TS, typename I, bool VEC>
@@ -1185,7 +1248,7 @@ cudaError_t launch_bags(const Args& a, cudaStream_t st) {
   if (err != cudaSuccess) return err;
   const int64_t smem =
       smem_bytes_bags(VEC ? a.F / (16 / (int)sizeof(typename Elem<TS>::Out)) : a.F, a.n_plan,
-                      a.rows, a.T, a.L, sizeof(I), a.stages);
+                      a.rows, (int64_t)a.T * a.L, a.L, sizeof(I), a.stages);
   // a persistent grid: no more blocks than the card holds at once
   int per_sm = 0, dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
@@ -1203,6 +1266,30 @@ cudaError_t launch_bags(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+template <typename TS, bool VEC>
+cudaError_t launch_ragged(const Args& a, cudaStream_t st) {
+  static unsigned long long smem_set = 0;
+  cudaError_t err = allow_smem(lookup_ragged_kernel<TS, VEC>, smem_set);
+  if (err != cudaSuccess) return err;
+  const int64_t smem =
+      smem_bytes_bags(VEC ? a.F / (16 / (int)sizeof(typename Elem<TS>::Out)) : a.F, a.n_plan,
+                      a.rows, a.n_ids, a.L, sizeof(int32_t), a.stages);
+  int per_sm = 0, dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, lookup_ragged_kernel<TS, VEC>, kThreads, smem)) != cudaSuccess)
+    return err;
+  const int grid = max(1, min(a.grid, per_sm * sms));
+  lookup_ragged_kernel<TS, VEC><<<grid, kThreads, smem, st>>>(
+      a.bufs, static_cast<const int32_t*>(a.ids), static_cast<const float*>(a.dense),
+      static_cast<const int64_t*>(a.cols), static_cast<const int2*>(a.pos),
+      static_cast<typename Elem<TS>::Out*>(a.out), static_cast<bool*>(a.bad), a.B, a.runs,
+      a.n_ids, a.L, a.n_plan, a.F, a.dense_dim, a.rows, a.stages, a.mean, a.stripes,
+      a.stripe_height, a.row_lo, a.rows_local);
+  return cudaGetLastError();
+}
+
 template <typename I, bool VEC>
 cudaError_t launch_backward(const Args& a, const float* grad, cudaStream_t st) {
   static unsigned long long smem_set = 0;
@@ -1215,11 +1302,16 @@ cudaError_t launch_backward(const Args& a, const float* grad, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// a.L == 0: the single-id kernel; else the bag kernel with a.slots (4 or 8)
-// member loads in flight a thread
+// a.L == 0: the single-id kernel; a.runs: the ragged bag kernel (int32 ids,
+// 4 member loads in flight a thread); else the bag kernel with a.slots (4 or
+// 8)
 template <typename TS, typename I, bool VEC>
 cudaError_t launch_kind(const Args& a, cudaStream_t st) {
   if (!a.L) return launch<TS, I, VEC>(a, st);
+  if (a.runs) {
+    if constexpr (sizeof(I) == 4) return launch_ragged<TS, VEC>(a, st);
+    return cudaErrorInvalidValue;
+  }
   return a.slots == 4 ? launch_bags<TS, I, VEC, 4>(a, st) : launch_bags<TS, I, VEC, 8>(a, st);
 }
 
@@ -1238,13 +1330,18 @@ int run(const void* const* bufs, const void* const* scales, int n_bufs, int stor
         const void* ids, int ids_64, const void* dense, const void* cols, const void* pos,
         void* out, void* bad, int64_t B, int T, int n_plan, int F, int dense_dim, int rows,
         int grid, int64_t stripes, int64_t stripe_height, int vec, int64_t row_lo,
-        int64_t rows_local, int L, int mean, int stages, int slots, void* stream) {
+        int64_t rows_local, int L, int mean, int stages, int slots, void* stream,
+        const int* runs = nullptr, int n_ids = 0) {
   const int chunk = storage == 1 ? 8 : 4;
   const int id_bytes = ids_64 ? 8 : 4;
+  const int64_t row_ids = runs ? (int64_t)n_ids : (int64_t)T * L;
   if (n_bufs < 0 || n_bufs > kMaxBufs || B < 1 || B > INT32_MAX || rows < 1 || grid < 1 ||
-      L < 0 || row_lo < 0 || rows_local < 0 || (int64_t)rows * F > INT32_MAX / 2 ||
+      L < 0 || L > INT16_MAX || row_lo < 0 || rows_local < 0 ||
+      (int64_t)rows * F > INT32_MAX / 2 ||
       (int64_t)rows * n_plan * (L ? bag_record_words(L) : 1) > INT32_MAX / 2 ||
-      (L ? smem_bytes_bags(bag_pos_count(storage, F, vec), n_plan, rows, T, L, id_bytes, stages)
+      (runs && (ids_64 || slots != 4 || n_ids < 1)) ||
+      (L ? smem_bytes_bags(bag_pos_count(storage, F, vec), n_plan, rows, row_ids, L, id_bytes,
+                           stages)
          : smem_bytes(F, n_plan, rows)) > kSmemMax ||
       (L && (stages < 2 || stages > 8 || (slots != 4 && slots != 8) ||
              reinterpret_cast<uintptr_t>(ids) % id_bytes != 0)) ||
@@ -1277,6 +1374,8 @@ int run(const void* const* bufs, const void* const* scales, int n_bufs, int stor
   a.mean = mean;
   a.stages = stages;
   a.slots = slots;
+  a.runs = runs;
+  a.n_ids = n_ids;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (storage) {
     case 0:
@@ -1331,6 +1430,25 @@ extern "C" int fr_lookup_fused_bags(const void* const* bufs, const void* const* 
   return run(bufs, scales, n_bufs, storage, ids, ids_64, dense, cols, pos, out, bad, B, T,
              n_plan, F, dense_dim, rows, grid, stripes, stripe_height, vec, row_lo, rows_local,
              L, mean != 0, stages, slots, stream);
+}
+
+// The ragged bag kernel, one launch on `stream`: fr_lookup_fused_bags'
+// arguments with int32 ids [B, n_ids] (ids_64 must be 0), runs (int32 [T +
+// 1], on the device: table t's bag is the ids [runs[t], runs[t + 1]) of a
+// row, runs[T] = n_ids), L the longest bag (1 .. 32767) and slots 4.
+extern "C" int fr_lookup_ragged_bags(const void* const* bufs, const void* const* scales,
+                                     int n_bufs, int storage, const void* ids, int ids_64,
+                                     const void* dense, const void* cols, const void* pos,
+                                     void* out, void* bad, int64_t B, int T, int n_plan,
+                                     int F, int dense_dim, int rows, int grid,
+                                     int64_t stripes, int64_t stripe_height, int vec,
+                                     int64_t row_lo, int64_t rows_local, const void* runs,
+                                     int n_ids, int L, int mean, int stages, int slots,
+                                     void* stream) {
+  if (L < 1 || runs == nullptr) return (int)cudaErrorInvalidValue;
+  return run(bufs, scales, n_bufs, storage, ids, ids_64, dense, cols, pos, out, bad, B, T,
+             n_plan, F, dense_dim, rows, grid, stripes, stripe_height, vec, row_lo, rows_local,
+             L, mean != 0, stages, slots, stream, static_cast<const int*>(runs), n_ids);
 }
 
 // The backward kernel, one launch on `stream`: grads, n_bufs float32 gradient

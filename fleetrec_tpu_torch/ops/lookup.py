@@ -43,6 +43,16 @@ bfloat16); on float32 and int8 storage, and on small-integer data in any
 dtype, the two agree to the last bit or to a float32 sum's order.  L = 1
 with no negative id reproduces ``lookup_fused`` bit for bit.
 
+``lookup_fused_ragged`` is the bag lookup over bags of different sizes
+(MLPerf's DLRM-DCNv2: 1 to 100 members a table): config-order int32 ids
+[B, sum(bag_sizes)], table t's ``bag_sizes[t]`` members in one run, tables
+in config order (the wire's layout), by the ragged kernel of
+``lookup_fused.cu``, which reads each table's run where it lies and pads no
+bag to the longest.  Its rule is the bag rule above, so on bags of one size
+L it gives ``lookup_fused_bags``' bits on the same ids viewed as [B, T, L];
+``lookup_fused_ragged_plain`` is that plain version on the ids padded to
+the longest bag with -1.
+
 ``window=(row_lo, rows_local)`` is the two forward kernels' form for one
 model shard of the sharded forward (``parallel/sharded.py``): the take
 buffer passed is physical rows ``[row_lo, row_lo + rows_local)`` of the
@@ -259,6 +269,47 @@ def lookup_fused_plain(ids: torch.Tensor, dense: Optional[torch.Tensor],
     return _place_dense(out, dense, col, o), (bad if with_bad else None)
 
 
+def bag_columns(bag_sizes: Sequence[int]) -> np.ndarray:
+    """int64 [T + 1]: table t's bag is the id columns [c[t], c[t + 1])."""
+    return np.concatenate([[0], np.cumsum(np.asarray(bag_sizes, np.int64))]).astype(np.int64)
+
+
+def _check_bag_sizes(ids: torch.Tensor, bag_sizes: Sequence[int]) -> None:
+    if not bag_sizes or min(bag_sizes) < 1 or max(bag_sizes) > np.iinfo(np.int16).max:
+        raise ValueError(f"bag sizes must be 1 .. 32767, got {tuple(bag_sizes)}")
+    if ids.dim() != 2 or ids.shape[1] != sum(bag_sizes):
+        raise ValueError(f"ragged bags of sizes summing to {sum(bag_sizes)} are ids "
+                         f"[B, {sum(bag_sizes)}], got {tuple(ids.shape)}")
+
+
+def pad_ragged(ids: torch.Tensor, bag_sizes: Sequence[int]) -> torch.Tensor:
+    """Ragged ids [B, sum(bag_sizes)] -> bags [B, T, max(bag_sizes)], each
+    bag's members first and -1 (padding) after them."""
+    B, L = ids.shape[0], max(bag_sizes)
+    c = bag_columns(bag_sizes)
+    src = torch.as_tensor(np.minimum(c[:-1, None] + np.arange(L)[None, :], ids.shape[1] - 1),
+                          device=ids.device)
+    real = torch.as_tensor(np.arange(L)[None, :] < np.asarray(bag_sizes)[:, None],
+                           device=ids.device)
+    return torch.where(real, ids[:, src], -1)
+
+
+def lookup_fused_ragged_plain(ids: torch.Tensor, dense: Optional[torch.Tensor],
+                              bufs: Sequence[torch.Tensor],
+                              scales: Optional[Sequence[torch.Tensor]],
+                              cols: torch.Tensor, pos: torch.Tensor,
+                              bag_sizes: Sequence[int], stripes: int = 1,
+                              stripe_height: int = 0, dense_dim: int = 0, mean: bool = False,
+                              with_bad: bool = True
+                              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``lookup_fused_ragged`` with PyTorch ops: ``lookup_fused_bags_plain``
+    on the bags padded with -1 to the longest (``pad_ragged``), which adds
+    nothing and counts no member, so the bits are the kernel's."""
+    _check_bag_sizes(ids, bag_sizes)
+    return lookup_fused_bags_plain(pad_ragged(ids, bag_sizes), dense, bufs, scales, cols, pos,
+                                   stripes, stripe_height, dense_dim, mean, with_bad)
+
+
 def lookup_fused_bags_plain(ids: torch.Tensor, dense: Optional[torch.Tensor],
                             bufs: Sequence[torch.Tensor],
                             scales: Optional[Sequence[torch.Tensor]],
@@ -333,6 +384,32 @@ def _entry_bags():
 
 
 @functools.cache
+def _entry_ragged():
+    fn = _build.kernels().fr_lookup_ragged_bags
+    fn.restype = ctypes.c_int
+    # fr_lookup_fused's arguments (with the window), then runs, n_ids, L,
+    # mean, stages, slots and the stream
+    fn.argtypes = [*_LOOKUP_ARGS, ctypes.c_void_p, *[ctypes.c_int] * 5, ctypes.c_void_p]
+    return fn
+
+
+# (bag sizes, device) -> the ragged kernel's runs: int32 [T + 1] on the device
+_RUNS: dict = {}
+
+
+def bag_runs(bag_sizes: Sequence[int], device: torch.device) -> torch.Tensor:
+    """``bag_columns`` as int32 on ``device``, made once a (sizes, device)
+    (a copy from the host: the first call of a served shape comes before its
+    CUDA graphs are captured)."""
+    key = (tuple(int(b) for b in bag_sizes), str(device))
+    hit = _RUNS.get(key)
+    if hit is None:
+        hit = _RUNS[key] = torch.as_tensor(bag_columns(bag_sizes).astype(np.int32),
+                                           device=device)
+    return hit
+
+
+@functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
@@ -367,15 +444,17 @@ def bag_record_words(L: int) -> int:
 
 
 def bag_smem_bytes(n_pos: int, n_plan: int, T: int, L: int, rows: int, stages: int,
-                   id_bytes: int) -> int:
+                   id_bytes: int, n_ids: Optional[int] = None) -> int:
     """Dynamic shared memory of one block of the bag kernel (lookup_fused.cu's
     smem_bytes_bags): an mbarrier a ring slot (rounded up to 16 bytes),
     ``stages`` slots of a tile's ids (its bytes rounded up to 16, and the two
     16-byte lines its ends may share), 8 bytes a staged output descriptor
     (``n_pos``: a 16-byte chunk each where the output moves in chunks, else
     a column each), 40 a plan column, and two tiles' records (a bag each) and
-    flags (a row each)."""
-    slot = -(-rows * T * L * id_bytes // 16) * 16 + 32
+    flags (a row each).  ``n_ids``: a row's ids where they are not T * L (the
+    ragged kernel's; L is then the longest bag)."""
+    row_ids = T * L if n_ids is None else n_ids
+    slot = -(-rows * row_ids * id_bytes // 16) * 16 + 32
     return (-(-8 * stages // 16) * 16 + stages * slot + 8 * n_pos + 40 * n_plan
             + 8 * rows * n_plan * bag_record_words(L) + 8 * rows)
 
@@ -397,7 +476,7 @@ class BagPlan:
 def bags_plan(B: int, T: int, L: int, F: int, n_plan: int, sm_count: int, id_bytes: int = 4,
               pos_cols: int = 1, rows: Optional[int] = None,
               blocks_per_sm: int = BAG_BLOCKS_PER_SM, stages: int = BAG_STAGES,
-              slots: int = BAG_SLOTS) -> BagPlan:
+              slots: int = BAG_SLOTS, n_ids: Optional[int] = None) -> BagPlan:
     """The bag kernel's launch for B batch rows of T tables of L slots (ids
     of ``id_bytes``), F output columns staged ``pos_cols`` to a descriptor
     (the 4 float32 or 8 bfloat16 columns of a 16-byte chunk where the
@@ -405,13 +484,14 @@ def bags_plan(B: int, T: int, L: int, F: int, n_plan: int, sm_count: int, id_byt
     of ``sm_count`` SMs: at most ``blocks_per_sm`` blocks an SM and one a
     tile.  ``rows`` by default: enough for BAG_TILES_PER_BLOCK tiles a block
     (at most BAG_MAX_ROWS), halved until ``blocks_per_sm`` blocks fit an
-    SM's shared memory.  Raises when one row does not fit a block."""
+    SM's shared memory.  Raises when one row does not fit a block.
+    ``n_ids``: the ragged kernel's ids a row (L its longest bag)."""
     if F % pos_cols or stages < 2 or slots not in (4, 8) or min(B, T, L, blocks_per_sm) < 1:
         raise ValueError(f"no bag plan for B={B} T={T} L={L} F={F} pos_cols={pos_cols} "
                          f"stages={stages} slots={slots} blocks_per_sm={blocks_per_sm}")
 
     def smem(r):
-        return bag_smem_bytes(F // pos_cols, n_plan, T, L, r, stages, id_bytes)
+        return bag_smem_bytes(F // pos_cols, n_plan, T, L, r, stages, id_bytes, n_ids)
 
     if rows is None:
         rows = max(1, min(BAG_MAX_ROWS,
@@ -448,15 +528,21 @@ def _launch(ids: torch.Tensor, dense: Optional[torch.Tensor],
             bufs: Sequence[torch.Tensor], scales: Optional[Sequence[torch.Tensor]],
             cols: torch.Tensor, pos: torch.Tensor, stripes: int, stripe_height: int,
             dense_dim: int, with_bad: bool, shape, mean: Optional[bool],
-            window: Optional[Tuple[int, int]]
+            window: Optional[Tuple[int, int]], bag_sizes: Optional[Sequence[int]] = None
             ) -> Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
     """What ``lookup_fused`` (ids [B, T], ``mean`` None; ``shape`` its
-    ``tile``) and ``lookup_fused_bags`` (ids [B, T, L]; ``shape`` its
-    ``plan``) share: the checks of their operands, then, for CUDA tensors,
-    one launch of the kernel.  Returns None for CPU tensors: the caller
-    runs its plain version."""
-    bags = mean is not None
-    if ids.dim() != 2 + bags or ids.dtype not in _IDX_DTYPES or (bags and ids.shape[2] < 1):
+    ``tile``), ``lookup_fused_bags`` (ids [B, T, L]; ``shape`` its ``plan``)
+    and ``lookup_fused_ragged`` (int32 ids [B, sum(bag_sizes)] on the card;
+    ``shape`` its ``plan``) share: the checks of their operands, then, for
+    CUDA tensors, one launch of the kernel.  Returns None for CPU tensors:
+    the caller runs its plain version."""
+    ragged = bag_sizes is not None
+    bags = mean is not None and not ragged
+    if ragged:
+        if ids.dtype not in _IDX_DTYPES:
+            raise TypeError(f"ids must be int32 or int64, got {ids.dtype}")
+        _check_bag_sizes(ids, bag_sizes)
+    elif ids.dim() != 2 + bags or ids.dtype not in _IDX_DTYPES or (bags and ids.shape[2] < 1):
         raise TypeError(f"ids must be [B, T{', L >= 1' if bags else ''}] int32 or int64, got "
                         f"{tuple(ids.shape)} {ids.dtype}")
     if cols.dim() != 2 or cols.shape[1] != len(LOOKUP_COL_FIELDS) or pos.dim() != 2:
@@ -472,7 +558,7 @@ def _launch(ids: torch.Tensor, dense: Optional[torch.Tensor],
         raise ValueError("the lookup's tensors lie on more than one device")
     _check_dense(ids, dense, dense_dim)
     _check_window(window)
-    if bags and bag_buffer_rows(bufs, cols) >= 1 << 32:
+    if (bags or ragged) and bag_buffer_rows(bufs, cols) >= 1 << 32:
         raise ValueError("a buffer holds 2^32 rows or more: the bag kernel's member lists "
                          "keep 4-byte row numbers")
     if ids.device.type == "cpu":
@@ -483,12 +569,16 @@ def _launch(ids: torch.Tensor, dense: Optional[torch.Tensor],
         raise ValueError(f"{len(bufs)} buffers: the kernel takes {MAX_BUFS}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the lookup kernel needs contiguous tensors")
+    if ragged and ids.dtype != torch.int32:
+        raise TypeError(f"the ragged bag kernel reads int32 ids, got {ids.dtype}")
     if dense is not None and dense.dtype != torch.float32:
         if dense.dtype not in (torch.bfloat16, torch.float16):
             raise TypeError(f"dense must be float32 (or exactly widened), got {dense.dtype}")
         dense = dense.float()
     B, T = ids.shape[:2]
     L = ids.shape[2] if bags else 0
+    if ragged:
+        T, L = len(bag_sizes), max(bag_sizes)
     n_plan, F = cols.shape[0], pos.shape[0]
     dev = ids.device
     out = torch.empty((B, F), dtype=lookup_out_dtype(bufs), device=dev)
@@ -500,10 +590,10 @@ def _launch(ids: torch.Tensor, dense: Optional[torch.Tensor],
     chunk = 16 // out.element_size()
     vec = F % chunk == 0 and all(t.data_ptr() % 16 == 0 for t in [out, *bufs, *(
         [] if dense is None else [dense])])
-    if bags:
+    if bags or ragged:
         plan = bags_plan(B, T, L, F, n_plan, _sm_count(dev.index or 0),
                          id_bytes=ids.element_size(), pos_cols=chunk if vec else 1,
-                         **(shape or {}))
+                         n_ids=ids.shape[1] if ragged else None, **(shape or {}))
         rows, grid = plan.rows, plan.grid
     else:
         rows, grid = launch_shape(B, F, n_plan, _sm_count(dev.index or 0), *(shape or ()))
@@ -520,11 +610,15 @@ def _launch(ids: torch.Tensor, dense: Optional[torch.Tensor],
             rows, grid, stripes, stripe_height, int(vec), *(window or _WHOLE)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        if bags:
+        if ragged:
+            rc = _entry_ragged()(*args, bag_runs(bag_sizes, dev).data_ptr(), ids.shape[1], L,
+                                 int(mean), plan.stages, plan.slots, stream)
+        elif bags:
             rc = _entry_bags()(*args, L, int(mean), plan.stages, plan.slots, stream)
         else:
             rc = _entry()(*args, stream)
-    _build.check(rc, "lookup_fused_bags" if bags else "lookup_fused")
+    _build.check(rc, "lookup_fused_ragged" if ragged else
+                 "lookup_fused_bags" if bags else "lookup_fused")
     return out, bad
 
 
@@ -591,6 +685,34 @@ def lookup_fused_bags(ids: torch.Tensor, dense: Optional[torch.Tensor],
 
 
 lookup_fused_bags.launches = 0
+
+
+def lookup_fused_ragged(ids: torch.Tensor, dense: Optional[torch.Tensor],
+                        bufs: Sequence[torch.Tensor],
+                        scales: Optional[Sequence[torch.Tensor]],
+                        cols: torch.Tensor, pos: torch.Tensor, bag_sizes: Sequence[int],
+                        stripes: int = 1, stripe_height: int = 0, dense_dim: int = 0,
+                        mean: bool = False, with_bad: bool = True
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Ragged bags: ids [B, sum(bag_sizes)] (config order, table t's
+    ``bag_sizes[t]`` members in one run; a negative id is padding; int32 on
+    the card) and ``lookup_fused_bags``' other operands -> its (features,
+    bad), by the same rule.  On a CUDA tensor it launches the ragged kernel
+    of ``lookup_fused.cu`` in ``bags_plan``'s launch (4 member loads in
+    flight a thread) or raises; on a CPU tensor it runs
+    ``lookup_fused_ragged_plain``.  One device only: no take window."""
+    res = _launch(ids, dense, bufs, scales, cols, pos, stripes, stripe_height,
+                  dense_dim, with_bad, None, bool(mean), None, bag_sizes=bag_sizes)
+    if res is None:
+        return lookup_fused_ragged_plain(ids, dense, bufs, scales, cols, pos, bag_sizes,
+                                         stripes, stripe_height, dense_dim, bool(mean),
+                                         with_bad)
+    if ids.shape[0]:
+        lookup_fused_ragged.launches += 1
+    return res
+
+
+lookup_fused_ragged.launches = 0
 
 
 def require_float_storage(bufs: Sequence[torch.Tensor]) -> None:

@@ -1,6 +1,6 @@
-"""Fused MLP tower: the bias-free chain ``x @ W1 @ ... @ Wn``, one kernel
-launch per layer with the inter-layer activations in an L2-resident
-scratch.
+"""Fused MLP tower: the chain ``x @ W1 @ ... @ Wn`` (bias-free by default),
+one kernel launch per layer with the inter-layer activations in an
+L2-resident scratch.
 
 The port of ``fleetrec_tpu/ops/mlp_fused.py::fused_mlp``.  On a CUDA
 tensor ``fused_mlp`` launches the hand-written kernels
@@ -11,8 +11,11 @@ one a forward, which is ``n_layers`` kernel launches on the stream.
 
 Semantics (those of ``models/mlp.py::mlp_apply``): weights are cast to
 ``x.dtype``, every sum is fp32, ReLU (optional) applies on every layer but
-the last, activations re-narrow to ``x.dtype`` between layers, the output
-is fp32.
+the last (and on the last where ``last_activation`` says so), activations
+re-narrow to ``x.dtype`` between layers, the output is fp32.  ``biases``
+(one ``[out]`` tensor a layer, float32 towers only): each layer's fp32 sum
+plus its bias, rounded once, before the ReLU; a bfloat16 tower with biases
+raises ``ValueError``.
 
 ``mlp_plan`` decides every launch from the widths, the dtype and the
 batch alone, once per (widths, dtype, batch): for each layer the kernel (a
@@ -145,7 +148,9 @@ def fused_mlp_available(widths: Sequence[int], dtype: torch.dtype) -> bool:
 
 
 def fused_mlp_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
-                    activation: Optional[str] = None) -> torch.Tensor:
+                    activation: Optional[str] = None,
+                    biases: Optional[Sequence[torch.Tensor]] = None,
+                    last_activation: bool = False) -> torch.Tensor:
     """The ``torch.matmul`` chain.  Products of bfloat16 values are exact in
     fp32, so upcasting the operands and multiplying in fp32 is bf16-operand,
     fp32-accumulate arithmetic."""
@@ -153,9 +158,12 @@ def fused_mlp_plain(weights: Sequence[torch.Tensor], x: torch.Tensor,
     h = x
     for i, w in enumerate(weights):
         h = torch.matmul(h.float(), w.to(dtype).float())
-        if i < len(weights) - 1:
-            if activation == "relu":
-                h = torch.relu(h)
+        if biases is not None:
+            h = h + biases[i].float()
+        last = i == len(weights) - 1
+        if activation == "relu" and (not last or last_activation):
+            h = torch.relu(h)
+        if not last:
             h = h.to(dtype)
     return h
 
@@ -181,9 +189,10 @@ def pad_operands(plan: MlpPlan, weights: Sequence[torch.Tensor],
 def _entry(dtype: torch.dtype):
     fn = getattr(_build.kernels(), _ENTRY[dtype])
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    # n_layers, in, w, biases, out, plan, B, relu, relu_last, stream
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return fn
 
 
@@ -192,10 +201,26 @@ def _check_aligned(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"fused_mlp needs 16-byte aligned {what}")
 
 
+def _check_biases(biases: Sequence[torch.Tensor], widths: Sequence[int],
+                  x: torch.Tensor) -> None:
+    if x.dtype != torch.float32:
+        raise ValueError(f"fused_mlp takes biases in a float32 tower only, got {x.dtype}")
+    if len(biases) != len(widths) - 1:
+        raise ValueError(f"{len(biases)} biases for {len(widths) - 1} layers")
+    for b, n in zip(biases, widths[1:]):
+        if tuple(b.shape) != (n,) or b.device != x.device:
+            raise ValueError(f"a bias must be [{n}] on {x.device}, got {tuple(b.shape)} "
+                             f"on {b.device}")
+
+
 def fused_mlp(weights: Sequence[torch.Tensor], x: torch.Tensor,
-              activation: Optional[str] = None) -> torch.Tensor:
+              activation: Optional[str] = None,
+              biases: Optional[Sequence[torch.Tensor]] = None,
+              last_activation: bool = False) -> torch.Tensor:
     """x: [B, input_dim] float32 or bfloat16; weights [in, out] per layer
-    -> [B, out_dim] float32."""
+    (and, in a float32 tower, ``biases`` [out] per layer, or None) ->
+    [B, out_dim] float32; ``last_activation``: the activation after the
+    last layer too."""
     if activation not in (None, "relu"):
         raise ValueError(f"activation {activation!r} not in (None, 'relu')")
     if x.dim() != 2 or not weights:
@@ -209,8 +234,11 @@ def fused_mlp(weights: Sequence[torch.Tensor], x: torch.Tensor,
         widths.append(w.shape[1])
     if x.dtype not in _ENTRY:
         raise TypeError(f"fused_mlp takes float32 or bfloat16 x, got {x.dtype}")
+    if biases is not None:
+        _check_biases(biases, widths, x)
+    relu_last = last_activation and activation == "relu"
     if x.device.type == "cpu":
-        return fused_mlp_plain(weights, x, activation)
+        return fused_mlp_plain(weights, x, activation, biases, last_activation)
     if x.device.type != "cuda":
         raise ValueError(f"no fused_mlp kernel for device {x.device}")
     if not x.is_contiguous():
@@ -224,6 +252,11 @@ def fused_mlp(weights: Sequence[torch.Tensor], x: torch.Tensor,
     _check_aligned(xp, "x")
     for w in ws:
         _check_aligned(w, "weights")
+    bs = None
+    if biases is not None:
+        bs = [b.float() if b.shape[0] == lp.n else F.pad(b.float(), (0, lp.n - b.shape[0]))
+              for b, lp in zip(biases, plan.layers)]
+        bs = [b.contiguous() for b in bs]
     scratch = torch.empty(plan.scratch_bytes // x.element_size(), dtype=x.dtype,
                           device=x.device)
     base = scratch.data_ptr()
@@ -232,14 +265,18 @@ def fused_mlp(weights: Sequence[torch.Tensor], x: torch.Tensor,
     # layer l writes ping-pong buffer l % 2, the last layer the scores
     outs = [bufs[l % 2] for l in range(n_layers - 1)] + [out.data_ptr()]
     vp = ctypes.c_void_p * n_layers
-    args = (vp(xp.data_ptr(), *outs[:-1]), vp(*[w.data_ptr() for w in ws]), vp(*outs),
+    # a row-dot has no ReLU: a last activation after one is a torch op
+    relu_after = relu_last and plan.layers[-1].kind == ROWDOT
+    args = (vp(xp.data_ptr(), *outs[:-1]), vp(*[w.data_ptr() for w in ws]),
+            None if bs is None else vp(*[b.data_ptr() for b in bs]), vp(*outs),
             (ctypes.c_int * len(plan.ints))(*plan.ints))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _entry(x.dtype)(n_layers, *args, B, int(activation == "relu"), stream)
+        rc = _entry(x.dtype)(n_layers, *args, B, int(activation == "relu"),
+                             int(relu_last and not relu_after), stream)
     _build.check(rc, "fused_mlp")
     fused_mlp.launches += 1
-    return out
+    return out.relu_() if relu_after else out
 
 
 fused_mlp.launches = 0

@@ -82,6 +82,7 @@ from ..models.fleetrec import (FleetRecModel, ModelPlan, check_inputs, check_poo
 from ..models.interaction import cross_network, pair_columns
 from ..models.mlp import mlp_apply, mlp_train
 from ..models.train import SGD, bce_with_logits
+from ..ops.cross import cross_tail_plain
 from ..ops.lookup import LookupFunction, lookup_fused, lookup_fused_bags, require_float_storage
 from .mesh import Mesh
 
@@ -211,6 +212,11 @@ class ShardedFleetRec:
     the row's scores."""
 
     def __init__(self, model: FleetRecModel, mesh: Mesh):
+        if model.has_biases or (model.cfg.interaction == "cross"
+                                and model.cfg.bottom_mlp is not None):
+            raise ValueError(f"the sharded forward takes bias-free towers and a cross head "
+                             f"without a bottom tower; {model.cfg.name} has "
+                             f"{'tower biases' if model.has_biases else 'a bottom tower'}")
         self._place(model.plan, mesh)
         self.shard_params(model)
 
@@ -447,7 +453,8 @@ class ShardedFleetRec:
             x = h.to(dtype)
             if cfg.interaction == "cross":
                 x = cross_network(x, [[tensors[f"cross_{li}_{j}"] for j in range(len(layer))]
-                                      for li, layer in enumerate(self.cross)])
+                                      for li, layer in enumerate(self.cross)],
+                                  tail=cross_tail_plain)
             scores = mlp_train(mlp, x, activation=act)[:, 0]
         return scores if bad is None else scores.masked_fill(bad, float("nan"))
 

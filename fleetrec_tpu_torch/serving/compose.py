@@ -3,7 +3,8 @@ bind the ingest ports, build the scoring engine over one device or, with
 ``ServeSpec.mesh``, over this rank's shard of a (data, model) mesh (arming
 the peer watchdog), then pump n batches from the wire through the device and
 back out (replies / scatter fan-out); single ids or, on one device, pooled
-bags (``ServeSpec.bag_L``).  On a mesh each data row's leader binds its own
+bags (``ServeSpec.bag_L``, or ``ServeSpec.bag_sizes`` for bags of different
+sizes).  On a mesh each data row's leader binds its own
 ingest ports and replies its own rows; the other ranks of the row follow
 it."""
 
@@ -46,6 +47,16 @@ class ServeSpec:
     # bags (-1 padding); one device, single-sender wire only
     bag_L: int = 0
     bag_mean: bool = False          # mean pooling instead of sum
+    # ragged bags: table t's bag_sizes[t] members in one run of a query's
+    # int32 ids [B, sum(bag_sizes)], tables in config order, then the dense
+    # floats; one device, single-sender wire only (excludes bag_L)
+    bag_sizes: Tuple[int, ...] = ()
+
+    def ids_per_query(self, num_tables: int) -> int:
+        """int32 ids a query sends: one a table, L a table, or the bags'."""
+        if self.bag_sizes:
+            return sum(self.bag_sizes)
+        return num_tables * max(self.bag_L, 1)
 
 
 def build_engine(model, spec: ServeSpec) -> ServingEngine:
@@ -59,8 +70,8 @@ def build_engine(model, spec: ServeSpec) -> ServingEngine:
         return ServingEngine.from_model(model, batch_size=spec.batch,
                                         background_drain=spec.bg_drain,
                                         fuse=spec.fuse, bag_L=spec.bag_L,
-                                        bag_mean=spec.bag_mean)
-    if spec.bag_L:
+                                        bag_mean=spec.bag_mean, bag_sizes=spec.bag_sizes)
+    if spec.bag_L or spec.bag_sizes:
         raise ValueError("pooled bag serving is single-device (no mesh); use "
                          "ShardedFleetRec.forward_pooled directly for sharded bags")
     from ..parallel import ShardedFleetRec, global_mesh
@@ -81,7 +92,7 @@ def serve(cfg, model, spec: ServeSpec) -> dict:
     scatter stats).  Prints the 'serving ...' banner once the ingest ports
     are bound — clients key their connects off it.  A follower rank of a
     mesh binds nothing: it follows its leader and returns its count."""
-    if spec.bag_L and spec.senders > 1:
+    if (spec.bag_L or spec.bag_sizes) and spec.senders > 1:
         raise ValueError("pooled bag serving is single-sender wire only")
     eng = build_engine(model, spec)
     if eng.is_follower:
@@ -100,7 +111,7 @@ def serve(cfg, model, spec: ServeSpec) -> dict:
             wire = IndexWireFormat.plan(cfg, B, spec.senders)
             nbytes = wire.bytes_per_sender()
         else:
-            nbytes = [B * (cfg.num_tables * max(spec.bag_L, 1) + cfg.dense_dim) * 4]
+            nbytes = [B * (spec.ids_per_query(cfg.num_tables) + cfg.dense_dim) * 4]
         scatter = None
         if spec.scatter:
             scatter = ScatterEgress(queue_blocks=spec.slots)

@@ -9,7 +9,9 @@ Two modes, as in the JAX engine:
 * index mode (``from_model``): batches of table ids (+ the dense slice) are
   scored by the whole forward (lookup + concat + MLP) on the device; with
   ``bag_L=L`` the ids are pooled bags ``[B, T, L]`` (``models/pooled.py``:
-  -1 is padding) scored by the pooled forward.  On a CUDA device a batch of
+  -1 is padding) scored by the pooled forward, and with
+  ``bag_sizes=(n_0, ..)`` ragged bags ``[B, sum(n_t)]``, table t's n_t members
+  in one run (``FleetRecModel.forward_ragged``).  On a CUDA device a batch of
   the served shape is scored by replaying that forward from a CUDA graph
   (``GraphSlots``);
 * feature mode (``mlp_only``): batches arrive as pre-gathered feature
@@ -42,7 +44,8 @@ import torch.distributed as dist
 
 from ..models.fleetrec import check_pooled_config
 from ..models.mlp import mlp_apply
-from ..ops.lookup import lookup_fused, lookup_fused_bags
+from ..ops.cross import cross_tail
+from ..ops.lookup import lookup_fused, lookup_fused_bags, lookup_fused_ragged
 from ..ops.mlp_fused import fused_mlp
 
 # watchdog abort status: 124 is the `timeout(1)` convention
@@ -154,6 +157,7 @@ class BatchRecord:
     t_dequeued_ns: int = 0      # the readback taken up (drain thread, or the loop inline)
     t_replied_ns: int = 0       # on_done returned: scores replied
     graph: bool = False         # scored by a CUDA graph's replay (else the eager forward)
+    n_ids: int = 0              # ids the loop copied out of the ring and validated
 
     @property
     def latency_ns(self) -> int:
@@ -233,7 +237,7 @@ def _broadcast_header(mesh, ids: torch.Tensor, has_dense: bool) -> None:
 
 # the kernel wrappers a served forward calls: a replay adds to their
 # ``launches`` what one capture of the forward called
-_FORWARD_KERNELS = (lookup_fused, lookup_fused_bags, fused_mlp)
+_FORWARD_KERNELS = (lookup_fused, lookup_fused_bags, lookup_fused_ragged, fused_mlp, cross_tail)
 
 
 @dataclasses.dataclass(slots=True)
@@ -380,6 +384,7 @@ class ServingEngine:
         self.max_in_flight = max_in_flight
         self.fuse = 1  # ingest batches per device call (from_model(fuse=K))
         self.bag_L = 0  # > 0: pooled bag serving (from_model(bag_L=L))
+        self.bag_sizes: tuple = ()  # ragged bag serving (from_model(bag_sizes=...))
         # optional PeerWatchdog bounding dispatch / readback (sharded serving)
         self.watchdog: Optional[PeerWatchdog] = None
         # from_sharded: the sharded model, the forward it runs, and whether
@@ -425,7 +430,7 @@ class ServingEngine:
     @classmethod
     def from_model(cls, model, batch_size: int, max_in_flight: int = 2,
                    background_drain: bool = False, fuse: int = 1,
-                   bag_L: int = 0, bag_mean: bool = False):
+                   bag_L: int = 0, bag_mean: bool = False, bag_sizes=()):
         """Serve a FleetRecModel on its device.  Each call copies the numpy
         ids (and dense features) to the device and runs the module.
 
@@ -436,8 +441,13 @@ class ServingEngine:
         bag_L=L > 0 serves the pooled forward (``forward_pooled``): slots
         carry int32 [B, T, L] bag ids (-1 = padding) instead of [B, T], sum-
         pooled, or mean-pooled with ``bag_mean``; fused dispatch reshapes
-        [K, B, T, L] to [K*B, T, L].  A config with an interaction head is
-        refused.
+        [K, B, T, L] to [K*B, T, L].  A DLRM dot config is refused.
+
+        bag_sizes=(n_0, .., n_{T-1}) serves ragged bags: slots carry int32
+        [B, sum(n_t)] ids, table t's n_t members in one run, tables in config
+        order (-1 = padding), which stay that shape through the graph slot
+        into ``forward_ragged``'s one ragged-kernel launch (bags of one size
+        too).  Excludes bag_L.
 
         On a CUDA device the engine keeps ``max_in_flight + 1`` graph slots
         (``GraphSlots``), each the static ids ([B, T], [K, B, T] fused, with
@@ -451,7 +461,12 @@ class ServingEngine:
         int64 ids, and ``score_fn`` run the forward eagerly."""
         if bag_L < 0:
             raise ValueError(f"bag_L must be >= 0, got {bag_L}")
-        if bag_L:
+        bag_sizes = tuple(int(n) for n in bag_sizes)
+        T = model.cfg.num_tables
+        if bag_sizes and (bag_L or len(bag_sizes) != T or min(bag_sizes) < 1):
+            raise ValueError(f"bag_sizes must give each of the {T} tables 1 or more members, "
+                             f"without bag_L; got {bag_sizes} (bag_L {bag_L})")
+        if bag_L or bag_sizes:
             check_pooled_config(model.cfg)
         dev = model.device
         n_id = 2 if bag_L else 1  # trailing axes of one query's ids
@@ -467,13 +482,17 @@ class ServingEngine:
             i = i.reshape(-1, *i.shape[-n_id:])
             d = None if d is None else d.reshape(-1, d.shape[-1])
             with torch.inference_mode():
-                s = model.forward_pooled(i, d, mean=bag_mean) if bag_L else model(i, d)
+                if bag_sizes:
+                    s = model.forward_ragged(i, bag_sizes, d, mean=bag_mean)
+                else:
+                    s = model.forward_pooled(i, d, mean=bag_mean) if bag_L else model(i, d)
             return s.reshape(lead)
 
         eng = cls(copy_in, forward, model.cfg.num_tables, model.cfg.dense_dim, batch_size,
                   max_in_flight, background_drain)
         eng.fuse = fuse
         eng.bag_L = bag_L
+        eng.bag_sizes = bag_sizes
         if dev.type == "cuda":
             ids_shape, dense_shape = eng._served_shapes()
             eng._graphs = GraphSlots(copy_in, forward, ids_shape, dense_shape,
@@ -603,11 +622,18 @@ class ServingEngine:
 
         return cls(copy_in, forward, 0, 0, batch_size, max_in_flight, background_drain)
 
+    def _query_ids_shape(self) -> tuple:
+        """The shape of one query's ids: (T,), (T, L) with bag_L, or
+        (sum(bag_sizes),) with ragged bags."""
+        if self.bag_sizes:
+            return (sum(self.bag_sizes),)
+        return (self.num_tables,) + ((self.bag_L,) if self.bag_L else ())
+
     def _served_shapes(self):
         """The ids' and the dense features' shapes of one dispatched batch
         (the dense None without dense features)."""
         lead = (self.fuse, self.batch_size) if self.fuse > 1 else (self.batch_size,)
-        ids = lead + (self.num_tables,) + ((self.bag_L,) if self.bag_L else ())
+        ids = lead + self._query_ids_shape()
         return ids, (lead + (self.dense_dim,) if self.dense_dim else None)
 
     def warmup(self):
@@ -625,8 +651,11 @@ class ServingEngine:
     # -- validation (host-side guard against out-of-range ids) -----------
     def validate_indices(self, indices: np.ndarray, row_limits: Sequence[int]):
         """Single ids [B, T]: every id must be in [0, rows) of its table.
-        Pooled bags [B, T, L] (a ``bag_L`` engine): -1 marks padding and is
+        Pooled bags [B, T, L] (a ``bag_L`` engine) and ragged bags [B,
+        sum(bag_sizes)] (a ``bag_sizes`` engine): -1 marks padding and is
         allowed; anything else must be in range."""
+        if self.bag_sizes:
+            return self._validate_ragged(indices, row_limits)
         ndim = 3 if self.bag_L else 2
         if indices.ndim != ndim or indices.shape[1] != len(row_limits):
             raise ValueError(f"expected [B, {len(row_limits)}{', L' if self.bag_L else ''}] "
@@ -653,6 +682,26 @@ class ServingEngine:
             f"index out of range: batch row {b}, table {t}, "
             f"id {indices[b, t]} >= {lim[t]}"
         )
+
+    def _validate_ragged(self, indices: np.ndarray, row_limits: Sequence[int]):
+        """Ragged bags [B, sum(bag_sizes)]: each member against its table's
+        rows (two column reductions; the full scan only to name the
+        offender)."""
+        sizes = self.bag_sizes
+        if (indices.ndim != 2 or indices.shape[1] != sum(sizes)
+                or len(row_limits) != len(sizes)):
+            raise ValueError(f"expected ragged bags [B, {sum(sizes)}] of {len(sizes)} tables, "
+                             f"got {indices.shape} and {len(row_limits)} row limits")
+        lim = np.repeat(np.minimum(np.asarray(row_limits, dtype=np.int64),
+                                   np.iinfo(indices.dtype).max).astype(indices.dtype), sizes)
+        if (indices.min(axis=0) >= -1).all() and (indices.max(axis=0) < lim).all():
+            return
+        b, c = np.argwhere((indices < -1) | (indices >= lim[None, :]))[0]
+        starts = np.concatenate([[0], np.cumsum(sizes)])
+        t = int(np.searchsorted(starts, c, side="right") - 1)
+        raise ValueError(
+            f"bag index out of range: batch row {b}, table {t}, member {c - starts[t]}, "
+            f"id {indices[b, c]} (limit {lim[c]}; -1 = padding)")
 
     # -- dispatch --------------------------------------------------------
     def submit(self, inputs_np, dense_np=None, t_first_byte_ns: int = 0,
@@ -814,7 +863,7 @@ class ServingEngine:
                 raise ValueError("feature mode needs feature_dim")
         if n_batches % fuse:
             raise ValueError(f"n_batches={n_batches} must divide by fuse={fuse}")
-        if self.bag_L and (wire is not None or mode != "index"):
+        if (self.bag_L or self.bag_sizes) and (wire is not None or mode != "index"):
             raise ValueError("pooled bag serving is index mode on a single-sender "
                              "wire only (no IndexWireFormat)")
         if reply_to is not None or scatter is not None:
@@ -834,7 +883,7 @@ class ServingEngine:
         def parse_index_slot(view):
             if wire is not None:
                 return wire.parse(view)
-            ishape = (B, self.num_tables) + ((self.bag_L,) if self.bag_L else ())
+            ishape = (B,) + self._query_ids_shape()
             n_idx = int(np.prod(ishape))
             idx = view[:n_idx].view(np.int32).reshape(ishape).copy()
             dense = (view[n_idx : n_idx + B * self.dense_dim]
@@ -874,6 +923,7 @@ class ServingEngine:
                 for one in idxs:
                     self.validate_indices(one, row_limits)
             rec.t_validated_ns = time.monotonic_ns()
+            rec.n_ids = sum(one.size for one in idxs)
             rec.t_first_byte_ns = min(t_firsts)
             mark = self._dispatch(rec, idx, dense, on_done)
         summary = self.drain()

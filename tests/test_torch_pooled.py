@@ -484,8 +484,34 @@ def _free_port():
 @pytest.mark.parametrize("name", ["micro_dlrm", "micro_cross"])
 def test_bags_refuse_an_interaction_head(name):
     """The JAX package's forward_pooled runs the plain tower whatever
-    cfg.interaction says; the port raises, in the model and in the engine."""
+    cfg.interaction says; the port raises for a DLRM dot head, in the model
+    and in the engine, and serves bags to a DCNv2 cross head: scores served
+    over the wire equal ``forward_pooled`` to the bit and the float64
+    oracle (the bags' sums, the cross layers, the tower)."""
     cfg = TC.get_config(name, batch_size=8)
+    if name == "micro_cross":
+        tables = ref.init_tables(cfg, scheme="pm1")
+        ws = ref.init_mlp_weights(cfg, scheme="uniform", seed=1)
+        cross = ref.init_cross_weights(cfg, scheme="uniform", seed=1)
+        model = init_model(cfg, tables_np=tables, mlp_np=ws, mlp_scheme="uniform", seed=1,
+                           device=CPU)
+        batches = [make_bags(cfg, 8, L, seed=30 + k) for k in range(2)]
+        eng = ServingEngine.from_model(model, batch_size=8, bag_L=L)
+        for idx, dense in batches:
+            served = eng.score_fn(idx, dense).numpy()
+            with torch.inference_mode():
+                direct = model.forward_pooled(torch.from_numpy(idx), torch.from_numpy(dense))
+            np.testing.assert_array_equal(served, direct.numpy())
+            feats = np.zeros((8, cfg.feature_dim))
+            for j, t in enumerate(cfg.tables):
+                for l in range(L):
+                    v = idx[:, j, l] >= 0
+                    feats[v, t.out_offset:t.out_offset + t.dim] += tables[j][idx[v, j, l]]
+            feats[:, cfg.feature_dim - cfg.dense_dim:] = dense
+            want = ref.mlp_chain(ref.cross_network_np(feats, cross), ws,
+                                 cfg.mlp.activation)[:, 0]
+            np.testing.assert_allclose(served, want, rtol=1e-5, atol=1e-5)
+        return
     model = init_model(cfg, device=CPU)
     idx = torch.zeros((8, cfg.num_tables, L), dtype=torch.int32)
     dense = torch.zeros(8, cfg.dense_dim)
